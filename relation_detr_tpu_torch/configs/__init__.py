@@ -1,0 +1,2 @@
+"""Model configs of the port: Python files read with
+``relation_detr_tpu.utils.config.Config``."""

@@ -1,0 +1,108 @@
+"""Detection on preprocessed canvases, and a folder-inference CLI.
+
+Port of the root ``inference.py``:
+
+    python -m relation_detr_tpu_torch.inference --image-dir imgs/ \\
+        [--model-config relation_detr_tpu_torch/configs/relation_detr/...py] \\
+        [--checkpoint weights.npz] [--device cuda]
+
+Images are read and resized on the host by the shared ``EvalPreset``
+(imported inside ``main``: it needs cv2, which the rest of the port does not)
+onto the fixed 800x1344 canvas. ``--checkpoint`` takes the JAX package's
+``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from relation_detr_tpu_torch.models.post_process import post_process
+from relation_detr_tpu_torch.utils.weights import state_dict_from_jax
+
+CANVAS = (800, 1344)
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+DEFAULT_CONFIG = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "configs", "relation_detr", "relation_detr_resnet50_800_1333.py",
+)
+
+
+def detect(model: torch.nn.Module, images, masks, orig_sizes,
+           select_box_nums: int = 100) -> Dict[str, torch.Tensor]:
+    """Eval forward + ``post_process`` on preprocessed inputs.
+
+    images (B, H, W, 3) normalised float, masks (B, H, W) bool (True =
+    padding), orig_sizes (B, 2) original (h, w); arrays or tensors, moved to
+    the model's device. Returns the ``post_process`` dict.
+    """
+    device = next(model.parameters()).device
+    images = torch.as_tensor(images, dtype=torch.float32, device=device)
+    masks = torch.as_tensor(masks, dtype=torch.bool, device=device)
+    sizes = torch.as_tensor(orig_sizes, dtype=torch.float32, device=device)
+    with torch.inference_mode():
+        out = model(images, masks)
+        return post_process(out["pred_logits"], out["pred_boxes"], sizes, select_box_nums)
+
+
+def load_jax_weights(model: torch.nn.Module, path: str) -> None:
+    """Strict load of a JAX-package ``.npz`` weight file into ``model``."""
+    with np.load(path) as archive:
+        params = {k[len("params/"):]: archive[k] for k in archive.files
+                  if k.startswith("params/")}
+        stats = {k[len("batch_stats/"):]: archive[k] for k in archive.files
+                 if k.startswith("batch_stats/")}
+    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("relation_detr_tpu_torch inference")
+    p.add_argument("--image-dir", required=True)
+    p.add_argument("--model-config", default=DEFAULT_CONFIG)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--score-threshold", type=float, default=0.5)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    import cv2
+
+    from relation_detr_tpu.data.transforms import EvalPreset
+    from relation_detr_tpu.utils.config import Config
+
+    args = parse_args(argv)
+    cfg = Config(args.model_config)
+    model = cfg.build_model(device=args.device)
+    if args.checkpoint:
+        load_jax_weights(model, args.checkpoint)
+    preset = EvalPreset(cfg.get("min_size", 800), cfg.get("max_size", 1333))
+    files = sorted(f for f in os.listdir(args.image_dir) if f.lower().endswith(IMAGE_EXTS))
+    for fname in files:
+        raw = cv2.imread(os.path.join(args.image_dir, fname))
+        rgb = cv2.cvtColor(raw, cv2.COLOR_BGR2RGB)
+        sample = preset({
+            "image": rgb,
+            "boxes": np.zeros((0, 4), np.float32),
+            "labels": np.zeros((0,), np.int64),
+            "image_id": 0,
+            "orig_size": np.asarray(rgb.shape[:2], np.int64),
+        })
+        h, w = sample["image"].shape[:2]
+        images = np.zeros((1, *CANVAS, 3), np.float32)
+        mask = np.ones((1, *CANVAS), bool)
+        images[0, :h, :w] = sample["image"]
+        mask[0, :h, :w] = False
+        det = detect(model, images, mask, [rgb.shape[:2]])
+        keep = det["scores"][0] > args.score_threshold
+        print(f"{fname}: {int(keep.sum())} detections")
+        for s, l, b in zip(det["scores"][0][keep].tolist(), det["labels"][0][keep].tolist(),
+                           det["boxes"][0][keep].tolist()):
+            print(f"  label {l} score {s:.3f} box {[round(v, 1) for v in b]}")
+
+
+if __name__ == "__main__":
+    main()
