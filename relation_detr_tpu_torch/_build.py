@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The library lands in ``build/relation_detr_tpu_torch/`` at
+``nvcc`` compiles every ``csrc/*.cu`` to an object file, one process per
+source, all started together, and links them into one shared library with a
+plain C interface, which is loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The library lands in ``build/relation_detr_tpu_torch/`` at
 the repository root, named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused. Nothing is built or loaded
 when this module is imported: ``load_library`` runs at a wrapper's first
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "relation_detr_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -62,18 +63,34 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    tag = f"tmp{os.getpid()}"
+    tmp = out.with_suffix(f".{tag}.so")
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    try:
+        logs = [(name, proc.communicate()[0], proc.returncode) for name, proc in procs]
+        failed = [(name, code, log) for name, log, code in logs if code != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            if link.returncode != 0:
+                failed = [("link", link.returncode, link.stdout + link.stderr)]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({code}):\n{log}" for name, code, log in failed))
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -89,6 +106,15 @@ def load_library() -> ctypes.CDLL:
     #              B, S, Q, H, D, L, P, stream)
     lib.msda_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.msda_fwd.restype = ctypes.c_int
+    # int msda_bwd(value, level_hw (host int64 [2L]), loc, attn, grad_out,
+    #              grad_value, grad_loc, grad_attn, B, S, Q, H, D, L, P, stream)
+    lib.msda_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.msda_bwd.restype = ctypes.c_int
+    # int window_accumulate(g, y0s, x0s (device int32 [nt]), out,
+    #                       nt, ph, pw, C, h, w, stream)
+    lib.window_accumulate.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.window_accumulate.restype = ctypes.c_int
     # int relation_bias_v4_fwd(src, tgt, a_feats, b_feats, w_xy, bias, freqs
     #                          (host float [E/2]), out, B, N1, N2, H, E, eps, stream)
     lib.relation_bias_v4_fwd.argtypes = [

@@ -6,6 +6,7 @@ JAX package's); ``build_model`` builds the port's model. Read it with
 """
 import torch
 
+from relation_detr_tpu_torch.losses.criterion import CriterionConfig
 from relation_detr_tpu_torch.models.detector import RelationDETR
 
 embed_dim = 256
@@ -33,6 +34,24 @@ model_args = dict(
     transformer_dec_layers=transformer_dec_layers,
     backbone_arch="resnet50",
 )
+
+
+criterion_args = dict(
+    num_classes=num_classes,
+    cost_class=2.0,
+    cost_bbox=5.0,
+    cost_giou=2.0,
+    focal_alpha=0.25,
+    focal_gamma=2.0,
+    weight_class=1.0,
+    weight_bbox=5.0,
+    weight_giou=2.0,
+    class_loss_type="vari_focal",
+)
+
+
+def build_criterion():
+    return CriterionConfig(**criterion_args)
 
 
 def build_model(device="cpu", seed=0):

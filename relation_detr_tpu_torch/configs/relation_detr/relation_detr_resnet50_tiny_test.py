@@ -3,6 +3,7 @@ port. Same values as configs/relation_detr/relation_detr_resnet50_tiny_test.py
 (the JAX package's); ``build_model`` builds the port's model."""
 import torch
 
+from relation_detr_tpu_torch.losses.criterion import CriterionConfig
 from relation_detr_tpu_torch.models.detector import RelationDETR
 
 num_classes = 4  # synthetic: ids 1..3 + 0
@@ -17,6 +18,13 @@ model_args = dict(
     transformer_dec_layers=2,
     backbone_arch="resnet18",
 )
+
+
+criterion_args = dict(num_classes=num_classes)
+
+
+def build_criterion():
+    return CriterionConfig(**criterion_args)
 
 
 def build_model(device="cpu", seed=0):

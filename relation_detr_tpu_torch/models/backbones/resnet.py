@@ -1,7 +1,12 @@
 """ResNet backbone with frozen BatchNorm (NCHW). Counterpart of
 ``relation_detr_tpu/models/backbones/resnet.py`` for the plain (non-DCN)
 archs of its table; state_dict names are torchvision's (conv1, bn1,
-layer{s}.{b}.conv{n}, downsample.0/1)."""
+layer{s}.{b}.conv{n}, downsample.0/1).
+
+The stem and ``layer1`` are frozen (``requires_grad=False``, so the
+optimizer never holds them), as the reference freezes them
+(``freeze_indices=(0,)``); this is the port's form of the JAX package's
+``utils/param_groups.py::is_frozen`` mask."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
@@ -120,6 +125,8 @@ class ResNetBackbone(nn.Module):
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*blocks))
             channels.append(cin)
         self.num_channels: Tuple[int, ...] = tuple(channels[i] for i in self.return_indices)
+        self.conv1.requires_grad_(False)
+        self.layer1.requires_grad_(False)
 
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.kaiming_normal_(self.conv1.weight, mode="fan_out", generator=generator)

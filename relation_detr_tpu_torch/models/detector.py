@@ -1,9 +1,10 @@
-"""Relation-DETR detector, eval forward. Counterpart of
+"""Relation-DETR detector. Counterpart of
 ``relation_detr_tpu/models/detector.py``.
 
 As in the JAX package, resizing, normalising and padding to the canvas happen
 on the host; the model takes a (B, H, W, 3) canvas and a (B, H, W) padding
-mask (True = padding) and returns the raw heads; ``post_process`` decodes.
+mask (True = padding) and returns the raw heads; ``post_process`` decodes
+them and ``losses.criterion.relation_detr_loss`` scores the train forward.
 """
 from __future__ import annotations
 
@@ -13,10 +14,11 @@ import torch
 from torch import nn
 
 from relation_detr_tpu_torch.models.backbones import build_backbone
+from relation_detr_tpu_torch.models.denoising import GenerateCDNQueries
 from relation_detr_tpu_torch.models.layers import init_weights
 from relation_detr_tpu_torch.models.neck import ChannelMapper
 from relation_detr_tpu_torch.models.position_encoding import position_embedding_sine
-from relation_detr_tpu_torch.models.transformer import TRAIN_NOT_PORTED, RelationTransformer
+from relation_detr_tpu_torch.models.transformer import RelationTransformer
 
 
 def downsample_mask(mask: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -26,22 +28,6 @@ def downsample_mask(mask: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor
     rows = torch.arange(out_h, device=mask.device) * in_h // out_h
     cols = torch.arange(out_w, device=mask.device) * in_w // out_w
     return mask[:, rows][:, :, cols]
-
-
-class _DenoisingGenerator(nn.Module):
-    """Holds the CDN label encoder (state_dict:
-    denoising_generator.label_encoder.weight); the CDN forward is the train
-    step, ROADMAP Queue 1 item 8."""
-
-    def __init__(self, num_classes: int, embed_dim: int):
-        super().__init__()
-        self.label_encoder = nn.Embedding(num_classes, embed_dim)
-
-    def init_weights(self, generator: torch.Generator) -> None:
-        nn.init.normal_(self.label_encoder.weight, generator=generator)
-
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(TRAIN_NOT_PORTED)
 
 
 class RelationDETR(nn.Module):
@@ -83,14 +69,25 @@ class RelationDETR(nn.Module):
             two_stage_num_proposals=num_queries,
             hybrid_num_proposals=hybrid_num_proposals,
         )
-        self.denoising_generator = _DenoisingGenerator(num_classes, embed_dim)
+        self.denoising_generator = GenerateCDNQueries(num_classes, embed_dim, denoising_nums)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
 
-    def forward(self, images: torch.Tensor, mask: torch.Tensor, train: bool = False
-                ) -> Dict[str, object]:
-        """images (B, H, W, 3) normalised float, mask (B, H, W) bool."""
-        if train:
-            raise NotImplementedError(TRAIN_NOT_PORTED)
+    def forward(
+        self,
+        images: torch.Tensor,  # (B, H, W, 3) normalised float
+        mask: torch.Tensor,  # (B, H, W) bool, True = padding
+        gt_labels: Optional[torch.Tensor] = None,  # (B, G) int, padded
+        gt_boxes: Optional[torch.Tensor] = None,  # (B, G, 4) normalised cxcywh
+        gt_valid: Optional[torch.Tensor] = None,  # (B, G) bool
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,  # CDN draws (train)
+        noise_draws: Optional[Dict[str, torch.Tensor]] = None,  # injected CDN draws
+    ) -> Dict[str, object]:
+        """The JAX module's output dict: ``pred_logits``/``pred_boxes`` of the
+        last decoder layer, ``aux_outputs`` (the others, stacked) and
+        ``enc_outputs``; with ``train`` also ``dn_outputs``/``dn_meta`` (the
+        CDN slots, split off at ``dn_cap``) and ``hybrid_outputs`` (with its
+        own ``aux_outputs`` and ``enc_outputs``)."""
         feats = self.backbone(images.permute(0, 3, 1, 2))
         multi_level_feats = [f.permute(0, 2, 3, 1) for f in self.neck(feats)]
         multi_level_masks = [downsample_mask(mask, f.shape[1:3]) for f in multi_level_feats]
@@ -99,15 +96,38 @@ class RelationDETR(nn.Module):
                                     offset=-0.5)
             for m in multi_level_masks
         ]
-        outputs_class, outputs_coord, enc_class, enc_coord = self.transformer(
-            multi_level_feats, multi_level_masks, multi_level_pos
+        dn_meta = None
+        noised_label_queries = noised_box_queries = attn_bias = None
+        if train:
+            noised_label_queries, noised_box_queries, attn_bias, dn_meta = (
+                self.denoising_generator(gt_labels, gt_boxes, gt_valid, self.num_queries,
+                                         generator, noise_draws)
+            )
+        (outputs_class, outputs_coord, enc_class, enc_coord, hybrid_class, hybrid_coord,
+         hybrid_enc_class, hybrid_enc_coord) = self.transformer(
+            multi_level_feats, multi_level_masks, multi_level_pos,
+            noised_label_queries, noised_box_queries, attn_bias, train=train,
         )
-        return {
-            "pred_logits": outputs_class[-1],
-            "pred_boxes": outputs_coord[-1],
-            "aux_outputs": {
-                "pred_logits": outputs_class[:-1],
-                "pred_boxes": outputs_coord[:-1],
-            },
-            "enc_outputs": {"pred_logits": enc_class, "pred_boxes": enc_coord},
-        }
+        outputs = {}
+        if dn_meta is not None:
+            dn_cap = self.denoising_generator.dn_cap
+            outputs["dn_outputs"] = {"pred_logits": outputs_class[:, :, :dn_cap],
+                                     "pred_boxes": outputs_coord[:, :, :dn_cap]}
+            outputs["dn_meta"] = dn_meta
+            outputs_class = outputs_class[:, :, dn_cap:]
+            outputs_coord = outputs_coord[:, :, dn_cap:]
+        outputs["pred_logits"] = outputs_class[-1]
+        outputs["pred_boxes"] = outputs_coord[-1]
+        outputs["aux_outputs"] = {"pred_logits": outputs_class[:-1],
+                                  "pred_boxes": outputs_coord[:-1]}
+        outputs["enc_outputs"] = {"pred_logits": enc_class, "pred_boxes": enc_coord}
+        if hybrid_class is not None:
+            outputs["hybrid_outputs"] = {
+                "pred_logits": hybrid_class[-1],
+                "pred_boxes": hybrid_coord[-1],
+                "aux_outputs": {"pred_logits": hybrid_class[:-1],
+                                "pred_boxes": hybrid_coord[:-1]},
+                "enc_outputs": {"pred_logits": hybrid_enc_class,
+                                "pred_boxes": hybrid_enc_coord},
+            }
+        return outputs

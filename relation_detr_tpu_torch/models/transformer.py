@@ -1,17 +1,20 @@
-"""Relation-DETR transformer stack, eval path. Counterpart of
+"""Relation-DETR transformer stack. Counterpart of
 ``relation_detr_tpu/models/transformer.py``.
 
-Ported: the encoder with memory fusion, ``get_encoder_output``, the
-two-stage top-k, and the decoder with the position-relation bias and
+The encoder with memory fusion, ``get_encoder_output``, the two-stage
+top-k, and the decoder with the position-relation bias and
 look-forward-twice box refinement. The decoder's MSDA projects the encoder
 memory per layer and masks the padded rows (where the JAX package on TPU
 shares one prepacked corner table across layers: pack and projection
 commute, so both give the same values).
 
-The hybrid branch and CDN hold their parameters (so checkpoints load
-strictly) but their forward is the train step, ROADMAP Queue 1 item 8:
-``train=True`` raises. The model-family switches (DINO++, Def-DETR++, DN++,
-DAB++) are Queue 1 item 11.
+``train=True`` adds the train forward: the CDN queries go in front of the
+matching queries with their attention bias (added to the relation bias of
+every decoder layer, and alone at layer 0), and the hybrid branch takes its
+own top-k proposals through a second decoder pass without relation bias.
+Every ``stop_gradient`` of the JAX module is a ``.detach()`` at the same
+place. The model-family switches (DINO++, Def-DETR++, DN++, DAB++) are
+ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -36,12 +39,6 @@ from relation_detr_tpu_torch.models.layers import (
 from relation_detr_tpu_torch.models.position_encoding import get_sine_pos_embed
 from relation_detr_tpu_torch.models.relation import PositionRelationEmbedding
 from relation_detr_tpu_torch.ops.boxes import inverse_sigmoid
-
-TRAIN_NOT_PORTED = (
-    "the train forward (CDN queries, hybrid branch) is not ported yet: "
-    "ROADMAP Queue 1 item 8"
-)
-
 
 def _init_class_head(layer: nn.Linear, generator: torch.Generator) -> None:
     lecun_(layer, generator)
@@ -161,10 +158,13 @@ class RelationTransformerDecoder(nn.Module):
             _init_class_head(head, generator)
 
     def forward(self, query, reference_points, value, spatial_shapes, valid_ratios,
-                key_padding_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+                key_padding_mask, attn_bias: Optional[torch.Tensor] = None,
+                skip_relation: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``attn_bias`` (1, 1, Q, Q): the CDN mask, -1e9 where blocked;
+        ``skip_relation``: no relation bias (the hybrid pass)."""
         valid_ratio_scale = torch.cat([valid_ratios, valid_ratios], -1)[:, None]  # (B,1,L,4)
         outputs_classes, outputs_coords = [], []
-        pos_relation = None
+        pos_relation = attn_bias  # the layer-0 bias (relation_transformer.py:335)
         tgt_boxes = None
         last = len(self.layers) - 1
         for layer_idx, layer in enumerate(self.layers):
@@ -184,9 +184,12 @@ class RelationTransformerDecoder(nn.Module):
             outputs_coords.append(output_coord)
             if layer_idx == last:
                 break
-            src_boxes = tgt_boxes if layer_idx >= 1 else reference_points
-            tgt_boxes = output_coord
-            pos_relation = self.position_relation_embedding(src_boxes, tgt_boxes)
+            if not skip_relation:
+                src_boxes = tgt_boxes if layer_idx >= 1 else reference_points
+                tgt_boxes = output_coord
+                pos_relation = self.position_relation_embedding(src_boxes, tgt_boxes)
+                if attn_bias is not None:
+                    pos_relation = pos_relation + attn_bias  # blocked pairs stay blocked
             # refinement on detached references, from the un-normed query
             reference_points = torch.sigmoid(
                 bbox_head(query) + inverse_sigmoid(reference_points.detach())
@@ -195,7 +198,7 @@ class RelationTransformerDecoder(nn.Module):
 
 
 class RelationTransformer(nn.Module):
-    """Two-stage Relation-DETR transformer (eval forward)."""
+    """Two-stage Relation-DETR transformer with the hybrid branch."""
 
     def __init__(self, num_classes, embed_dim=256, d_ffn=2048, num_heads=8,
                  num_feature_levels=4, num_points=4, num_encoder_layers=6,
@@ -244,23 +247,28 @@ class RelationTransformer(nn.Module):
 
     @staticmethod
     def _select_topk(class_logits, coords, k):
-        """Top-k proposals by max class logit."""
+        """Top-k proposals by max class logit -> (class, coord, index)."""
         topk_index = torch.topk(class_logits.max(-1)[0], k, dim=1)[1]  # (B, k)
         topk_class = torch.gather(
             class_logits, 1, topk_index[..., None].expand(-1, -1, class_logits.shape[-1])
         )
         topk_coord = torch.gather(coords, 1, topk_index[..., None].expand(-1, -1, 4))
-        return topk_class, topk_coord
+        return topk_class, topk_coord, topk_index
 
     def forward(
         self,
         multi_level_feats: Sequence[torch.Tensor],  # (B, H, W, C) per level
         multi_level_masks: Sequence[torch.Tensor],  # (B, H, W) True = pad
         multi_level_pos_embeds: Sequence[torch.Tensor],  # (B, H, W, C) per level
+        noised_label_query: Optional[torch.Tensor] = None,  # (B, Qdn, C)
+        noised_box_query: Optional[torch.Tensor] = None,  # (B, Qdn, 4) logit space
+        attn_bias: Optional[torch.Tensor] = None,  # (1, 1, Qdn + Q, Qdn + Q)
         train: bool = False,
     ):
-        if train:
-            raise NotImplementedError(TRAIN_NOT_PORTED)
+        """Returns (classes, coords) of every decoder layer over the CDN and
+        matching queries, the encoder top-k (class, coord), and with
+        ``train`` the hybrid pass's (classes, coords) and its encoder top-k
+        (class, coord); None for what is not computed."""
         spatial_shapes = bt.get_spatial_shapes(multi_level_masks)
         feat_flatten = bt.flatten_multi_level(multi_level_feats)
         mask_flatten = bt.flatten_multi_level(multi_level_masks)
@@ -278,12 +286,35 @@ class RelationTransformer(nn.Module):
         )
         enc_class = self.encoder_class_head(output_memory)
         enc_coord = torch.sigmoid(self.encoder_bbox_head(output_memory) + output_proposals)
-        enc_class, enc_coord = self._select_topk(
+        enc_class, enc_coord, _ = self._select_topk(
             enc_class, enc_coord, self.two_stage_num_proposals
         )
         bs = feat_flatten.shape[0]
         target = self.tgt_embed.weight[None].expand(bs, -1, -1)
+        reference = enc_coord.detach()
+        hybrid = train and self.hybrid_num_proposals > 0
+        if hybrid:
+            hybrid_enc_class = self.hybrid_class_head(output_memory)
+            hybrid_enc_coord = torch.sigmoid(
+                self.hybrid_bbox_head(output_memory) + output_proposals
+            )
+            hybrid_enc_class, hybrid_enc_coord, _ = self._select_topk(
+                hybrid_enc_class, hybrid_enc_coord, self.hybrid_num_proposals
+            )
+        if noised_label_query is not None and noised_box_query is not None:
+            target = torch.cat([noised_label_query, target], dim=1)
+            reference = torch.cat([torch.sigmoid(noised_box_query), reference], dim=1)
+
         outputs_classes, outputs_coords = self.decoder(
-            target, enc_coord.detach(), memory, spatial_shapes, valid_ratios, mask_flatten
+            target, reference, memory, spatial_shapes, valid_ratios, mask_flatten,
+            attn_bias=attn_bias,
         )
-        return outputs_classes, outputs_coords, enc_class, enc_coord
+        if not hybrid:
+            return outputs_classes, outputs_coords, enc_class, enc_coord, None, None, None, None
+        hybrid_target = self.hybrid_tgt_embed.weight[None].expand(bs, -1, -1)
+        hybrid_classes, hybrid_coords = self.decoder(
+            hybrid_target, hybrid_enc_coord.detach(), memory, spatial_shapes, valid_ratios,
+            mask_flatten, skip_relation=True,
+        )
+        return (outputs_classes, outputs_coords, enc_class, enc_coord,
+                hybrid_classes, hybrid_coords, hybrid_enc_class, hybrid_enc_coord)

@@ -8,7 +8,12 @@ header says what bounds it on the card). Both serve the encoder (Q = S) and
 the decoder (Q = queries).
 
 ``multi_scale_deformable_attention`` is the wrapper: a CPU tensor takes
-``msda_reference``; a CUDA tensor launches the kernel or raises.
+``msda_reference`` (autograd differentiates it); a CUDA tensor goes through
+``MSDAFunction``, whose forward launches ``msda_fwd`` and whose backward
+launches ``msda_bwd`` (grads for value, sampling locations and attention
+weights), or raises. ``msda_backward`` is the backward's wrapper and
+``msda_backward_reference`` its plain version (autograd through
+``msda_reference``).
 """
 from __future__ import annotations
 
@@ -91,11 +96,6 @@ def _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weight
         raise TypeError("MSDA kernel takes float32 tensors only")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("MSDA kernel takes contiguous tensors only")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "MSDA CUDA kernel is forward only (the backward is ROADMAP "
-            "Queue 2 item 0); run under torch.no_grad()/inference_mode()"
-        )
     bs, total, num_heads, head_dim = value.shape
     _, num_queries, _, num_levels, num_points, _ = sampling_locations.shape
     if sampling_locations.shape != (bs, num_queries, num_heads, num_levels, num_points, 2):
@@ -108,29 +108,20 @@ def _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weight
         raise ValueError("MSDA: value tokens != sum of level sizes")
 
 
-def multi_scale_deformable_attention(
-    value: torch.Tensor,
-    spatial_shapes: Sequence[Tuple[int, int]],
-    sampling_locations: torch.Tensor,
-    attention_weights: torch.Tensor,
-) -> torch.Tensor:
-    """MSDA core, (B, S, H, D) x (B, Q, H, L, P, 2) x (B, Q, H, L, P) ->
-    (B, Q, H * D). CPU tensors take ``msda_reference``; CUDA tensors launch
-    ``csrc/msda.cu::msda_fwd`` (forward only) or raise."""
-    if value.device.type == "cpu":
-        return msda_reference(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type != "cuda":
-        raise ValueError(f"MSDA: no kernel for device {value.device}")
-    _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
+def _level_hw(spatial_shapes):
+    return (ctypes.c_int64 * (2 * len(spatial_shapes)))(
+        *[int(v) for hw in spatial_shapes for v in hw]
+    )
+
+
+def _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights):
     lib = _build.load_library()
     bs, total, num_heads, head_dim = value.shape
     _, num_queries, _, num_levels, num_points, _ = sampling_locations.shape
     out = torch.empty(
         bs, num_queries, num_heads * head_dim, device=value.device, dtype=torch.float32
     )
-    level_hw = (ctypes.c_int64 * (2 * num_levels))(
-        *[int(v) for hw in spatial_shapes for v in hw]
-    )
+    level_hw = _level_hw(spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.msda_fwd(
@@ -142,6 +133,92 @@ def multi_scale_deformable_attention(
     _build.check(lib, code, "msda_fwd")
     multi_scale_deformable_attention.launches += 1
     return out
+
+
+def msda_backward_reference(value, spatial_shapes, sampling_locations,
+                            attention_weights, grad_out):
+    """Plain version of ``msda_backward``: autograd through
+    ``msda_reference``. Returns (grad_value, grad_locations, grad_weights)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True)
+                  for t in (value, sampling_locations, attention_weights)]
+        out = msda_reference(inputs[0], spatial_shapes, inputs[1], inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out)
+
+
+def msda_backward(value, spatial_shapes, sampling_locations, attention_weights,
+                  grad_out):
+    """Launch ``csrc/msda.cu::msda_bwd`` on CUDA tensors: grad_out
+    (B, Q, H * D) -> (grad_value (B, S, H, D), grad_locations
+    (B, Q, H, L, P, 2), grad_weights (B, Q, H, L, P)), fp32. The head dim D
+    must be a power of two <= 32 (the channel reduction is a warp shuffle)."""
+    _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
+    bs, total, num_heads, head_dim = value.shape
+    _, num_queries, _, num_levels, num_points, _ = sampling_locations.shape
+    if head_dim > 32 or head_dim & (head_dim - 1):
+        raise ValueError(f"msda_bwd takes a head dim that is a power of two <= 32, "
+                         f"got {head_dim}")
+    if grad_out.shape != (bs, num_queries, num_heads * head_dim):
+        raise ValueError(f"msda_bwd: bad grad_out {tuple(grad_out.shape)}")
+    grad_out = grad_out.to(torch.float32).contiguous()
+    lib = _build.load_library()
+    grad_value = torch.zeros_like(value)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    level_hw = _level_hw(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.msda_bwd(
+            value.data_ptr(), ctypes.addressof(level_hw),
+            sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            grad_out.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
+            grad_attn.data_ptr(), bs, total, num_queries, num_heads, head_dim,
+            num_levels, num_points, stream,
+        )
+    _build.check(lib, code, "msda_bwd")
+    msda_backward.launches += 1
+    return grad_value, grad_loc, grad_attn
+
+
+msda_backward.launches = 0
+
+
+class MSDAFunction(torch.autograd.Function):
+    """The MSDA core on CUDA tensors: forward ``msda_fwd``, backward
+    ``msda_bwd``."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, locs, weights = ctx.saved_tensors
+        grad_value, grad_loc, grad_attn = msda_backward(
+            value, ctx.spatial_shapes, locs, weights, grad_out
+        )
+        return grad_value, None, grad_loc, grad_attn
+
+
+def multi_scale_deformable_attention(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """MSDA core, (B, S, H, D) x (B, Q, H, L, P, 2) x (B, Q, H, L, P) ->
+    (B, Q, H * D). CPU tensors take ``msda_reference``; CUDA tensors go
+    through ``MSDAFunction`` (``csrc/msda.cu``) or raise."""
+    if value.device.type == "cpu":
+        return msda_reference(value, spatial_shapes, sampling_locations, attention_weights)
+    if value.device.type != "cuda":
+        raise ValueError(f"MSDA: no kernel for device {value.device}")
+    _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
+    return MSDAFunction.apply(
+        value, tuple(spatial_shapes), sampling_locations, attention_weights
+    )
 
 
 multi_scale_deformable_attention.launches = 0

@@ -15,9 +15,13 @@ version both keep the clamp. A NaN width or height still gives NaN through
 the wh features, as in the JAX kernel.
 
 Gradients: box gradients are zero by contract (the caller detaches the
-boxes, ``relation_pallas.py:304-309``). The plain version is differentiable
-in ``kernel`` and ``bias``; the CUDA wrapper raises when they need a
-gradient (their backward is ROADMAP Queue 2 item 1).
+boxes, ``relation_pallas.py:304-309``); both paths of the wrapper treat the
+boxes as constants. ``kernel`` and ``bias`` gradients: on CPU autograd
+differentiates the plain version; on CUDA ``RelationBiasFunction``'s
+forward launches the kernel and its backward (``relation_bias_v4_backward``)
+recomputes the plain separable version, clamp included, and differentiates
+it, as the JAX package's ``_v4_vjp_bwd`` recomputes through XLA (the TPU
+backward is not a Pallas kernel either).
 """
 from __future__ import annotations
 
@@ -96,11 +100,6 @@ def _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim):
         raise TypeError("relation bias kernel takes float32 tensors only")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("relation bias kernel takes contiguous tensors only")
-    if torch.is_grad_enabled() and (kernel.requires_grad or bias.requires_grad):
-        raise NotImplementedError(
-            "relation bias CUDA kernel is forward only (kernel/bias grads "
-            "are ROADMAP Queue 2 item 1); run under torch.no_grad()"
-        )
     bs, n1, _ = src_boxes.shape
     if src_boxes.shape != (bs, n1, 4) or tgt_boxes.shape != (bs, tgt_boxes.shape[1], 4):
         raise ValueError("relation bias: boxes must be (B, N, 4)")
@@ -113,26 +112,8 @@ def _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim):
         raise ValueError(f"relation bias kernel takes 4, 8 or 16 heads, got {bias.shape[0]}")
 
 
-def relation_bias_v4(
-    src_boxes: torch.Tensor,
-    tgt_boxes: torch.Tensor,
-    kernel: torch.Tensor,
-    bias: torch.Tensor,
-    embed_dim: int = 16,
-    temperature: float = 10000.0,
-    scale: float = 100.0,
-    eps: float = 1e-5,
-) -> torch.Tensor:
-    """Relation bias (B, H, N1, N2). CPU tensors take
-    ``relation_bias_v4_reference``; CUDA tensors launch
-    ``csrc/relation_bias.cu::relation_bias_v4_fwd`` or raise."""
-    if src_boxes.device.type == "cpu":
-        return relation_bias_v4_reference(
-            src_boxes, tgt_boxes, kernel, bias, embed_dim, temperature, scale, eps
-        )
-    if src_boxes.device.type != "cuda":
-        raise ValueError(f"relation bias: no kernel for device {src_boxes.device}")
-    _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim)
+def _relation_bias_v4_fwd(src_boxes, tgt_boxes, kernel, bias, embed_dim,
+                          temperature, scale, eps):
     lib = _build.load_library()
     bs, n1, _ = src_boxes.shape
     n2 = tgt_boxes.shape[1]
@@ -155,6 +136,68 @@ def relation_bias_v4(
     _build.check(lib, code, "relation_bias_v4_fwd")
     relation_bias_v4.launches += 1
     return out
+
+
+def relation_bias_v4_backward(src_boxes, tgt_boxes, kernel, bias, grad_out,
+                              embed_dim=16, temperature=10000.0, scale=100.0, eps=1e-5):
+    """(d kernel, d bias) of the bias: the plain separable version
+    recomputed with the boxes as constants and differentiated."""
+    with torch.enable_grad():
+        k = kernel.detach().requires_grad_(True)
+        b = bias.detach().requires_grad_(True)
+        out = relation_bias_v4_reference(
+            src_boxes.detach(), tgt_boxes.detach(), k, b, embed_dim, temperature, scale, eps
+        )
+        return torch.autograd.grad(out, (k, b), grad_out)
+
+
+class RelationBiasFunction(torch.autograd.Function):
+    """The v4 bias on CUDA tensors: forward ``relation_bias_v4_fwd``,
+    backward ``relation_bias_v4_backward``; zero box gradients."""
+
+    @staticmethod
+    def forward(ctx, src_boxes, tgt_boxes, kernel, bias, embed_dim, temperature, scale, eps):
+        ctx.save_for_backward(src_boxes, tgt_boxes, kernel, bias)
+        ctx.settings = (embed_dim, temperature, scale, eps)
+        return _relation_bias_v4_fwd(src_boxes, tgt_boxes, kernel, bias, embed_dim,
+                                     temperature, scale, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        src_boxes, tgt_boxes, kernel, bias = ctx.saved_tensors
+        d_kernel, d_bias = relation_bias_v4_backward(
+            src_boxes, tgt_boxes, kernel, bias, grad_out, *ctx.settings
+        )
+        d_src = torch.zeros_like(src_boxes) if ctx.needs_input_grad[0] else None
+        d_tgt = torch.zeros_like(tgt_boxes) if ctx.needs_input_grad[1] else None
+        return d_src, d_tgt, d_kernel, d_bias, None, None, None, None
+
+
+def relation_bias_v4(
+    src_boxes: torch.Tensor,
+    tgt_boxes: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: torch.Tensor,
+    embed_dim: int = 16,
+    temperature: float = 10000.0,
+    scale: float = 100.0,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Relation bias (B, H, N1, N2), differentiable in ``kernel`` and
+    ``bias``. CPU tensors take ``relation_bias_v4_reference`` (boxes
+    detached); CUDA tensors go through ``RelationBiasFunction``
+    (``csrc/relation_bias.cu``) or raise."""
+    if src_boxes.device.type == "cpu":
+        return relation_bias_v4_reference(
+            src_boxes.detach(), tgt_boxes.detach(), kernel, bias, embed_dim,
+            temperature, scale, eps,
+        )
+    if src_boxes.device.type != "cuda":
+        raise ValueError(f"relation bias: no kernel for device {src_boxes.device}")
+    _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim)
+    return RelationBiasFunction.apply(
+        src_boxes, tgt_boxes, kernel, bias, embed_dim, temperature, scale, eps
+    )
 
 
 relation_bias_v4.launches = 0
