@@ -7,27 +7,44 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
   2. build: nvcc builds the CUDA kernels from csrc/ (seconds printed);
   3. kernels against their plain PyTorch versions on the card, TF32 off, at
-     the flagship's shapes, with CUDA-event times of both: msda_fwd,
-     relation_bias_v4_fwd, msda_bwd (encoder Q=S=22,323, decoder Q=1100
-     and 1500), the relation bias's backward (N=1100) and
-     window_accumulate (encoder level 0);
+     the flagship's shapes, with CUDA-event times of both (and of one
+     PyTorch call computing the same function, where there is one) and the
+     least time the card could take (bound): msda_fwd, relation_bias_v4_fwd,
+     msda_bwd (encoder Q=S=22,323, decoder Q=1100 and 1500), the relation
+     bias's backward (N=1100), window_accumulate (encoder level 0), the
+     tiled encoder MSDA's tiled_core_fwd, tiled_core_bwd and
+     sep_contract_fwd on its operands at the four levels (B=1, and level 0
+     at B=2), and relation_bias_rel_fwd (N=900 and 1100);
   4. in-model parity: the tiny-test config on the GPU (kernels) and on the
      CPU (plain versions), same weights and inputs: the eval forward, then
      one train forward + backward with the same CDN draws, run on the CPU
-     twice: as is, and sampling at the GPU's MSDA locations;
+     twice: as is, and sampling at the GPU's MSDA locations; under the
+     gather, impl="tiled" and impl="tiled_xla" with tiled_sep_kernel;
   5. the flagship config (ResNet-50, embed 256, 6+6 layers, 900 queries,
      91 classes, fp32, seeded random weights) answers 4 requests on the
      800x1344 canvas through ``inference.detect``, each going through 12
      MSDA and 5 relation-bias kernel launches; then the B=1 p50 latency and
-     peak device memory;
+     peak device memory; then the same weights on the full-canvas request
+     under impl="tiled", under "tiled_xla" + tiled_sep_kernel and under
+     relation versions 1 and 2: pre-top-k heads against the default's,
+     launches per forward, p50 and peak memory of each;
   6. the flagship train step (``parallel.train_step.make_train_step``: CDN,
      hybrid branch, matcher, criterion, backward, clip, AdamW) on synthetic
      batches in the loader's layout: B=1 at GT capacity 100 and 16 (2
-     warm-up + 5 timed steps each), B=2 at 100 (3 steps); p50 step time,
-     peak memory, kernel launches and host matching seconds per step;
-  7. a JSON kernel table (launches: the train step's; window_accumulate is
-     off that path, so its count there is 0), then the last line
+     warm-up + 5 timed steps each), B=2 at 100 (3 steps), then B=1 at 100
+     under impl="tiled" (1 + 3 steps); p50 step time, peak memory, kernel
+     launches and host matching seconds per step;
+  7. a JSON kernel table, one row per kernel (launches: from the run of the
+     path that takes it, each counter set to 0 just before that run:
+     msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
+     step, tiled_core_fwd/bwd and window_accumulate from the tiled train
+     step, sep_contract_fwd from the sep-kernel eval, relation_bias_rel_fwd
+     from the version-1 and version-2 evals), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Bounds: bytes are each input read once and each output written once;
+operations count one per sin/cos and two per FMA, as each row's comment
+says.
 
 Imports neither jax, flax, cv2 nor the JAX package. Exits non-zero, printing
 no result, without a CUDA device or outside a checkout of the repository.
@@ -67,7 +84,32 @@ TOL_BWD_REL = 1e-4
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 TRAIN_RUNS = ((1, 100, 2, 5), (1, 16, 2, 5), (2, 100, 0, 3))  # B, GT cap, warm-up, timed
+TILED_TRAIN_RUN = (1, 100, 1, 3)
+# phase 4's MSDA forms (msda_defaults settings)
+TINY_VARIANTS = (("gather", {}), ("tiled", dict(impl="tiled")),
+                 ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True)))
 BOXES_PER_IMAGE = 7
+# the tiled forms' contraction kernels against their plain versions: the
+# forwards sum in another order than the dense one-hot product (1e-5 abs);
+# tiled_core_bwd adds with shared-memory atomics (TOL_BWD_REL of each max)
+TOL_TILED = 1e-5
+# flagship eval, tiled vs gather: exact up to summation order inside the
+# auto halos (all samples at the seeded init on the full canvas)
+TOL_TILED_EVAL = 1e-4
+# one NVIDIA H100 SXM: HBM bytes/s and fp32 (non-tensor-core) FLOP/s, the
+# published peaks the bound_ms of every kernel row divides by
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# the phase-5 variants beside the default (gather MSDA, relation v4)
+EVAL_VARIANTS = (
+    ("tiled", dict(impl="tiled"), None, TOL_TILED_EVAL),
+    ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True), None,
+     TOL_TILED_EVAL),
+    # v1/v2 take the direct relation (no separable regrouping): the bias
+    # moves by ~1e-4, so the heads are held at the GPU-vs-CPU tolerance
+    ("relation v1", {}, 1, TOL_MODEL),
+    ("relation v2", {}, 2, TOL_MODEL),
+)
 
 
 def phase(n, msg):
@@ -94,13 +136,32 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel, iters_plain, iters_kernel):
-    """Times as plain, kernel, kernel, plain; mean of each pair."""
+def in_turns(plain, kernel, iters_plain, iters_kernel, library=None):
+    """Times as plain, kernel, library, library, kernel, plain; mean of each
+    pair. Returns (kernel ms, plain ms), or with ``library`` (one PyTorch
+    call computing the same function) (kernel ms, plain ms, library ms)."""
     p1 = cuda_ms(plain, iters_plain)
     k1 = cuda_ms(kernel, iters_kernel)
+    lib = None
+    if library is not None:
+        lib = (cuda_ms(library, iters_plain) + cuda_ms(library, iters_plain)) / 2
     k2 = cuda_ms(kernel, iters_kernel)
     p2 = cuda_ms(plain, iters_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    times = ((k1 + k2) / 2, (p1 + p2) / 2)
+    return times if library is None else (*times, lib)
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time one H100 could take to move
+    ``nbytes`` through HBM and do ``ops`` fp32 operations, the larger of
+    the two."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def size(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def msda_inputs(torch, gen, num_queries, dev):
@@ -171,12 +232,15 @@ def check_kernels(torch):
             )
         errs.append(err)
         times.append((ms, plain_ms))
+        if name == "encoder":  # 4 corner FMAs and a weight FMA per (q, h, l, p, d)
+            fwd_bound = bound(size(value, locs, attn, got), 10 * got.numel() * 16)
         phase(3, f"msda_fwd {name} B=1 Q={nq} S={total} H=8 D=32 L=4 P=4: "
                  f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     rows["msda"] = dict(
         name="msda_fwd", route="cuda", source="relation_detr_tpu_torch/csrc/msda.cu",
         replaces="relation_detr_tpu/ops/msda.py:375", max_abs_err=max(errs),
-        ms=times[0][0], plain_ms=times[0][1],
+        ms=times[0][0], plain_ms=times[0][1], bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+        library_ms=None, library="none: grid_sample takes one level per call",
         decoder_ms=times[1][0], decoder_plain_ms=times[1][1],
         shape="encoder B=1 Q=S=22323 H=8 D=32 L=P=4 (decoder: Q=900)",
     )
@@ -199,11 +263,20 @@ def check_kernels(torch):
         )
     phase(3, f"relation_bias_v4_fwd B=1 N1=N2=900 H=8: max_abs_err {err:.3e}, "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # per pair: 32 sin/cos (one operation each) and 2 x 32 FMAs per head
+    # (xy and wh halves); the per-box wh features count as inputs
+    a_feats, b_feats = relation_bias._box_wh_features(
+        src, tgt, kernel, 16, torch.from_numpy(relation_bias._freqs(16, 1e4, 100.0)).cuda(),
+        1e-5)
+    v4_bound = bound(size(src, tgt, a_feats, b_feats, kernel, bias, got),
+                     got.numel() // 8 * (32 + 2 * 2 * 32 * 8))
     rows["relation"] = dict(
         name="relation_bias_v4_fwd", route="cuda",
         source="relation_detr_tpu_torch/csrc/relation_bias.cu",
         replaces="relation_detr_tpu/ops/relation_pallas.py:164", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, shape="B=1 N1=N2=900 H=8 E=16",
+        ms=ms, plain_ms=plain_ms, bound_ms=v4_bound[0], bound_by=v4_bound[1],
+        library_ms=None, library="none: no one call builds the pair features",
+        shape="B=1 N1=N2=900 H=8 E=16",
     )
     return rows
 
@@ -241,6 +314,9 @@ def check_backward_kernels(torch, rows):
             plain, lambda: msda.msda_backward(value, LEVELS, locs, attn, grad_out), 3, 10)
         errs.append(err)
         times[name] = (ms, plain_ms)
+        if name == "encoder":  # per (q, h, l, p, d): 4 corner atomics, 4 x 2 location
+            # FMAs, 4 weight FMAs and the sample FMA
+            bwd_bound = bound(size(value, locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
         phase(3, f"msda_bwd {name} B=1 Q={nq} S={total} H=8 D=32 L=4 P=4: max rel err "
                  f"value {rel[0]:.3e}, locations {rel[1]:.3e}, weights {rel[2]:.3e} "
                  f"(max abs {err:.3e}); kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms")
@@ -248,7 +324,8 @@ def check_backward_kernels(torch, rows):
     rows["msda_bwd"] = dict(
         name="msda_bwd", route="cuda", source="relation_detr_tpu_torch/csrc/msda.cu",
         replaces="relation_detr_tpu/ops/msda.py:375", max_abs_err=max(errs),
-        ms=times["encoder"][0], plain_ms=times["encoder"][1],
+        ms=times["encoder"][0], plain_ms=times["encoder"][1], bound_ms=bwd_bound[0],
+        bound_by=bwd_bound[1], library_ms=None, library="none: no one backward call",
         decoder_ms=times["decoder"][0], decoder_plain_ms=times["decoder"][1],
         hybrid_ms=times["hybrid decoder"][0], hybrid_plain_ms=times["hybrid decoder"][1],
         shape="encoder B=1 Q=S=22323 H=8 D=32 L=P=4 (decoder: Q=1100; hybrid: Q=1500)",
@@ -296,22 +373,200 @@ def check_backward_kernels(torch, rows):
     if not torch.equal(got, want):
         raise AssertionError("window_accumulate: not bit-identical to the ascending "
                              f"slice-add loop (max abs err {(got - want).abs().max().item()})")
-    ms, plain_ms = in_turns(
+    # the library call: one index_add over every window element's canvas row
+    rows_of = (torch.as_tensor(y0s, device=dev)[:, None, None] + torch.arange(ph, device=dev)[:, None]) * w \
+        + torch.as_tensor(x0s, device=dev)[:, None, None] + torch.arange(pw, device=dev)
+    rows_of = rows_of.reshape(-1).long()
+    zeros = torch.zeros(h * w, 256, device=dev)
+    flat = g.reshape(-1, 256)
+    lib_out = torch.index_add(zeros, 0, rows_of, flat).reshape(h, w, 256)
+    lib_err = (lib_out - want).abs().max().item()
+    ms, plain_ms, lib_ms = in_turns(
         lambda: patch_scatter.window_accumulate_reference(g, y0s, x0s, h, w),
-        lambda: patch_scatter.window_accumulate(g, y0s, x0s, h, w), 5, 20)
+        lambda: patch_scatter.window_accumulate(g, y0s, x0s, h, w), 5, 20,
+        library=lambda: torch.index_add(zeros, 0, rows_of, flat))
+    win_bound = bound(size(g, got), g.numel())
     phase(3, f"window_accumulate level 0 {len(y0s)} windows of {ph}x{pw}x256 onto "
-             f"{h}x{w}x256: bit-identical to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+             f"{h}x{w}x256: bit-identical to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"index_add {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound {win_bound[0]:.4f} "
+             f"ms ({win_bound[1]})")
     rows["window"] = dict(
         name="window_accumulate", route="cuda",
         source="relation_detr_tpu_torch/csrc/patch_scatter.cu",
         replaces="relation_detr_tpu/ops/patch_scatter.py:39", max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, shape=f"nt={len(y0s)} ph={ph} pw={pw} C=256 on {h}x{w}",
+        ms=ms, plain_ms=plain_ms, bound_ms=win_bound[0], bound_by=win_bound[1],
+        library_ms=lib_ms, library="torch.index_add over precomputed canvas rows",
+        shape=f"nt={len(y0s)} ph={ph} pw={pw} C=256 on {h}x{w}",
+    )
+
+
+def tiled_inputs(torch, gen, bs, dev):
+    """Encoder inputs in the tiled forms' regime: every token samples near
+    its own raster position, up to num_points = 4 texels off on each level
+    (the reach of the radial offset initialisation, inside the auto halos
+    of 5)."""
+    total = sum(h * w for h, w in LEVELS)
+    value = torch.randn(bs, total, 8, 32, generator=gen, device=dev)
+    refs = torch.cat([torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
+                                                 (torch.arange(h, device=dev) + 0.5) / h,
+                                                 indexing="xy"), -1).reshape(-1, 2)
+                      for h, w in LEVELS])
+    texel = torch.tensor([(w, h) for h, w in LEVELS], device=dev, dtype=torch.float32)
+    offs = torch.rand(bs, total, 8, len(LEVELS), 4, 2, generator=gen, device=dev) * 8 - 4
+    locs = (refs[None, :, None, None, None] + offs / texel[:, None]).contiguous()
+    attn = torch.rand(bs, total, 8, len(LEVELS), 4, generator=gen, device=dev)
+    attn = attn / attn.sum(dim=(-2, -1), keepdim=True)
+    return value, locs, attn
+
+
+def check_tiled_kernels(torch, rows):
+    """tiled_core_fwd, tiled_core_bwd and sep_contract_fwd on the operands
+    the tiled MSDA builds at the flagship's four levels (B=1, and level 0
+    at B=2), and relation_bias_rel_fwd at N = 900 and 1100, each against
+    its plain version and timed in turns with it."""
+    from relation_detr_tpu_torch.models.relation import box_rel_encoding
+    from relation_detr_tpu_torch.ops import msda_tiled, relation_bias
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    found = {k: dict(errs=[], times=[]) for k in ("fwd", "bwd", "sep")}
+    for bs, lvls in ((1, range(4)), (2, range(1))):
+        value, locs, attn = tiled_inputs(torch, gen, bs, dev)
+        with torch.no_grad():
+            consts, levels = msda_tiled.tiled_level_operands(value, LEVELS, locs, attn)
+        for lvl in lvls:
+            op = levels[lvl]
+            x0i, y0i, fx, fy, at, bx, by = op["sample"]
+            ph, pw, h, w = op["ph"], op["pw"], op["h"], op["w"]
+            patch = op["patch"]
+            with torch.no_grad():
+                m, wt = msda_tiled._tiled_entries(x0i, y0i, fx, fy, at, bx, by, ph, pw, h, w)
+                oy = msda_tiled._axis_soft(y0i, fy, by, ph, h, at).contiguous()
+                ox = msda_tiled._axis_soft(x0i, fx, bx, pw, w, None).contiguous()
+                g = torch.randn(bs, consts["nt"], consts["T"], 256, generator=gen, device=dev)
+                dims = (8, 32)
+                shape = (f"B={bs} level {lvl} {h}x{w}: nt={consts['nt']} T={consts['T']} "
+                         f"M={ph * pw} ({ph}x{pw}) H=8 D=32 E=16")
+
+                def plain():
+                    return msda_tiled.tiled_core_reference(m, wt, patch, dims)
+
+                def kernel():
+                    return msda_tiled.tiled_matmul_core(m, wt, patch, dims)
+
+                err = (kernel() - plain()).abs().max().item()
+                if not (err <= TOL_TILED):
+                    raise AssertionError(f"tiled_core_fwd {shape}: max abs err {err}")
+                ms, plain_ms = in_turns(plain, kernel, 2, 10)
+                # per entry and channel one FMA
+                b_fwd = bound(size(m, wt, patch) + size(g), 2 * m.numel() * 32)
+                found["fwd"]["errs"].append(err)
+                found["fwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_fwd))
+                phase(3, f"tiled_core_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
+                         f"plain {plain_ms:.4f} ms, bound {b_fwd[0]:.4f} ms ({b_fwd[1]})")
+
+                got = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
+                want = msda_tiled.tiled_core_backward_reference(m, wt, patch, g, dims)
+                rel = [max_rel(a, b) for a, b in zip(got, want)]
+                err = max((a - b).abs().max().item() for a, b in zip(got, want))
+                if not all(r <= TOL_BWD_REL for r in rel):
+                    raise AssertionError(f"tiled_core_bwd {shape}: max rel err (dw, dpatch) {rel}")
+                ms, plain_ms = in_turns(
+                    lambda: msda_tiled.tiled_core_backward_reference(m, wt, patch, g, dims),
+                    lambda: msda_tiled.tiled_core_backward(m, wt, patch, g, dims), 2, 10)
+                # per entry and channel: the dw product and sum, the dpatch FMA
+                b_bwd = bound(size(m, wt, patch, g, *got), 4 * m.numel() * 32)
+                found["bwd"]["errs"].append(err)
+                found["bwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_bwd))
+                phase(3, f"tiled_core_bwd {shape}: max rel err dw {rel[0]:.3e}, dpatch "
+                         f"{rel[1]:.3e} (max abs {err:.3e}); kernel {ms:.4f} ms, plain "
+                         f"{plain_ms:.4f} ms, bound {b_bwd[0]:.4f} ms ({b_bwd[1]})")
+                del got, want
+
+                patch6 = patch.reshape(bs, consts["nt"], ph, pw, 8, 32)
+                want = msda_tiled.sep_contract_reference(oy, ox, patch)
+                got = msda_tiled.sep_contract_fused(oy, ox, patch)
+                lib = torch.einsum("bnhpyt,bnhpxt,bnyxhd->bnthd", oy, ox, patch6)
+                err = (got - want).abs().max().item()
+                lib_err = (lib.reshape(got.shape) - want).abs().max().item()
+                if not (err <= TOL_TILED):
+                    raise AssertionError(f"sep_contract_fwd {shape}: max abs err {err}")
+                ms, plain_ms, lib_ms = in_turns(
+                    lambda: msda_tiled.sep_contract_reference(oy, ox, patch),
+                    lambda: msda_tiled.sep_contract_fused(oy, ox, patch), 2, 10,
+                    library=lambda: torch.einsum("bnhpyt,bnhpxt,bnyxhd->bnthd", oy, ox, patch6))
+                # per head: the A build (P FMAs per entry) and the contraction
+                # (one FMA per entry and channel)
+                b_sep = bound(size(oy, ox, patch, got),
+                              2 * bs * consts["nt"] * 8 * ph * pw * consts["T"] * (4 + 32))
+                found["sep"]["errs"].append(err)
+                found["sep"]["times"].append((bs, lvl, ms, plain_ms, lib_ms, b_sep))
+                phase(3, f"sep_contract_fwd {shape} P=4: max_abs_err {err:.3e}, kernel "
+                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, 3-operand torch.einsum "
+                         f"{lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound {b_sep[0]:.4f} ms "
+                         f"({b_sep[1]})")
+                del got, want, lib
+        del value, locs, attn, consts, levels
+
+    for key, name, source, replaces, library in (
+        ("fwd", "tiled_core_fwd", "tiled_msda.cu", "relation_detr_tpu/ops/msda_pallas.py:67",
+         "none: no one call takes (row, weight) entries"),
+        ("bwd", "tiled_core_bwd", "tiled_msda.cu", "relation_detr_tpu/ops/msda_pallas.py:78",
+         "none: no one backward call"),
+        ("sep", "sep_contract_fwd", "tiled_msda.cu",
+         "relation_detr_tpu/ops/msda_sep_pallas.py:66", "3-operand torch.einsum"),
+    ):
+        times = found[key]["times"]
+        _, _, ms, plain_ms, lib_ms, (bound_ms, bound_by) = times[0]  # level 0, B=1
+        rows[name] = dict(
+            name=name, route="cuda", source=f"relation_detr_tpu_torch/csrc/{source}",
+            replaces=replaces, max_abs_err=max(found[key]["errs"]), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, library=library,
+            shape="level 0 B=1: nt=189 T=128 M=437 H=8 D=32 (levels_ms: per (B, level))",
+            levels_ms={f"B{b} L{lv}": [k, p, bd[0]] for b, lv, k, p, _, bd in times},
+        )
+
+    errs, times = [], []
+    for n in (900, 1100):
+        src, tgt, kernel, bias = relation_inputs(torch, gen, n, dev)
+        rel = box_rel_encoding(src, tgt)
+        with torch.no_grad():
+            got = relation_bias.fused_relation_bias(rel, kernel, bias)
+            want = relation_bias.fused_relation_bias_reference(rel, kernel, bias)
+            torch.cuda.synchronize()
+            finite = torch.isfinite(want)
+            if not torch.equal(finite, torch.isfinite(got)):
+                raise AssertionError("relation_bias_rel_fwd: NaN pattern differs from plain")
+            err = (got[finite] - want[finite]).abs().max().item()
+            if not (err <= TOL_TILED):
+                raise AssertionError(f"relation_bias_rel_fwd N={n}: max abs err {err}")
+            ms, plain_ms = in_turns(
+                lambda: relation_bias.fused_relation_bias_reference(rel, kernel, bias),
+                lambda: relation_bias.fused_relation_bias(rel, kernel, bias), 5, 20)
+        # per pair: 64 sin/cos (one operation each) and 64 FMAs per head
+        b_rel = bound(size(rel, kernel, bias, got), n * n * (64 + 2 * 64 * 8))
+        errs.append(err)
+        times.append((ms, plain_ms, b_rel))
+        phase(3, f"relation_bias_rel_fwd B=1 N1=N2={n} H=8 (rel from boxes with a NaN and an "
+                 f"Inf centre: {int((~finite).sum())} NaN biases in both): max_abs_err "
+                 f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                 f"{b_rel[0]:.4f} ms ({b_rel[1]})")
+    rows["relation_rel"] = dict(
+        name="relation_bias_rel_fwd", route="cuda",
+        source="relation_detr_tpu_torch/csrc/relation_bias_rel.cu",
+        replaces="relation_detr_tpu/ops/relation_pallas.py:89",
+        also_replaces="relation_detr_tpu/ops/relation_pallas.py:69", max_abs_err=max(errs),
+        ms=times[0][0], plain_ms=times[0][1], bound_ms=times[0][2][0],
+        bound_by=times[0][2][1], library_ms=None,
+        library="none: no one call builds the sine features", shape="B=1 N1=N2=900 H=8 E=16",
+        n1100_ms=times[1][0], n1100_plain_ms=times[1][1],
     )
 
 
 class TopkRecorder:
     """Records every two-stage top-k (encoder, hybrid): selected class
-    logits, boxes and indices."""
+    logits, boxes and indices (``indices``), and what it selected from, the
+    class logits and boxes of every proposal (``candidates``)."""
 
     def __init__(self):
         from relation_detr_tpu_torch.models.transformer import RelationTransformer
@@ -319,11 +574,13 @@ class TopkRecorder:
         self.cls = RelationTransformer
         self.select = RelationTransformer._select_topk
         self.indices = []
+        self.candidates = []
 
     def __enter__(self):
         def recording(*args):
             out = self.select(*args)
             self.indices.append([t.detach().cpu() for t in out])
+            self.candidates.append([t.detach().clone() for t in args[:2]])
             return out
 
         self.cls._select_topk = staticmethod(recording)
@@ -414,8 +671,9 @@ def synthetic_batch(torch, gen, bs, cap, hw, dev, valid_hw=None):
             "gt_valid": valid}
 
 
-def check_tiny_train(torch):
+def check_tiny_train(torch, label, settings):
     from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
+    from relation_detr_tpu_torch.ops import msda
 
     cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
     cpu_model = cfg.build_model(device="cpu", seed=1).train()
@@ -437,7 +695,8 @@ def check_tiny_train(torch):
 
     def run(model, dev, record=None):
         b = {k: v.to(dev) for k, v in batch.items()}
-        with TopkRecorder() as rec, PinnedKinks(model, record) as pins:
+        with TopkRecorder() as rec, PinnedKinks(model, record) as pins, \
+                msda.msda_defaults(**settings):
             outputs = model(b["images"], b["mask"], b["gt_labels"], b["gt_boxes"],
                             b["gt_valid"], train=True,
                             noise_draws={k: v.to(dev) for k, v in draws.items()})
@@ -488,7 +747,7 @@ def check_tiny_train(torch):
         raise AssertionError(f"tiny train step: grad of {name} differs GPU vs CPU by "
                              f"{err:.3e} of its max")
     bb_name, bb_err, bb_count = worst(ratios, backbone=True)
-    phase(4, f"tiny-test config train forward + backward (CDN + hybrid) GPU vs CPU, same "
+    phase(4, f"[{label}] tiny-test config train forward + backward (CDN + hybrid) GPU vs CPU, same "
              f"draws: total {gpu['total']:.6f} vs {cpu['total']:.6f}, {len(cpu['losses'])} "
              f"loss terms within {loss_err:.3e} rel; {count} grads outside the backbone within "
              f"{err:.3e} of each leaf's max ({name}); {bb_count} backbone grads within "
@@ -501,17 +760,53 @@ def check_tiny_train(torch):
                              f"kinks pinned by {err:.3e} of its max")
     _, bb_err, _ = worst(ratios, backbone=True)
     flips = pinned["pins"].flips
-    phase(4, f"the same with the CPU's kinks pinned to the GPU's side ({flips['msda']} MSDA "
+    phase(4, f"[{label}] the same with the CPU's kinks pinned to the GPU's side ({flips['msda']} MSDA "
              f"samples in another bilinear cell, {flips['relu']} backbone ReLU inputs of "
              f"another sign): total {pinned['total']:.6f}, loss terms within {loss_err:.3e} rel; "
              f"all {len(ratios)} grads within {err:.3e} of each leaf's max ({name}), backbone "
              f"within {bb_err:.3e}")
 
 
+def train_steps(torch, step, batch, warmup, timed, counters, label):
+    """Runs warm-up + timed steps; checks finite losses and each counter's
+    launches per step; prints p50, peak memory and host matching time."""
+    from relation_detr_tpu_torch.losses.criterion import compute_matching
+
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for i in range(warmup + timed):
+        before = {k: fn.launches for k, (fn, _) in counters.items()}
+        h0 = compute_matching.host_seconds
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        losses = {k: v for k, v in metrics.items() if k.startswith("loss")}
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        if bad or not math.isfinite(metrics["total_loss"]) or metrics["nonfinite_count"]:
+            raise AssertionError(f"train step {label} #{i}: non-finite {bad}, "
+                                 f"nonfinite_count {metrics['nonfinite_count']}")
+        for k, (fn, expected) in counters.items():
+            if fn.launches - before[k] != expected:
+                raise AssertionError(f"train step {label}: {fn.launches - before[k]} {k} "
+                                     f"launches, expected {expected}")
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+            host.append(compute_matching.host_seconds - h0)
+    peak = torch.cuda.max_memory_allocated()
+    phase(6, f"flagship train step {label} ({BOXES_PER_IMAGE} boxes per image) 800x1344 "
+             f"fp32: p50 {statistics.median(times):.3f} ms ({len(times)} steps: "
+             f"{', '.join(f'{t:.3f}' for t in times)}); peak memory {peak / 2**30:.3f} GiB; "
+             f"host matching {statistics.median(host):.4f} s/step; total_loss "
+             f"{metrics['total_loss']:.4f}, grad_norm {metrics['grad_norm']:.4f}, "
+             f"{len(losses)} loss terms finite")
+
+
 def run_flagship_train(torch, model, kernels):
     from relation_detr_tpu_torch.configs import train_config
-    from relation_detr_tpu_torch.losses.criterion import compute_matching
-    from relation_detr_tpu_torch.ops import msda, patch_scatter, relation_bias
+    from relation_detr_tpu_torch.ops import msda, msda_tiled, patch_scatter, relation_bias
     from relation_detr_tpu_torch.parallel.train_step import make_train_step
     from relation_detr_tpu_torch.utils.param_groups import build_optimizer
 
@@ -530,46 +825,52 @@ def run_flagship_train(torch, model, kernels):
         "msda_fwd": (msda.multi_scale_deformable_attention, 18),
         "msda_bwd": (msda.msda_backward, 18),
         "relation_bias_v4_fwd": (relation_bias.relation_bias_v4, 5),
-        # the port's MSDA has no patch slab; msda_bwd scatters the value gradient
+        # the gather has no patch slab; msda_bwd scatters the value gradient
         "window_accumulate": (patch_scatter.window_accumulate, 0),
     }
     for fn, _ in counters.values():
         fn.launches = 0
     for bs, cap, warmup, timed in TRAIN_RUNS:
         batch = synthetic_batch(torch, gen, bs, cap, CANVAS, "cuda", REQUESTS[0])
-        torch.cuda.reset_peak_memory_stats()
-        times, host = [], []
-        for i in range(warmup + timed):
-            before = {k: fn.launches for k, (fn, _) in counters.items()}
-            h0 = compute_matching.host_seconds
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics = step(batch)
-            end.record()
-            torch.cuda.synchronize()
-            losses = {k: v for k, v in metrics.items() if k.startswith("loss")}
-            bad = [k for k, v in losses.items() if not math.isfinite(v)]
-            if bad or not math.isfinite(metrics["total_loss"]) or metrics["nonfinite_count"]:
-                raise AssertionError(f"train step B={bs} cap={cap} #{i}: non-finite {bad}, "
-                                     f"nonfinite_count {metrics['nonfinite_count']}")
-            for k, (fn, expected) in counters.items():
-                if fn.launches - before[k] != expected:
-                    raise AssertionError(f"train step: {fn.launches - before[k]} {k} "
-                                         f"launches, expected {expected}")
-            if i >= warmup:
-                times.append(start.elapsed_time(end))
-                host.append(compute_matching.host_seconds - h0)
-        peak = torch.cuda.max_memory_allocated()
-        phase(6, f"flagship train step B={bs} GT capacity {cap} ({BOXES_PER_IMAGE} boxes "
-                 f"per image) 800x1344 fp32: p50 {statistics.median(times):.3f} ms ("
-                 f"{len(times)} steps: {', '.join(f'{t:.3f}' for t in times)}); peak memory "
-                 f"{peak / 2**30:.3f} GiB; host matching {statistics.median(host):.4f} s/step; "
-                 f"total_loss {metrics['total_loss']:.4f}, grad_norm {metrics['grad_norm']:.4f}, "
-                 f"{len(losses)} loss terms finite")
+        train_steps(torch, step, batch, warmup, timed, counters,
+                    f"[gather] B={bs} GT capacity {cap}")
     per_step = ", ".join(f"{k} {e}" for k, (_, e) in counters.items())
-    phase(6, f"launches per step: {per_step} (the port's MSDA has no patch slab; msda_bwd "
-             "scatters the value gradient)")
+    phase(6, f"[gather] launches per step: {per_step}")
+    for key, row in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
+                     ("relation_bias_v4_fwd", "relation")):
+        fn, _ = counters[key]
+        kernels[row]["launches"] = fn.launches
+        if fn.launches == 0:
+            raise AssertionError(f"{key} was never launched by the train step")
+
+    # the tiled encoder MSDA: per step and image 6 encoder layers x 4 levels
+    # of tiled_core_fwd, tiled_core_bwd and window_accumulate (the patch
+    # extraction's backward); the decoder and hybrid passes keep the gather
+    bs, cap, warmup, timed = TILED_TRAIN_RUN
+    per_image = 6 * len(LEVELS)
+    counters = {
+        "tiled_core_fwd": (msda_tiled.tiled_matmul_core, per_image * bs),
+        "tiled_core_bwd": (msda_tiled.tiled_core_backward, per_image * bs),
+        "window_accumulate": (patch_scatter.window_accumulate, per_image * bs),
+        "msda_fwd": (msda.multi_scale_deformable_attention, 12),
+        "msda_bwd": (msda.msda_backward, 12),
+        "relation_bias_v4_fwd": (relation_bias.relation_bias_v4, 5),
+    }
+    batch = synthetic_batch(torch, gen, bs, cap, CANVAS, "cuda", REQUESTS[0])
+    with msda.msda_defaults(impl="tiled"):
+        for fn, _ in counters.values():
+            fn.launches = 0
+        train_steps(torch, step, batch, warmup, timed, counters,
+                    f"[tiled] B={bs} GT capacity {cap}")
+    per_step = ", ".join(f"{k} {e}" for k, (_, e) in counters.items())
+    phase(6, f"[tiled] launches per step: {per_step}")
+    for key, row in (("tiled_core_fwd", "tiled_core_fwd"), ("tiled_core_bwd", "tiled_core_bwd"),
+                     ("window_accumulate", "window")):
+        fn, _ = counters[key]
+        kernels[row]["launches"] = fn.launches
+        if fn.launches == 0:
+            raise AssertionError(f"{key} was never launched by the tiled train step")
+
     moved = sum(not torch.equal(p.detach(), p0) for p, p0 in
                 zip(trainable[:: max(len(trainable) // 40, 1)], start_params))
     if moved < len(start_params) // 2:
@@ -579,15 +880,11 @@ def run_flagship_train(torch, model, kernels):
     phase(6, f"{moved}/{len(start_params)} sampled trainable parameters moved, frozen "
              f"ones did not; {step.state.updates} updates, nonfinite_count "
              f"{step.state.nonfinite_count}")
-    for key, row in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
-                     ("relation_bias_v4_fwd", "relation"), ("window_accumulate", "window")):
-        fn, expected = counters[key]
-        kernels[row]["launches"] = fn.launches
-        if expected and fn.launches == 0:
-            raise AssertionError(f"{key} was never launched by the train step")
 
 
-def check_tiny_model(torch):
+def check_tiny_model(torch, label, settings):
+    from relation_detr_tpu_torch.ops import msda
+
     cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
     cpu_model = cfg.build_model(device="cpu", seed=1)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -597,13 +894,13 @@ def check_tiny_model(torch):
     mask[1, 192:] = True
     mask[1, :, 240:] = True
     images[mask] = 0.0
-    with torch.inference_mode():
+    with torch.inference_mode(), msda.msda_defaults(**settings):
         want = cpu_model(images, mask)
         got = gpu_model(images.cuda(), mask.cuda())
     for name in ("pred_logits", "pred_boxes"):
         torch.testing.assert_close(got[name].cpu(), want[name], rtol=TOL_MODEL, atol=TOL_MODEL)
         err = (got[name].cpu() - want[name]).abs().max().item()
-        phase(4, f"tiny-test config GPU (kernels) vs CPU (plain) {name} "
+        phase(4, f"[{label}] tiny-test config GPU (kernels) vs CPU (plain) {name} "
                  f"{tuple(got[name].shape)}: max abs diff {err:.3e}")
 
 
@@ -674,8 +971,101 @@ def run_flagship(torch, kernels):
     phase(5, f"flagship B=1 800x1344 fp32 detect: p50 {statistics.median(times):.3f} ms "
              f"(5 runs: {', '.join(f'{t:.3f}' for t in times)}), peak memory "
              f"{peak / 2**30:.3f} GiB (max_memory_allocated over the 4 requests)")
+    run_flagship_variants(torch, model, raw, request, kernels)
     hook.remove()
     return model
+
+
+def run_flagship_variants(torch, model, raw, request, kernels):
+    """The flagship detect under each of EVAL_VARIANTS against the default
+    (gather MSDA, relation v4) on the same weights and the full-canvas
+    request (valid ratios 1, so every encoder sample at the seeded init
+    lies inside the auto halos): pre-top-k heads, launches per forward, p50
+    and peak memory of each."""
+    from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias
+
+    images, mask, sizes = request(*REQUESTS[3])
+    counted = {
+        "msda_fwd": msda.multi_scale_deformable_attention,
+        "relation_bias_v4_fwd": relation_bias.relation_bias_v4,
+        "tiled_core_fwd": msda_tiled.tiled_matmul_core,
+        "sep_contract_fwd": msda_tiled.sep_contract_fused,
+        "relation_bias_rel_fwd": relation_bias.fused_relation_bias,
+    }
+    expected = {
+        "default": dict(msda_fwd=12, relation_bias_v4_fwd=5),
+        "tiled": dict(msda_fwd=6, relation_bias_v4_fwd=5, tiled_core_fwd=24),
+        "tiled_xla + tiled_sep_kernel": dict(msda_fwd=6, relation_bias_v4_fwd=5,
+                                             sep_contract_fwd=24),
+        "relation v1": dict(msda_fwd=12, relation_bias_rel_fwd=5),
+        "relation v2": dict(msda_fwd=12, relation_bias_rel_fwd=5),
+    }
+    found = {}
+    for label, settings, version, tol in (("default", {}, None, 0.0),) + EVAL_VARIANTS:
+        with msda.msda_defaults(**settings):
+            if version is not None:
+                relation_bias.set_fused_relation(version=version)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                for fn in counted.values():
+                    fn.launches = 0
+                with TopkRecorder() as rec:
+                    det = detect(model, images, mask, sizes, 100)
+                torch.cuda.synchronize()
+                launches = {k: fn.launches for k, fn in counted.items()}
+                heads = {k: raw[k].clone() for k in ("pred_logits", "pred_boxes")}
+                peak = torch.cuda.max_memory_allocated()
+                times = []
+                for _ in range(5):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    detect(model, images, mask, sizes, 100)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times.append(start.elapsed_time(end))
+            finally:
+                relation_bias.set_fused_relation(version=4)
+        want = expected[label]
+        got = {k: v for k, v in launches.items() if v or k in want}
+        if got != want:
+            raise AssertionError(f"detect [{label}]: launches per forward {got}, expected {want}")
+        if not all(bool(torch.isfinite(t).all()) for t in (*heads.values(), det["scores"])):
+            raise AssertionError(f"detect [{label}]: non-finite outputs")
+        found[label] = dict(heads=heads, topk=rec.indices[0][2], launches=launches,
+                            proposals=rec.candidates[0])
+        msg = ""
+        if label != "default":
+            base = found["default"]
+            # before the top-k: the encoder's class logits and boxes of every
+            # proposal (invalid ones are +inf boxes on both sides)
+            pre = []
+            for a, b in zip(rec.candidates[0], base["proposals"]):
+                finite = torch.isfinite(b)
+                if not torch.equal(finite, torch.isfinite(a)):
+                    raise AssertionError(f"detect [{label}]: other proposals are invalid")
+                pre.append((a[finite] - b[finite]).abs().max().item())
+            if not (max(pre) <= tol):
+                raise AssertionError(f"detect [{label}] vs default: pre-top-k class logits / "
+                                     f"boxes differ by {pre} > {tol}")
+            flipped = int((rec.indices[0][2] != base["topk"]).sum())
+            errs = {k: (heads[k] - base["heads"][k]).abs().max().item() for k in heads}
+            if flipped == 0 and not (max(errs.values()) <= max(tol, TOL_TILED_EVAL)):
+                raise AssertionError(f"detect [{label}] vs default: same top-k, heads differ "
+                                     f"by {errs}")
+            msg = (f"pre-top-k vs default over {base['proposals'][0].shape[1]} proposals: class "
+                   f"logits {pre[0]:.3e}, boxes {pre[1]:.3e} (tolerance {tol:g}); encoder "
+                   f"top-900 indices that differ: {flipped}; heads after it: pred_logits "
+                   f"{errs['pred_logits']:.3e}, pred_boxes {errs['pred_boxes']:.3e}; ")
+        phase(5, f"flagship B=1 800x1344 (valid 800x1344) detect [{label}]: {msg}launches per "
+                 f"forward {got}; p50 {statistics.median(times):.3f} ms (5 runs: "
+                 f"{', '.join(f'{t:.3f}' for t in times)}), peak memory {peak / 2**30:.3f} GiB")
+    kernels["tiled_core_fwd"]["eval_launches"] = found["tiled"]["launches"]["tiled_core_fwd"]
+    kernels["sep_contract_fwd"]["launches"] = \
+        found["tiled_xla + tiled_sep_kernel"]["launches"]["sep_contract_fwd"]
+    kernels["relation_rel"]["launches"] = sum(
+        found[k]["launches"]["relation_bias_rel_fwd"] for k in ("relation v1", "relation v2"))
 
 
 def main() -> int:
@@ -717,8 +1107,10 @@ def main() -> int:
 
     kernels = timed(3, check_kernels, torch)
     timed(3, check_backward_kernels, torch, kernels)
-    timed(4, check_tiny_model, torch)
-    timed(4, check_tiny_train, torch)
+    timed(3, check_tiled_kernels, torch, kernels)
+    for label, settings in TINY_VARIANTS:
+        timed(4, check_tiny_model, torch, label, settings)
+        timed(4, check_tiny_train, torch, label, settings)
     model = timed(5, run_flagship, torch, kernels)
     timed(6, run_flagship_train, torch, model, kernels)
     phase(7, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
@@ -726,6 +1118,13 @@ def main() -> int:
     leaked = [m for m in ("jax", "flax", "cv2", "relation_detr_tpu") if m in sys.modules]
     if leaked:
         raise AssertionError(f"the port's path imported {leaked}")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    for row in kernels.values():
+        missing = [k for k in keys if k not in row]
+        if missing or not row["launches"]:
+            raise AssertionError(f"kernel row {row['name']}: missing {missing}, launches "
+                                 f"{row.get('launches')}")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -121,6 +121,19 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ]
     lib.relation_bias_v4_fwd.restype = ctypes.c_int
+    # int relation_bias_rel_fwd(rel, w, bias, freqs (host float [E/2]), out,
+    #                           B, N1, N2, H, E, stream)
+    lib.relation_bias_rel_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.relation_bias_rel_fwd.restype = ctypes.c_int
+    # int tiled_core_fwd(m, w, patch, out, B, nt, H, E, T, M, C, stream)
+    lib.tiled_core_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tiled_core_fwd.restype = ctypes.c_int
+    # int tiled_core_bwd(m, w, patch, g, dw, dpatch, B, nt, H, E, T, M, C, stream)
+    lib.tiled_core_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tiled_core_bwd.restype = ctypes.c_int
+    # int sep_contract_fwd(oy, ox, patch, out, B, nt, H, P, ph, pw, T, C, stream)
+    lib.sep_contract_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.sep_contract_fwd.restype = ctypes.c_int
     lib.rdetr_error_string.argtypes = [ctypes.c_int]
     lib.rdetr_error_string.restype = ctypes.c_char_p
     return lib

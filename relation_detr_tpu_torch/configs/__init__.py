@@ -1,2 +1,2 @@
 """Model configs of the port: Python files read with
-``relation_detr_tpu.utils.config.Config``."""
+``relation_detr_tpu_torch.utils.config.Config``."""

@@ -2,7 +2,7 @@
 
 Same values as configs/relation_detr/relation_detr_resnet50_800_1333.py (the
 JAX package's); ``build_model`` builds the port's model. Read it with
-``relation_detr_tpu.utils.config.Config`` (which imports no framework).
+``relation_detr_tpu_torch.utils.config.Config``.
 """
 import torch
 
@@ -54,7 +54,7 @@ def build_criterion():
     return CriterionConfig(**criterion_args)
 
 
-def build_model(device="cpu", seed=0):
+def build_model(device="cuda", seed=0):
     """The model with weights drawn from ``seed``, in eval mode on ``device``."""
     model = RelationDETR(**model_args, generator=torch.Generator().manual_seed(seed))
     return model.to(device).eval()

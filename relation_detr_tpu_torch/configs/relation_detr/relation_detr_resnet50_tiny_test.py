@@ -27,7 +27,7 @@ def build_criterion():
     return CriterionConfig(**criterion_args)
 
 
-def build_model(device="cpu", seed=0):
+def build_model(device="cuda", seed=0):
     """The model with weights drawn from ``seed``, in eval mode on ``device``."""
     model = RelationDETR(**model_args, generator=torch.Generator().manual_seed(seed))
     return model.to(device).eval()

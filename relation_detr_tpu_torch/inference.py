@@ -6,8 +6,8 @@ Port of the root ``inference.py``:
         [--model-config relation_detr_tpu_torch/configs/relation_detr/...py] \\
         [--checkpoint weights.npz] [--device cuda]
 
-Images are read and resized on the host by the shared ``EvalPreset``
-(imported inside ``main``: it needs cv2, which the rest of the port does not)
+Images are decoded with cv2 (imported inside ``main``; nothing else of the
+port needs it) and resized on the host by the port's ``data.transforms.EvalPreset``
 onto the fixed 800x1344 canvas. ``--checkpoint`` takes the JAX package's
 ``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays).
 """
@@ -20,7 +20,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from relation_detr_tpu_torch.data.transforms import EvalPreset
 from relation_detr_tpu_torch.models.post_process import post_process
+from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.weights import state_dict_from_jax
 
 CANVAS = (800, 1344)
@@ -70,9 +72,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     import cv2
-
-    from relation_detr_tpu.data.transforms import EvalPreset
-    from relation_detr_tpu.utils.config import Config
 
     args = parse_args(argv)
     cfg = Config(args.model_config)

@@ -1,28 +1,92 @@
-"""Multi-scale deformable attention: CUDA kernel and its plain version.
+"""Multi-scale deformable attention: CUDA kernel and its plain version, and
+the switch between the gather and the tiled forms.
 
 Counterpart of ``relation_detr_tpu/ops/msda.py::multi_scale_deformable_attention``.
-The JAX package writes the op in XLA (tiled one-hot matmuls for the encoder
-and a corner-packed gather for the decoder on TPU); the port samples exactly
-at every location with one hand-written kernel (``csrc/msda.cu``, whose
-header says what bounds it on the card). Both serve the encoder (Q = S) and
-the decoder (Q = queries).
+The port's default, ``impl="gather"``, samples exactly at every location
+with one hand-written kernel (``csrc/msda.cu``, whose header says what
+bounds it on the card), for the encoder (Q = S) and the decoder
+(Q = queries) alike. ``set_msda_defaults(impl="tiled")`` or
+``impl="tiled_xla"`` (the JAX package's ``--msda-impl``) sends the encoder's
+calls to the tiled one-hot forms of ``ops/msda_tiled.py`` instead.
 
-``multi_scale_deformable_attention`` is the wrapper: a CPU tensor takes
-``msda_reference`` (autograd differentiates it); a CUDA tensor goes through
-``MSDAFunction``, whose forward launches ``msda_fwd`` and whose backward
-launches ``msda_bwd`` (grads for value, sampling locations and attention
-weights), or raises. ``msda_backward`` is the backward's wrapper and
-``msda_backward_reference`` its plain version (autograd through
+``multi_scale_deformable_attention`` is the wrapper: under the gather a CPU
+tensor takes ``msda_reference`` (autograd differentiates it); a CUDA tensor
+goes through ``MSDAFunction``, whose forward launches ``msda_fwd`` and whose
+backward launches ``msda_bwd`` (grads for value, sampling locations and
+attention weights), or raises. ``msda_backward`` is the backward's wrapper
+and ``msda_backward_reference`` its plain version (autograd through
 ``msda_reference``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Sequence, Tuple
 
 import torch
 
 from relation_detr_tpu_torch import _build
+from relation_detr_tpu_torch.ops.msda_tiled import msda_tiled
+
+# Framework-wide MSDA selection, the counterpart of the JAX package's
+# ``_MSDA_DEFAULTS`` limited to what the port serves: ``impl`` "gather" (the
+# port's default), "tiled" (the entry kernels) or "tiled_xla" (the separable
+# build; ``tiled_sep_kernel`` contracts it with a kernel).
+_MSDA_DEFAULTS = {"impl": "gather", "tiled_sep_kernel": False}
+_IMPLS = ("gather", "tiled", "tiled_xla")
+_IMPLS_NOT_PORTED = ("auto", "auto_xla", "auto_pallas", "pair", "corner_pack")
+# The JAX package's other tiled settings: the port takes only the value it
+# implements (the JAX default where it has one) and raises on any other.
+_SETTINGS_NOT_PORTED = {
+    "tiled_halos": ("auto",),
+    "tiled_overflow": ("auto", 0),
+    "tiled_layout": ("t_minor",),
+    "tiled_slab_order": ("yx",),
+    "tiled_patch_mode": ("slices",),
+    "tiled_int8_slab": (False,),
+    "tiled_dtype": ("auto", torch.float32),
+    "tiled_dot_bf16": (False,),
+    "tiled_batch_unroll": (False,),
+    "tiled_tile_tokens": ((12, 8),),
+    "tiled_margin": (1,),
+}
+
+
+def set_msda_defaults(impl: str = None, tiled_sep_kernel: bool = None, **settings) -> None:
+    """Select the MSDA form for every later call: ``impl`` in "gather",
+    "tiled", "tiled_xla"; ``tiled_sep_kernel`` for "tiled_xla". The JAX
+    package's other tiled settings are accepted at the one value the port
+    implements and raise ``NotImplementedError`` at any other."""
+    for name, value in settings.items():
+        if name not in _SETTINGS_NOT_PORTED:
+            raise TypeError(f"set_msda_defaults: unknown setting {name!r}")
+        value = tuple(value) if isinstance(value, list) else value
+        allowed = _SETTINGS_NOT_PORTED[name]
+        if value is not None and not any(value == a and type(value) is type(a)
+                                         for a in allowed):
+            raise NotImplementedError(
+                f"MSDA setting {name}={value!r} is not ported (the port implements "
+                f"{' or '.join(repr(a) for a in allowed)})")
+    if impl is not None:
+        if impl in _IMPLS_NOT_PORTED:
+            raise NotImplementedError(f"MSDA impl {impl!r} is not ported (the port has "
+                                      f"{', '.join(_IMPLS)})")
+        if impl not in _IMPLS:
+            raise ValueError(f"unknown MSDA impl {impl!r}; the port has {', '.join(_IMPLS)}")
+        _MSDA_DEFAULTS["impl"] = impl
+    if tiled_sep_kernel is not None:
+        _MSDA_DEFAULTS["tiled_sep_kernel"] = bool(tiled_sep_kernel)
+
+
+@contextlib.contextmanager
+def msda_defaults(impl: str = None, tiled_sep_kernel: bool = None, **settings):
+    """``set_msda_defaults`` for the duration of a ``with`` block."""
+    saved = dict(_MSDA_DEFAULTS)
+    try:
+        set_msda_defaults(impl, tiled_sep_kernel, **settings)
+        yield
+    finally:
+        _MSDA_DEFAULTS.update(saved)
 
 
 def msda_reference(
@@ -209,8 +273,18 @@ def multi_scale_deformable_attention(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """MSDA core, (B, S, H, D) x (B, Q, H, L, P, 2) x (B, Q, H, L, P) ->
-    (B, Q, H * D). CPU tensors take ``msda_reference``; CUDA tensors go
-    through ``MSDAFunction`` (``csrc/msda.cu``) or raise."""
+    (B, Q, H * D).
+
+    Under a tiled impl an encoder-layout call (Q == S) goes to
+    ``msda_tiled``; every other call, as under "gather", goes to the gather:
+    CPU tensors take ``msda_reference``, CUDA tensors go through
+    ``MSDAFunction`` (``csrc/msda.cu``) or raise. (The JAX package sends
+    those calls to ``corner_pack``, whose output equals the gather's.)"""
+    impl = _MSDA_DEFAULTS["impl"]
+    if impl != "gather" and sampling_locations.shape[1] == sum(h * w for h, w in spatial_shapes):
+        return msda_tiled(value, spatial_shapes, sampling_locations, attention_weights,
+                          use_pallas=impl == "tiled",
+                          sep_kernel=_MSDA_DEFAULTS["tiled_sep_kernel"])
     if value.device.type == "cpu":
         return msda_reference(value, spatial_shapes, sampling_locations, attention_weights)
     if value.device.type != "cuda":

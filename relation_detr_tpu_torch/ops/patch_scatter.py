@@ -3,12 +3,11 @@
 Counterpart of ``relation_detr_tpu/ops/patch_scatter.py::window_accumulate``
 (Pallas kernel ``_accum_kernel``): the sum of ``nt`` (ph, pw, C) windows
 placed at origins (y0, x0) on an (h, w, C) canvas, added in ascending window
-order. In the JAX package it is the backward of the tiled encoder MSDA's
-patch extraction on the TPU (``ops/msda.py::_slice_patches_bwd``). The
-port's MSDA samples values directly and has no patch slab (``msda_bwd``
-scatters the value gradient itself), so the train step does not run this
-op: ``chip_smoke.py`` holds the kernel against its plain version at the
-flagship's encoder level 0, whose window grid is stored below.
+order. It is the backward of the tiled encoder MSDA's patch extraction
+(``ops/msda_tiled.py::SlicePatchesFunction``, the counterpart of
+``relation_detr_tpu/ops/msda.py::_slice_patches_bwd``), so the train step
+runs it once per image, encoder layer and level under
+``set_msda_defaults(impl="tiled")`` or ``"tiled_xla"``.
 
 ``window_accumulate`` is the wrapper: a CPU tensor takes
 ``window_accumulate_reference``; a CUDA tensor launches
@@ -16,29 +15,25 @@ flagship's encoder level 0, whose window grid is stored below.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from relation_detr_tpu_torch import _build
+from relation_detr_tpu_torch.ops.tile_geometry import MARGIN, TILE_TOKENS, _tile_geometry
 
 # The flagship encoder's level 0 (100 x 168 on the 800x1344 canvas) cut into
-# windows as ``relation_detr_tpu/ops/msda.py::_tile_geometry`` cuts it with
-# the default settings (tiled_tile_tokens (12, 8), tiled_margin 1, halos
-# "auto" = num_points + 1 = 5): a 9 x 21 grid of 23 x 19 windows. Stored as
-# constants because the port has no jax to compute them.
-LEVEL0_CANVAS = (100, 168)
-LEVEL0_WINDOW = (23, 19)
-LEVEL0_ROWS = (0, 6, 17, 28, 39, 50, 61, 72, 77)
-LEVEL0_COLS = (0, 3, 11, 19, 27, 35, 43, 51, 59, 67, 75, 83, 91, 99, 107, 115,
-               123, 131, 139, 147, 149)
+# windows by the default tiling (halos "auto" = num_points + 1 = 5): a 9 x 21
+# grid of 23 x 19 windows.
+_FLAGSHIP_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21))
+_LEVEL0 = _tile_geometry(_FLAGSHIP_LEVELS, TILE_TOKENS, (5,) * 4, MARGIN)
+LEVEL0_CANVAS = _FLAGSHIP_LEVELS[0]
+LEVEL0_WINDOW = tuple(_LEVEL0.patches[0][2:])
+LEVEL0_ROWS, LEVEL0_COLS = _LEVEL0.patch_grid[0]
 
 
 def level0_origins():
     """(y0s, x0s) int32 of the level-0 windows, in the JAX window order
     (row-major over the grid, as ``_slice_patches_bwd`` builds them)."""
-    y0s = np.repeat(np.asarray(LEVEL0_ROWS, np.int32), len(LEVEL0_COLS))
-    x0s = np.tile(np.asarray(LEVEL0_COLS, np.int32), len(LEVEL0_ROWS))
-    return y0s, x0s
+    return _LEVEL0.patches[0][0], _LEVEL0.patches[0][1]
 
 
 def _check_args(g, y0s, x0s, h, w):

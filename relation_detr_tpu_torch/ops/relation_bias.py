@@ -1,7 +1,20 @@
-"""Position-relation bias, v4 math: CUDA kernel and its plain version.
+"""Position-relation bias: CUDA kernels and their plain versions.
 
-Counterpart of ``relation_detr_tpu/ops/relation_pallas.py`` (the v4 kernel,
-``fused_relation_bias_v4``, the TPU default). The kernel
+Counterpart of ``relation_detr_tpu/ops/relation_pallas.py``.
+``set_fused_relation`` picks the version ``models/relation.py`` runs on
+CUDA tensors: 4 (the default) boxes-in, 3 separable in plain torch, 1 and 2
+from the relation tensor (``fused_relation_bias``), or the direct
+embedding when disabled.
+
+Versions 1 and 2 (``fused_relation_bias``): one kernel
+(``csrc/relation_bias_rel.cu``) serves both TPU kernels; its plain version
+is ``fused_relation_bias_reference`` (the JAX ``_reference_bias`` with the
+kernel's angle rounding). As in the JAX package the relation tensor gets a
+zero gradient and the kernel and bias gradients come from the plain
+version, recomputed and differentiated.
+
+Version 4 (``relation_bias_v4``, ``fused_relation_bias_v4`` in the JAX
+package, the TPU default): the kernel
 (``csrc/relation_bias.cu``, whose header says what bounds it on the card)
 builds the xy pair features per (b, i, j); the separable wh half uses
 per-box features folded with the projection weights, computed here in plain
@@ -31,6 +44,29 @@ import numpy as np
 import torch
 
 from relation_detr_tpu_torch import _build
+
+# Which bias ``models/relation.py`` computes on CUDA tensors (the JAX
+# package's ``_FUSED``; its ``v4_block`` is a TPU block size, not ported).
+_FUSED = {"enabled": True, "version": 4}
+
+
+def set_fused_relation(enabled: bool = None, version: int = None) -> None:
+    """``enabled=False``: the direct embedding; else ``version`` 4 (boxes-in
+    kernel), 3 (separable plain torch), 1 or 2 (relation-tensor kernel)."""
+    if version is not None:
+        if int(version) not in (1, 2, 3, 4):
+            raise ValueError(f"relation bias version {version}: the port has 1, 2, 3 and 4")
+        _FUSED["version"] = int(version)
+    if enabled is not None:
+        _FUSED["enabled"] = bool(enabled)
+
+
+def fused_relation_enabled() -> bool:
+    return _FUSED["enabled"]
+
+
+def fused_relation_version() -> int:
+    return _FUSED["version"]
 
 
 def _freqs(embed_dim: int, temperature: float, scale: float) -> np.ndarray:
@@ -201,3 +237,92 @@ def relation_bias_v4(
 
 
 relation_bias_v4.launches = 0
+
+
+def fused_relation_bias_reference(rel, kernel, bias, embed_dim=16, temperature=10000.0,
+                                  scale=100.0):
+    """Plain version of the relation-tensor bias: relu(sine_embed(rel) @
+    kernel + bias), rel (B, N1, N2, 4), kernel (4E, H), bias (H) ->
+    (B, H, N1, N2). The JAX ``_reference_bias`` with the angles as its
+    Pallas kernels and ``relation_bias_rel_fwd`` form them, rel * freqs
+    (``_freqs``); ``get_sine_pos_embed`` forms rel * scale / dim_t, which
+    rounds differently, by up to ~1e-4 rad at the ~1e3 rad the angles
+    reach. Features in get_sine_pos_embed's order (coordinate, frequency,
+    sin/cos)."""
+    inv = torch.from_numpy(_freqs(embed_dim, temperature, scale)).to(rel.device)
+    ang = rel[..., None] * inv  # (B, N1, N2, 4, E/2)
+    feats = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *rel.shape[:3], rel.shape[3] * embed_dim)
+    return torch.relu(feats @ kernel + bias).permute(0, 3, 1, 2)
+
+
+def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
+    tensors = (rel, kernel, bias)
+    if any(t.device != rel.device for t in tensors):
+        raise ValueError("relation bias: all tensors must be on one device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("relation bias kernel takes float32 tensors only")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("relation bias kernel takes contiguous tensors only")
+    if rel.dim() != 4 or rel.shape[3] != 4:
+        raise ValueError(f"relation bias: rel must be (B, N1, N2, 4), got {tuple(rel.shape)}")
+    num_heads = bias.shape[0]
+    if embed_dim != 16 or kernel.shape != (4 * embed_dim, num_heads):
+        raise ValueError(f"relation bias kernel takes embed_dim 16 and kernel (64, H), got "
+                         f"{embed_dim} and {tuple(kernel.shape)}")
+    if num_heads not in (4, 8, 16):
+        raise ValueError(f"relation bias kernel takes 4, 8 or 16 heads, got {num_heads}")
+    lib = _build.load_library()
+    bs, n1, n2, _ = rel.shape
+    freqs = _freqs(embed_dim, temperature, scale)
+    freqs_host = (ctypes.c_float * len(freqs))(*freqs.tolist())
+    out = torch.empty(bs, num_heads, n1, n2, device=rel.device, dtype=torch.float32)
+    with torch.cuda.device(rel.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.relation_bias_rel_fwd(rel.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                                         ctypes.addressof(freqs_host), out.data_ptr(), bs, n1,
+                                         n2, num_heads, embed_dim, stream)
+    _build.check(lib, code, "relation_bias_rel_fwd")
+    fused_relation_bias.launches += 1
+    return out
+
+
+class RelationBiasRelFunction(torch.autograd.Function):
+    """``fused_relation_bias``: forward ``relation_bias_rel_fwd`` (its plain
+    version on CPU), backward the plain version recomputed and
+    differentiated for kernel and bias; rel gets zero (``_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, rel, kernel, bias, embed_dim, temperature, scale):
+        ctx.save_for_backward(rel, kernel, bias)
+        ctx.settings = (embed_dim, temperature, scale)
+        if rel.device.type == "cpu":
+            return fused_relation_bias_reference(rel, kernel, bias, embed_dim, temperature,
+                                                 scale)
+        return _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rel, kernel, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            k = kernel.detach().requires_grad_(True)
+            b = bias.detach().requires_grad_(True)
+            out = fused_relation_bias_reference(rel.detach(), k, b, *ctx.settings)
+            d_kernel, d_bias = torch.autograd.grad(out, (k, b), grad_out)
+        d_rel = torch.zeros_like(rel) if ctx.needs_input_grad[0] else None
+        return d_rel, d_kernel, d_bias, None, None, None
+
+
+def fused_relation_bias(rel: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                        embed_dim: int = 16, temperature: float = 10000.0,
+                        scale: float = 100.0) -> torch.Tensor:
+    """relu(sine_embed(rel) @ kernel + bias) -> (B, H, N1, N2), the bias of
+    relation versions 1 and 2, differentiable in ``kernel`` and ``bias``.
+    CPU tensors take the plain version inside ``RelationBiasRelFunction``;
+    CUDA tensors launch ``csrc/relation_bias_rel.cu`` or raise."""
+    if rel.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"relation bias: no kernel for device {rel.device}")
+    return RelationBiasRelFunction.apply(rel, kernel, bias, embed_dim, temperature, scale)
+
+
+fused_relation_bias.launches = 0

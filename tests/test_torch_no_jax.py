@@ -1,6 +1,7 @@
-"""The port (eval forward and train step) runs without jax, flax or cv2,
-and its kernel wrappers launch nothing on CPU tensors and raise (never fall
-back) on CUDA tensors they cannot serve. This file imports no jax so that
+"""The port (eval forward and train step, gather and tiled MSDA) runs
+without jax, flax, cv2 or the JAX package, and its kernel wrappers launch
+nothing on CPU tensors and raise (never fall back) on CUDA tensors they
+cannot serve. This file imports no jax so that
 it also runs on a machine with a card and no jax (the conftest imports jax,
 so skip it there):
 ``python -m pytest --noconftest tests/test_torch_no_jax.py``."""
@@ -19,44 +20,59 @@ import numpy as np
 import torch
 import relation_detr_tpu_torch
 import relation_detr_tpu_torch.inference as inference
-from relation_detr_tpu.utils.config import Config
 from relation_detr_tpu_torch.configs import train_config
-from relation_detr_tpu_torch.ops.msda import msda_backward
-from relation_detr_tpu_torch.ops.msda import multi_scale_deformable_attention as msda
+from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias
 from relation_detr_tpu_torch.ops.patch_scatter import window_accumulate
-from relation_detr_tpu_torch.ops.relation_bias import relation_bias_v4
 from relation_detr_tpu_torch.parallel.train_step import make_train_step
+from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.param_groups import build_optimizer
 
 cfgs = [Config("relation_detr_tpu_torch/configs/relation_detr/" + name) for name in
         ("relation_detr_resnet50_800_1333.py", "relation_detr_resnet50_tiny_test.py")]
-model = cfgs[1].build_model()
 rng = np.random.RandomState(0)
 images = rng.randn(1, 128, 160, 3).astype(np.float32)
 mask = np.zeros((1, 128, 160), bool)
 mask[:, 96:] = True
-det = inference.detect(model, images, mask, [[96, 160]], 30)
-assert det["boxes"].shape == (1, 30, 4) and bool(torch.isfinite(det["boxes"]).all())
+batch = {"images": torch.from_numpy(images), "mask": torch.from_numpy(mask),
+         "gt_labels": torch.tensor([[1, 2, 0]]),
+         "gt_boxes": torch.tensor([[[0.3, 0.4, 0.2, 0.3], [0.6, 0.5, 0.3, 0.2],
+                                    [0.0, 0.0, 0.0, 0.0]]]),
+         "gt_valid": torch.tensor([[True, True, False]])}
+counters = (msda.multi_scale_deformable_attention, msda.msda_backward,
+            relation_bias.relation_bias_v4, relation_bias.fused_relation_bias,
+            msda_tiled.tiled_matmul_core, msda_tiled.tiled_core_backward,
+            msda_tiled.sep_contract_fused, window_accumulate)
 
-model.train()
-step = make_train_step(model, cfgs[1].build_criterion(),
-                       build_optimizer(model, train_config.learning_rate), cfgs[1].hybrid_assign)
-labels = torch.tensor([[1, 2, 0]])
-boxes = torch.tensor([[[0.3, 0.4, 0.2, 0.3], [0.6, 0.5, 0.3, 0.2], [0.0, 0.0, 0.0, 0.0]]])
-metrics = step({"images": torch.from_numpy(images), "mask": torch.from_numpy(mask),
-                "gt_labels": labels, "gt_boxes": boxes,
-                "gt_valid": torch.tensor([[True, True, False]])})
-assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
-launches = (msda.launches, msda_backward.launches, relation_bias_v4.launches,
-            window_accumulate.launches)
-assert launches == (0, 0, 0, 0), f"CPU run launched a kernel: {launches}"
-loaded = [m for m in ("jax", "flax", "cv2") if m in sys.modules]
+
+def eval_and_train_step():
+    model = cfgs[1].build_model(device="cpu")
+    det = inference.detect(model, images, mask, [[96, 160]], 30)
+    assert det["boxes"].shape == (1, 30, 4) and bool(torch.isfinite(det["boxes"]).all())
+    model.train()
+    step = make_train_step(model, cfgs[1].build_criterion(),
+                           build_optimizer(model, train_config.learning_rate),
+                           cfgs[1].hybrid_assign)
+    metrics = step(batch)
+    assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
+
+
+eval_and_train_step()
+relation_bias.set_fused_relation(version=1)
+with msda.msda_defaults(impl="tiled"):
+    eval_and_train_step()
+launches = [fn.launches for fn in counters]
+assert launches == [0] * len(counters), f"CPU run launched a kernel: {launches}"
+loaded = [m for m in sys.modules if m in ("jax", "flax", "cv2") or m == "relation_detr_tpu"
+          or m.startswith(("jax.", "flax.", "relation_detr_tpu."))]
 assert not loaded, loaded
 print("ok")
 """
 
 
 def test_port_imports_and_runs_without_jax_flax_cv2():
+    """The tiny config's eval and train step on CPU, as they are and under
+    impl="tiled" with relation version 1: no kernel launch, and nothing of
+    jax, flax, cv2 or relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -146,6 +162,67 @@ def test_backward_kernels_match_plain_versions_on_card(batch, heads, head_dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,heads,rel_heads", [(2, 2, 4), (1, 4, 8), (3, 8, 16)])
+def test_tiled_and_rel_kernels_match_plain_versions_on_card(batch, heads, rel_heads):
+    """tiled_core_fwd, tiled_core_bwd and sep_contract_fwd against their
+    plain versions on operands the tiled MSDA builds (encoder samples up to
+    6 texels off, so some corners clamp to the patch border), plus entries
+    with rows outside the patch; relation_bias_rel_fwd against its plain
+    version. Forwards 1e-5 abs; the backward 1e-4 of each gradient's max
+    (shared-memory atomics add in no fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.ops import msda_tiled, relation_bias
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(heads)
+    shapes = ((36, 32), (18, 16), (9, 8), (5, 4))
+    total = sum(h * w for h, w in shapes)
+    head_dim = 32 // heads * 2 if heads < 8 else 8
+    value = torch.randn(batch, total, heads, head_dim, generator=gen, device=dev)
+    refs = torch.cat([torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
+                                                 (torch.arange(h, device=dev) + 0.5) / h,
+                                                 indexing="xy"), -1).reshape(-1, 2)
+                      for h, w in shapes])
+    size = torch.tensor([(w, h) for h, w in shapes], device=dev, dtype=torch.float32)
+    offs = torch.rand(batch, total, heads, 4, 4, 2, generator=gen, device=dev) * 12 - 6
+    locs = refs[None, :, None, None, None] + offs / size[:, None]
+    attn = torch.rand(batch, total, heads, 4, 4, generator=gen, device=dev)
+    consts, levels = msda_tiled.tiled_level_operands(value, shapes, locs, attn)
+    for lvl in levels:
+        x0i, y0i, fx, fy, at, bx, by = lvl["sample"]
+        ph, pw, h, w = lvl["ph"], lvl["pw"], lvl["h"], lvl["w"]
+        m, wt = msda_tiled._tiled_entries(x0i, y0i, fx, fy, at, bx, by, ph, pw, h, w)
+        m[..., :3, ::5] = torch.tensor([-1, ph * pw, 10 ** 6], dtype=torch.int32,
+                                       device=dev)[:, None]
+        patch = lvl["patch"].contiguous()
+        dims = (heads, head_dim)
+        torch.testing.assert_close(msda_tiled.tiled_matmul_core(m, wt, patch, dims),
+                                   msda_tiled.tiled_core_reference(m, wt, patch, dims),
+                                   rtol=0, atol=1e-5)
+        g = torch.randn(batch, consts["nt"], consts["T"], heads * head_dim, generator=gen,
+                        device=dev)
+        got = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
+        want = msda_tiled.tiled_core_backward_reference(m, wt, patch, g, dims)
+        for name, a, b in zip(("dw", "dpatch"), got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()),
+                                       msg=name)
+        oy = msda_tiled._axis_soft(y0i, fy, by, ph, h, at).contiguous()
+        ox = msda_tiled._axis_soft(x0i, fx, bx, pw, w, None).contiguous()
+        torch.testing.assert_close(msda_tiled.sep_contract_fused(oy, ox, patch),
+                                   msda_tiled.sep_contract_reference(oy, ox, patch),
+                                   rtol=0, atol=1e-5)
+
+    rel = torch.randn(batch, 45, 40, 4, generator=gen, device=dev)
+    kernel = torch.randn(64, rel_heads, generator=gen, device=dev) * 0.1
+    bias = torch.randn(rel_heads, generator=gen, device=dev) * 0.1
+    with torch.no_grad():
+        torch.testing.assert_close(relation_bias.fused_relation_bias(rel, kernel, bias),
+                                   relation_bias.fused_relation_bias_reference(rel, kernel, bias),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
     """On a CUDA tensor a wrapper builds and launches its kernel or raises:
     with no nvcc and no built library it raises, it does not fall back."""
@@ -153,8 +230,13 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
         pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
     from relation_detr_tpu_torch import _build
     from relation_detr_tpu_torch.ops.msda import multi_scale_deformable_attention
+    from relation_detr_tpu_torch.ops.msda_tiled import (
+        sep_contract_fused,
+        tiled_core_backward,
+        tiled_matmul_core,
+    )
     from relation_detr_tpu_torch.ops.patch_scatter import window_accumulate
-    from relation_detr_tpu_torch.ops.relation_bias import relation_bias_v4
+    from relation_detr_tpu_torch.ops.relation_bias import fused_relation_bias, relation_bias_v4
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -162,8 +244,9 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
     _build.load_library.cache_clear()
-    launched = (multi_scale_deformable_attention.launches, relation_bias_v4.launches,
-                window_accumulate.launches)
+    wrappers = (multi_scale_deformable_attention, relation_bias_v4, window_accumulate,
+                tiled_matmul_core, tiled_core_backward, sep_contract_fused, fused_relation_bias)
+    launched = [fn.launches for fn in wrappers]
     try:
         dev = torch.device("cuda")
         value = torch.zeros(1, 6, 2, 4, device=dev)
@@ -177,7 +260,19 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
                              torch.zeros(8, device=dev))
         with pytest.raises(RuntimeError, match="nvcc"):
             window_accumulate(torch.zeros(1, 2, 2, 3, device=dev), [0], [0], 4, 4)
-        assert (multi_scale_deformable_attention.launches, relation_bias_v4.launches,
-                window_accumulate.launches) == launched
+        m = torch.zeros(1, 2, 2, 16, 8, dtype=torch.int32, device=dev)
+        w = torch.zeros(1, 2, 2, 16, 8, device=dev)
+        patch = torch.zeros(1, 2, 6, 8, device=dev)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tiled_matmul_core(m, w, patch, (2, 4))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tiled_core_backward(m, w, patch, torch.zeros(1, 2, 8, 8, device=dev), (2, 4))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            sep_contract_fused(torch.zeros(1, 2, 2, 4, 2, 8, device=dev),
+                               torch.zeros(1, 2, 2, 4, 3, 8, device=dev), patch)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            fused_relation_bias(torch.zeros(1, 3, 5, 4, device=dev),
+                                torch.zeros(64, 8, device=dev), torch.zeros(8, device=dev))
+        assert [fn.launches for fn in wrappers] == launched
     finally:
         _build.load_library.cache_clear()

@@ -505,7 +505,7 @@ def test_train_step_skips_nonfinite_update():
     """A step whose loss is NaN leaves every parameter and the whole
     optimizer state unchanged, and counts 1 with its step index; the
     metrics carry the JAX step's keys."""
-    model = TINY.build_model(seed=3).train()
+    model = TINY.build_model(device="cpu", seed=3).train()
     optimizer = tpg.build_optimizer(model, 1e-4)
     step = make_train_step(model, TINY.build_criterion(), optimizer, TINY.hybrid_assign,
                            seed=4)
@@ -538,7 +538,7 @@ def test_optimizer_groups_follow_the_jax_masks():
     """Each trainable parameter's (lr factor, weight decay) group agrees with
     the JAX masks on the same leaf; frozen leaves are in no group; the
     accumulation option names its ROADMAP item."""
-    model = TINY.build_model()
+    model = TINY.build_model(device="cpu")
     params, _, _ = convert_state_dict(dict(model.state_dict()))
     optimizer = tpg.build_optimizer(model, 1e-4)
     group_of = {id(q): g for g in optimizer.param_groups for q in g["params"]}
