@@ -11,10 +11,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      PyTorch call computing the same function, where there is one) and the
      least time the card could take (bound): msda_fwd, relation_bias_v4_fwd,
      msda_bwd (encoder Q=S=22,323, decoder Q=1100 and 1500), the relation
-     bias's backward (N=1100), window_accumulate (encoder level 0), the
-     tiled encoder MSDA's tiled_core_fwd, tiled_core_bwd and
-     sep_contract_fwd on its operands at the four levels (B=1, and level 0
-     at B=2), and relation_bias_rel_fwd (N=900 and 1100);
+     bias's backward (N=1100), window_accumulate at the four levels' window
+     grids (bit-identical, one covering-window table build per level, at
+     the first call), the tiled encoder MSDA's tiled_core_fwd,
+     tiled_core_bwd and sep_contract_fwd on its operands at the four levels
+     (B=1, and level 0 at B=2; tiled_core_bwd also on adversarial entries,
+     and two launches bit-identical), and relation_bias_rel_fwd (N=900 and
+     1100);
   4. in-model parity: the tiny-test config on the GPU (kernels) and on the
      CPU (plain versions), same weights and inputs: the eval forward, then
      one train forward + backward with the same CDN draws, run on the CPU
@@ -32,8 +35,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      hybrid branch, matcher, criterion, backward, clip, AdamW) on synthetic
      batches in the loader's layout: B=1 at GT capacity 100 and 16 (2
      warm-up + 5 timed steps each), B=2 at 100 (3 steps), then B=1 at 100
-     under impl="tiled" (1 + 3 steps); p50 step time, peak memory, kernel
-     launches and host matching seconds per step;
+     under impl="tiled" (1 + 3 steps, no covering-window table built);
+     p50 step time, peak memory, kernel launches and host matching
+     seconds per step;
   7. a JSON kernel table, one row per kernel (launches: from the run of the
      path that takes it, each counter set to 0 just before that run:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
@@ -84,14 +88,15 @@ TOL_BWD_REL = 1e-4
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 TRAIN_RUNS = ((1, 100, 2, 5), (1, 16, 2, 5), (2, 100, 0, 3))  # B, GT cap, warm-up, timed
-TILED_TRAIN_RUN = (1, 100, 1, 3)
+TILED_TRAIN_RUN = (1, 100, 1, 8)
 # phase 4's MSDA forms (msda_defaults settings)
 TINY_VARIANTS = (("gather", {}), ("tiled", dict(impl="tiled")),
                  ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True)))
 BOXES_PER_IMAGE = 7
 # the tiled forms' contraction kernels against their plain versions: the
 # forwards sum in another order than the dense one-hot product (1e-5 abs);
-# tiled_core_bwd adds with shared-memory atomics (TOL_BWD_REL of each max)
+# tiled_core_bwd sums each dpatch row's entries and dw's channels in its own
+# fixed order (TOL_BWD_REL of each max)
 TOL_TILED = 1e-5
 # flagship eval, tiled vs gather: exact up to summation order inside the
 # auto halos (all samples at the seeded init on the full canvas)
@@ -287,6 +292,7 @@ def max_rel(got, want):
 
 def check_backward_kernels(torch, rows):
     from relation_detr_tpu_torch.ops import msda, patch_scatter, relation_bias
+    from relation_detr_tpu_torch.ops.tile_geometry import MARGIN, TILE_TOKENS, _tile_geometry
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -364,40 +370,72 @@ def check_backward_kernels(torch, rows):
                             max_abs_err_n1100=fwd_err, backward_ms=ms, backward_plain_ms=plain_ms)
     del out, cot
 
-    y0s, x0s = patch_scatter.level0_origins()
-    (h, w), (ph, pw) = patch_scatter.LEVEL0_CANVAS, patch_scatter.LEVEL0_WINDOW
-    g = torch.randn(len(y0s), ph, pw, 256, generator=gen, device=dev)
-    got = patch_scatter.window_accumulate(g, y0s, x0s, h, w)
-    want = patch_scatter.window_accumulate_reference(g, y0s, x0s, h, w)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("window_accumulate: not bit-identical to the ascending "
-                             f"slice-add loop (max abs err {(got - want).abs().max().item()})")
-    # the library call: one index_add over every window element's canvas row
-    rows_of = (torch.as_tensor(y0s, device=dev)[:, None, None] + torch.arange(ph, device=dev)[:, None]) * w \
-        + torch.as_tensor(x0s, device=dev)[:, None, None] + torch.arange(pw, device=dev)
-    rows_of = rows_of.reshape(-1).long()
-    zeros = torch.zeros(h * w, 256, device=dev)
-    flat = g.reshape(-1, 256)
-    lib_out = torch.index_add(zeros, 0, rows_of, flat).reshape(h, w, 256)
-    lib_err = (lib_out - want).abs().max().item()
-    ms, plain_ms, lib_ms = in_turns(
-        lambda: patch_scatter.window_accumulate_reference(g, y0s, x0s, h, w),
-        lambda: patch_scatter.window_accumulate(g, y0s, x0s, h, w), 5, 20,
-        library=lambda: torch.index_add(zeros, 0, rows_of, flat))
-    win_bound = bound(size(g, got), g.numel())
-    phase(3, f"window_accumulate level 0 {len(y0s)} windows of {ph}x{pw}x256 onto "
-             f"{h}x{w}x256: bit-identical to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"index_add {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound {win_bound[0]:.4f} "
-             f"ms ({win_bound[1]})")
-    rows["window"] = dict(
-        name="window_accumulate", route="cuda",
-        source="relation_detr_tpu_torch/csrc/patch_scatter.cu",
-        replaces="relation_detr_tpu/ops/patch_scatter.py:39", max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, bound_ms=win_bound[0], bound_by=win_bound[1],
-        library_ms=lib_ms, library="torch.index_add over precomputed canvas rows",
-        shape=f"nt={len(y0s)} ph={ph} pw={pw} C=256 on {h}x{w}",
-    )
+    # window_accumulate at the four levels' window grids, keyed by the band
+    # grid as the train path's SlicePatchesFunction keys its device table
+    geo = _tile_geometry(LEVELS, TILE_TOKENS, (5,) * len(LEVELS), MARGIN)
+    levels_ms, builds = {}, 0
+    for lvl, ((h, w), (y0a, x0a, ph, pw)) in enumerate(zip(LEVELS, geo.patches)):
+        y0s, x0s = tuple(int(v) for v in y0a), tuple(int(v) for v in x0a)
+        grid = geo.patch_grid[lvl]
+        g = torch.randn(len(y0s), ph, pw, 256, generator=gen, device=dev)
+        before = patch_scatter.window_table.builds
+        got = patch_scatter.window_accumulate(g, y0s, x0s, h, w, grid=grid)
+        want = patch_scatter.window_accumulate_reference(g, y0s, x0s, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"window_accumulate level {lvl}: not bit-identical to the "
+                                 "ascending slice-add loop (max abs err "
+                                 f"{(got - want).abs().max().item()})")
+        # the library call: one index_add over every window element's canvas row
+        rows_of = (torch.as_tensor(y0a, device=dev)[:, None, None]
+                   + torch.arange(ph, device=dev)[:, None]) * w \
+            + torch.as_tensor(x0a, device=dev)[:, None, None] + torch.arange(pw, device=dev)
+        rows_of = rows_of.reshape(-1).long()
+        zeros = torch.zeros(h * w, 256, device=dev)
+        flat = g.reshape(-1, 256)
+        lib_out = torch.index_add(zeros, 0, rows_of, flat).reshape(h, w, 256)
+        lib_err = (lib_out - want).abs().max().item()
+        ms, plain_ms, lib_ms = in_turns(
+            lambda: patch_scatter.window_accumulate_reference(g, y0s, x0s, h, w),
+            lambda: patch_scatter.window_accumulate(g, y0s, x0s, h, w, grid=grid), 5, 20,
+            library=lambda: torch.index_add(zeros, 0, rows_of, flat))
+        made = patch_scatter.window_table.builds - before
+        if made != 1:
+            raise AssertionError(f"window_accumulate level {lvl}: {made} covering-window table "
+                                 "builds over 1 + 2 x 22 calls, expected 1 (the first)")
+        builds += made
+        win_bound = bound(size(g, got), g.numel())
+        levels_ms[f"L{lvl}"] = [ms, plain_ms, win_bound[0], lib_ms]
+        phase(3, f"window_accumulate level {lvl} {len(y0s)} windows of {ph}x{pw}x256 onto "
+                 f"{h}x{w}x256: bit-identical to plain, kernel {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms, index_add {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), "
+                 f"bound {win_bound[0]:.4f} ms ({win_bound[1]}); one covering-window table "
+                 "build, at the first call")
+        if lvl == 0:
+            rows["window"] = dict(
+                name="window_accumulate", route="cuda",
+                source="relation_detr_tpu_torch/csrc/patch_scatter.cu",
+                replaces="relation_detr_tpu/ops/patch_scatter.py:39", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=win_bound[0], bound_by=win_bound[1],
+                library_ms=lib_ms, library="torch.index_add over precomputed canvas rows",
+                shape=f"level 0: nt={len(y0s)} ph={ph} pw={pw} C=256 on {h}x{w} (levels_ms: "
+                      "per level [kernel, plain, bound, index_add])",
+            )
+        del g, got, want, lib_out, zeros, rows_of
+    rows["window"].update(levels_ms=levels_ms, table_builds=builds)
+
+
+def adversarial_entries(torch, m, rows):
+    """m (B, nt, H, E, T) with the patterns the backward must survive:
+    entries outside [0, rows) (-1, rows, 10**6), a row that no entry hits
+    (rows // 2), and a row (rows - 1) that every entry of the first
+    (image, tile, head) hits."""
+    m = m.clone()
+    m[m == rows // 2] = rows // 2 + 1
+    m[..., :3, ::5] = torch.tensor([-1, rows, 10 ** 6], dtype=torch.int32,
+                                   device=m.device)[:, None]
+    m[0, 0, 0] = rows - 1
+    return m
 
 
 def tiled_inputs(torch, gen, bs, dev):
@@ -471,6 +509,23 @@ def check_tiled_kernels(torch, rows):
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
                 if not all(r <= TOL_BWD_REL for r in rel):
                     raise AssertionError(f"tiled_core_bwd {shape}: max rel err (dw, dpatch) {rel}")
+                again = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"tiled_core_bwd {shape}: two launches differ")
+                del again
+                if bs == 1 and lvl == 0:
+                    m_adv = adversarial_entries(torch, m, ph * pw)
+                    adv = [max_rel(a, b) for a, b in zip(
+                        msda_tiled.tiled_core_backward(m_adv, wt, patch, g, dims),
+                        msda_tiled.tiled_core_backward_reference(m_adv, wt, patch, g, dims))]
+                    if not all(r <= TOL_BWD_REL for r in adv):
+                        raise AssertionError(f"tiled_core_bwd {shape}, adversarial entries: max "
+                                             f"rel err (dw, dpatch) {adv}")
+                    found["bwd"]["adversarial"] = adv
+                    phase(3, f"tiled_core_bwd {shape} with entries outside [0, M), a row no "
+                             f"entry hits and a row every entry of one item hits: max rel err "
+                             f"dw {adv[0]:.3e}, dpatch {adv[1]:.3e}")
+                    del m_adv
                 ms, plain_ms = in_turns(
                     lambda: msda_tiled.tiled_core_backward_reference(m, wt, patch, g, dims),
                     lambda: msda_tiled.tiled_core_backward(m, wt, patch, g, dims), 2, 10)
@@ -479,7 +534,8 @@ def check_tiled_kernels(torch, rows):
                 found["bwd"]["errs"].append(err)
                 found["bwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_bwd))
                 phase(3, f"tiled_core_bwd {shape}: max rel err dw {rel[0]:.3e}, dpatch "
-                         f"{rel[1]:.3e} (max abs {err:.3e}); kernel {ms:.4f} ms, plain "
+                         f"{rel[1]:.3e} (max abs {err:.3e}), two launches bit-identical; "
+                         f"kernel {ms:.4f} ms, plain "
                          f"{plain_ms:.4f} ms, bound {b_bwd[0]:.4f} ms ({b_bwd[1]})")
                 del got, want
 
@@ -525,6 +581,8 @@ def check_tiled_kernels(torch, rows):
             shape="level 0 B=1: nt=189 T=128 M=437 H=8 D=32 (levels_ms: per (B, level))",
             levels_ms={f"B{b} L{lv}": [k, p, bd[0]] for b, lv, k, p, _, bd in times},
         )
+    rows["tiled_core_bwd"].update(deterministic=True,
+                                  adversarial_max_rel=found["bwd"]["adversarial"])
 
     errs, times = [], []
     for n in (900, 1100):
@@ -857,13 +915,20 @@ def run_flagship_train(torch, model, kernels):
         "relation_bias_v4_fwd": (relation_bias.relation_bias_v4, 5),
     }
     batch = synthetic_batch(torch, gen, bs, cap, CANVAS, "cuda", REQUESTS[0])
+    builds = patch_scatter.window_table.builds
     with msda.msda_defaults(impl="tiled"):
         for fn, _ in counters.values():
             fn.launches = 0
         train_steps(torch, step, batch, warmup, timed, counters,
                     f"[tiled] B={bs} GT capacity {cap}")
+    # phase 3 made the four levels' covering-window tables on the card
+    if patch_scatter.window_table.builds != builds:
+        raise AssertionError(f"the tiled train step built "
+                             f"{patch_scatter.window_table.builds - builds} covering-window "
+                             "tables; phase 3 made all four")
     per_step = ", ".join(f"{k} {e}" for k, (_, e) in counters.items())
-    phase(6, f"[tiled] launches per step: {per_step}")
+    phase(6, f"[tiled] launches per step: {per_step}; window_accumulate built no table and "
+             "copied nothing to the card")
     for key, row in (("tiled_core_fwd", "tiled_core_fwd"), ("tiled_core_bwd", "tiled_core_bwd"),
                      ("window_accumulate", "window")):
         fn, _ = counters[key]

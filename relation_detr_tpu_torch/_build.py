@@ -111,9 +111,9 @@ def load_library() -> ctypes.CDLL:
     lib.msda_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P]
     lib.msda_bwd.restype = ctypes.c_int
-    # int window_accumulate(g, y0s, x0s (device int32 [nt]), out,
-    #                       nt, ph, pw, C, h, w, stream)
-    lib.window_accumulate.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    # int window_accumulate(g, offsets (device int32 [positions + 1]),
+    #                       rows (device int32 [nt * ph * pw]), out, positions, C, stream)
+    lib.window_accumulate.argtypes = [_P, _P, _P, _P, _I, _I, _P]
     lib.window_accumulate.restype = ctypes.c_int
     # int relation_bias_v4_fwd(src, tgt, a_feats, b_feats, w_xy, bias, freqs
     #                          (host float [E/2]), out, B, N1, N2, H, E, eps, stream)

@@ -25,14 +25,48 @@
 //   It sums in entry order where the TPU's dot sums over rows, so results
 //   differ in the last bits. Bound on the card: the bytes (m, w, patch in,
 //   out; 134 MB at level 0 for B = 1), 2 E flops per output element.
-// - tiled_core_bwd keeps the patch slice and a dpatch slice (M x D each,
-//   112 KB) in shared memory. Each (token, channel) thread adds
-//   w[e, t] * g[t, d] into dpatch[m[e, t], d] with shared-memory atomics (a
-//   block owns its (b, tile, head) slab, so no global atomics), and
-//   dw[e, t] = sum_d patch[m[e, t], d] * g[t, d] is a shuffle reduction
-//   over the D lanes that hold channel d of token t (D a power of two <= 32).
-//   m gets no gradient. The atomics add in no fixed order. Bound: the bytes
-//   (m, w, patch, g in, dw and dpatch out).
+// - tiled_core_bwd: dw[e, t] = sum_d patch[m[e, t], d] * g[t, d] (0 for an
+//   entry outside [0, M)) and dpatch[r, :] = sum over the entries on row r
+//   of w[e, t] * g[t, :]; m gets no gradient. Bound on the card: the bytes
+//   (m, w, patch, g in, dw and dpatch out: 231 MB at level 0 for B = 1,
+//   0.069 ms). The previous design (one block per (image, tile, head) holding
+//   the patch slice and a dpatch slab, 112 KB, so 2 blocks per SM; an inner
+//   loop of broadcast global loads of m and w, a 5-step shuffle chain for
+//   dw and a shared-memory atomic for dpatch per entry, nothing staged
+//   ahead) took 1.5267 ms at level 0 and 0.7268 ms at level 3 (M = 156,
+//   5 blocks per SM, still 20x its bound), NVIDIA H100 80GB HBM3, 700.00 W:
+//   the serial, latency-bound inner loop, not occupancy. This design:
+//   * a persistent grid (SMs x resident blocks) of 512-thread blocks walks
+//     the work items (image, tile, head); cp.async 16-byte copies stage an
+//     item's m and w (E x T), its g slice (T x D, rows strided by C) and
+//     its patch slice (M x D), and prefetch the next item's into a second
+//     buffer while the current one is computed, so no loop waits on a
+//     global load;
+//   * dw: four threads per token slot t, each holding g[t, :] in
+//     registers and taking every fourth of the token's entries: D FMAs per
+//     entry from shared memory in float4 reads, no shuffles. The staged
+//     slices are XOR-swizzled in 16-byte chunks (chunk a sits at
+//     a ^ ((a >> 3) & 7)), so the D = 32 float rows that the lanes of a
+//     warp read at the same column fall in distinct banks;
+//   * dpatch: a gather, not a scatter. The item's entries are
+//     counting-sorted by patch row in shared memory (a histogram per row
+//     and warp partition, an exclusive scan, then each warp places its
+//     partition's entries in ascending (e, t) with __match_any_sync ranks),
+//     so each row's entries lie in ascending (e, t); D / 4 lanes per row,
+//     a float4 of channels each (four rows per warp at D = 32), then sum
+//     w * g[t, :] in that order and store the row to dpatch in one
+//     coalesced 128-byte line. No float atomics remain, dpatch and dw are
+//     deterministic (two launches give the same bits), and a row that no
+//     entry hits is written as 0.
+//   Shared memory: 2 x (M + T) x D + 4 E T floats of staging, 16 M ints of
+//   histogram and E T (weight, token) pairs: 221,888 bytes at level 0
+//   (M = 437), so one block of 16 warps per SM. Three blocks per SM would
+//   need 75 KB each, less than one item's staging (88.7 KB at level 0);
+//   the second buffer's overlap of loads with compute is taken over the
+//   occupancy. (The port's tiling gives M <= 437 at every level: tiles of
+//   at most 12 x 8 tokens plus halos of 5 and a margin of 1.) D = C / H
+//   must be 4, 8, 16 or 32 (16-byte chunks, D / 4 lanes per dpatch row)
+//   and E x T a multiple of 4.
 // - sep_contract_fwd keeps the patch slice and a chunk of A for 32 tokens
 //   (M x 32, 56 KB) in shared memory: it builds the chunk from oy and ox
 //   (P products per entry, read coalesced along t), then contracts it with
@@ -40,8 +74,14 @@
 //   broadcast). Bound: the operations (2 P M T + 2 M T D per head) about as
 //   much as the bytes (oy and ox are (ph + pw) / (ph pw) of A's size).
 //
-// One block per (image, tile, head), 256 threads. Every kernel launches on
-// the caller's stream; the entries return cudaGetLastError().
+// tiled_core_fwd and sep_contract_fwd run one block per (image, tile, head),
+// 256 threads. Every kernel launches on the caller's stream; the entries
+// return cudaGetLastError().
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
@@ -79,44 +119,280 @@ __global__ void tiled_core_fwd_kernel(const int* __restrict__ m, const float* __
   }
 }
 
-__global__ void tiled_core_bwd_kernel(const int* __restrict__ m, const float* __restrict__ w,
-                                      const float* __restrict__ patch,
-                                      const float* __restrict__ g, float* __restrict__ dw,
-                                      float* __restrict__ dpatch, int nt, int H, int E, int T,
-                                      int M, int C, int D) {
-  extern __shared__ float smem[];  // patch slice (M, D), then dpatch slice (M, D)
-  float* ps = smem;
-  float* dps = smem + M * D;
-  const int h = blockIdx.y % H;
-  const int64_t bn = static_cast<int64_t>(blockIdx.y / H) * nt + blockIdx.x;
-  load_head_slice(ps, patch + bn * M * C + h * D, M, C, D);
-  for (int idx = threadIdx.x; idx < M * D; idx += blockDim.x) dps[idx] = 0.f;
+// --- tiled_core_bwd ------------------------------------------------------------
+
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+struct BwdEntry {  // a sorted entry: its weight and token slot
+  float w;
+  int t;
+};
+
+constexpr int kDwSplit = 4;  // dw threads per token slot
+
+// The swizzled position of 16-byte chunk a of a staged slice.
+__device__ __forceinline__ int swz(int a) { return a ^ ((a >> 3) & 7); }
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__host__ __device__ constexpr int64_t round_up(int64_t v, int64_t to) {
+  return (v + to - 1) / to * to;
+}
+
+struct BwdShape {
+  int64_t items;  // B * nt * H
+  int H, E, T, M, C, ET;
+  int ps_floats, gs_floats;  // swizzled slices, whole 128-byte lines
+  int stage_floats;          // patch slice, g slice, m, w
+  int hist_ints;
+};
+
+BwdShape bwd_shape(int64_t B, int64_t nt, int64_t H, int64_t E, int64_t T, int64_t M,
+                   int64_t C) {
+  BwdShape s;
+  const int64_t D = C / H;
+  s.items = B * nt * H;
+  s.H = static_cast<int>(H);
+  s.E = static_cast<int>(E);
+  s.T = static_cast<int>(T);
+  s.M = static_cast<int>(M);
+  s.C = static_cast<int>(C);
+  s.ET = static_cast<int>(E * T);
+  s.ps_floats = static_cast<int>(round_up(M * D, 32));
+  s.gs_floats = static_cast<int>(round_up(T * D, 32));
+  s.stage_floats = s.ps_floats + s.gs_floats + 2 * s.ET;
+  s.hist_ints = static_cast<int>(round_up(M * kBwdWarps, 4));  // then 32 ints of scan scratch
+  return s;
+}
+
+// Two stage buffers, the histogram, the scan scratch and the sorted entries.
+int64_t bwd_smem_bytes(const BwdShape& s) {
+  return (2 * static_cast<int64_t>(s.stage_floats) + s.hist_ints + 32) * 4 +
+         static_cast<int64_t>(s.ET) * sizeof(BwdEntry);
+}
+
+// Starts the cp.async copies of one item's operands into a stage buffer.
+template <int DQ>
+__device__ void bwd_stage(float* buf, const BwdShape& s, int64_t item, const int* m,
+                          const float* w, const float* patch, const float* g) {
+  constexpr int D = DQ * 4;
+  const int64_t bn = item / s.H;
+  const int h = static_cast<int>(item - bn * s.H);
+  float* ps = buf;
+  float* gs = ps + s.ps_floats;
+  float* ms = gs + s.gs_floats;
+  float* ws = ms + s.ET;
+  const float* pg = patch + bn * s.M * s.C + h * D;
+  for (int i = threadIdx.x; i < s.M * DQ; i += kBwdThreads)
+    cp_async16(ps + swz(i) * 4, pg + static_cast<int64_t>(i / DQ) * s.C + (i % DQ) * 4);
+  const float* gg = g + bn * s.T * s.C + h * D;
+  for (int i = threadIdx.x; i < s.T * DQ; i += kBwdThreads)
+    cp_async16(gs + swz(i) * 4, gg + static_cast<int64_t>(i / DQ) * s.C + (i % DQ) * 4);
+  const int* mm = m + item * s.ET;
+  const float* wm = w + item * s.ET;
+  for (int i = threadIdx.x; i < s.ET / 4; i += kBwdThreads) {
+    cp_async16(ms + i * 4, mm + i * 4);
+    cp_async16(ws + i * 4, wm + i * 4);
+  }
+}
+
+// Exclusive prefix sum of a[0, n) in shared memory, in index order; n and
+// a's offset multiples of 4 ints (each thread scans a run of int4s).
+__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int4* a4 = reinterpret_cast<int4*>(a);
+  const int n4 = n / 4;
+  const int per = (n4 + kBwdThreads - 1) / kBwdThreads;
+  const int lo = min(n4, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(n4, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) {
+    const int4 c = a4[i];
+    sum += c.x + c.y + c.z + c.w;
+  }
+  int incl = sum;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
-  const int* mr = m + (bn * H + h) * E * T;
-  const float* wr = w + (bn * H + h) * E * T;
-  const float* gr = g + bn * T * C + h * D;
-  float* dwr = dw + (bn * H + h) * E * T;
-  // every thread runs every round, so the shuffles see whole warps; a
-  // token's D channels are D aligned lanes of one warp
-  for (int base = 0; base < T * D; base += blockDim.x) {
-    const int idx = base + threadIdx.x;
-    const bool live = idx < T * D;
-    const int t = live ? idx / D : 0;
-    const int d = idx % D;
-    const float gv = live ? gr[static_cast<int64_t>(t) * C + d] : 0.f;
-    for (int e = 0; e < E; ++e) {
-      const int row = live ? mr[e * T + t] : -1;
-      const bool in = row >= 0 && row < M;
-      float prod = in ? ps[row * D + d] * gv : 0.f;
-      for (int off = D / 2; off > 0; off >>= 1) prod += __shfl_xor_sync(0xffffffffu, prod, off);
-      if (live && d == 0) dwr[e * T + t] = prod;
-      if (in) atomicAdd(&dps[row * D + d], wr[e * T + t] * gv);
+  if (warp == 0) {
+    const int v = lane < kBwdWarps ? warp_sums[lane] : 0;
+    int vi = v;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, vi, off);
+      if (lane >= off) vi += y;
+    }
+    if (lane < kBwdWarps) warp_sums[lane] = vi - v;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int4 c = a4[i];
+    int4 o;
+    o.x = run;
+    o.y = o.x + c.x;
+    o.z = o.y + c.y;
+    o.w = o.z + c.z;
+    run = o.w + c.w;
+    a4[i] = o;
+  }
+  __syncthreads();
+}
+
+// One item's dw and dpatch from its staged operands. Ends with the block
+// synchronised, so the stage buffer, histogram and sorted entries are free.
+template <int DQ>
+__device__ void bwd_compute(const float* buf, int* hist, BwdEntry* sorted, int* warp_sums,
+                            const BwdShape& s, int64_t item, float* dw, float* dpatch) {
+  constexpr int D = DQ * 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float4* ps = reinterpret_cast<const float4*>(buf);
+  const float4* gs = reinterpret_cast<const float4*>(buf + s.ps_floats);
+  const int* ms = reinterpret_cast<const int*>(buf + s.ps_floats + s.gs_floats);
+  const float* ws = buf + s.ps_floats + s.gs_floats + s.ET;
+  const int M = s.M;
+  const int ET = s.ET;
+  // warp p places the entries [p * part, (p + 1) * part), ascending
+  const int part = (ET + kBwdWarps - 1) / kBwdWarps;
+
+  for (int i = threadIdx.x; i < s.hist_ints; i += kBwdThreads) hist[i] = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < ET; j += kBwdThreads) {
+    const int r = ms[j];
+    if (r >= 0 && r < M) atomicAdd(&hist[r * kBwdWarps + j / part], 1);
+  }
+  __syncthreads();
+  // (row, partition) order: a row's entries from partition p come before
+  // those from p + 1, and so in ascending (e, t)
+  block_exclusive_scan(hist, M * kBwdWarps, warp_sums);
+
+  const int j1 = min(ET, (warp + 1) * part);
+  for (int base = warp * part; base < j1; base += 32) {
+    const int j = base + lane;
+    int r = j < j1 ? ms[j] : -1;
+    if (r < 0 || r >= M) r = -1;
+    const unsigned peers = __match_any_sync(kFullMask, r);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    int slot = 0;
+    if (r >= 0) {
+      slot = hist[r * kBwdWarps + warp];
+      const int e = j / s.T;
+      sorted[slot + rank] = BwdEntry{ws[j], j - e * s.T};
+    }
+    __syncwarp();
+    if (r >= 0 && rank == 0) hist[r * kBwdWarps + warp] = slot + __popc(peers);
+    __syncwarp();
+  }
+  // hist[r * kBwdWarps + kBwdWarps - 1] is now the end of row r's entries
+
+  // dw: kDwSplit threads per token slot t, each with g[t, :] in registers,
+  // taking the entries e = q, q + kDwSplit, ... of its token
+  float* dwr = dw + item * ET;
+  for (int u = threadIdx.x; u < s.T * kDwSplit; u += kBwdThreads) {
+    const int t = u / kDwSplit;
+    float4 gv[DQ];
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) gv[q] = gs[swz(t * DQ + q)];
+#pragma unroll 2
+    for (int e = u % kDwSplit; e < s.E; e += kDwSplit) {
+      const int j = e * s.T + t;
+      const int r = ms[j];
+      float acc = 0.f;
+      if (r >= 0 && r < M) {
+#pragma unroll
+        for (int q = 0; q < DQ; ++q) {
+          const float4 p = ps[swz(r * DQ + q)];
+          acc = fmaf(p.x, gv[q].x, acc);
+          acc = fmaf(p.y, gv[q].y, acc);
+          acc = fmaf(p.z, gv[q].z, acc);
+          acc = fmaf(p.w, gv[q].w, acc);
+        }
+      }
+      dwr[j] = acc;
     }
   }
   __syncthreads();
-  float* dp = dpatch + bn * M * C + h * D;
-  for (int idx = threadIdx.x; idx < M * D; idx += blockDim.x)
-    dp[static_cast<int64_t>(idx / D) * C + idx % D] = dps[idx];
+
+  // dpatch: DQ lanes per row, a float4 of channels each, 32 / DQ rows per
+  // warp at a time
+  constexpr int kRowsPerWarp = 32 / DQ;
+  const int q = lane % DQ;
+  const int64_t bn = item / s.H;
+  const int h = static_cast<int>(item - bn * s.H);
+  float4* dp = reinterpret_cast<float4*>(dpatch + bn * M * s.C + h * D) + q;
+  for (int r = warp * kRowsPerWarp + lane / DQ; r < M; r += kBwdWarps * kRowsPerWarp) {
+    const int beg = r > 0 ? hist[r * kBwdWarps - 1] : 0;
+    const int end = hist[r * kBwdWarps + kBwdWarps - 1];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    int k = beg;
+    for (; k + 4 <= end; k += 4) {
+      BwdEntry en[4];
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) en[u] = sorted[k + u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = gs[swz(en[u].t * DQ + q)];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) fma4(acc, en[u].w, v[u]);
+    }
+    for (; k < end; ++k) {
+      const BwdEntry en = sorted[k];
+      fma4(acc, en.w, gs[swz(en.t * DQ + q)]);
+    }
+    dp[static_cast<int64_t>(r) * (s.C / 4)] = acc;
+  }
+  __syncthreads();
+}
+
+template <int DQ>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    tiled_core_bwd_kernel(const int* __restrict__ m, const float* __restrict__ w,
+                          const float* __restrict__ patch, const float* __restrict__ g,
+                          float* __restrict__ dw, float* __restrict__ dpatch, BwdShape s) {
+  extern __shared__ __align__(16) float smem[];  // stage buffers, hist, scan scratch, sorted
+  int* hist = reinterpret_cast<int*>(smem + 2 * s.stage_floats);
+  int* warp_sums = hist + s.hist_ints;
+  BwdEntry* sorted = reinterpret_cast<BwdEntry*>(warp_sums + 32);
+  int64_t item = blockIdx.x;
+  bwd_stage<DQ>(smem, s, item, m, w, patch, g);  // the grid has at most s.items blocks
+  cp_async_commit();
+  for (int k = 0; item < s.items; item += gridDim.x, ++k) {
+    // prefetch the next item into the other buffer, then wait for this one
+    const int64_t next = item + gridDim.x;
+    if (next < s.items)
+      bwd_stage<DQ>(smem + ((k + 1) & 1) * s.stage_floats, s, next, m, w, patch, g);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    bwd_compute<DQ>(smem + (k & 1) * s.stage_floats, hist, sorted, warp_sums, s, item, dw,
+                    dpatch);
+  }
+  cp_async_wait<0>();
 }
 
 __global__ void sep_contract_fwd_kernel(const float* __restrict__ oy,
@@ -171,6 +447,50 @@ bool bad_grid(int64_t B, int64_t nt, int64_t H) {
   return B * H > 65535 || nt > 2147483647;
 }
 
+// The persistent grid's blocks for a launch that needs smem bytes: SMs x
+// the blocks that fit on one. Worked out once per device and size, and the
+// kernel's shared-memory limit raised to the most a block may use once per
+// device, so a launch after the first makes no attribute or occupancy query.
+template <int DQ>
+int bwd_grid_blocks(int64_t smem, int64_t* blocks) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int64_t>, int64_t> known;  // (device, smem) -> blocks
+  const void* kernel = reinterpret_cast<const void*>(tiled_core_bwd_kernel<DQ>);
+  int device = 0;
+  int code = static_cast<int>(cudaGetDevice(&device));
+  if (code != 0) return code;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find({device, smem});
+  if (it != known.end()) {
+    *blocks = it->second;
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  code = allow_smem(kernel, kMaxSmem);
+  if (code == 0)
+    code = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  if (code == 0)
+    code = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kBwdThreads, static_cast<size_t>(smem)));
+  if (code != 0) return code;
+  if (per_sm < 1) return RDETR_INVALID;
+  *blocks = known[{device, smem}] = static_cast<int64_t>(sms) * per_sm;
+  return 0;
+}
+
+template <int DQ>
+int launch_tiled_core_bwd(const int* m, const float* w, const float* patch, const float* g,
+                          float* dw, float* dpatch, const BwdShape& s, cudaStream_t stream) {
+  const int64_t smem = bwd_smem_bytes(s);
+  int64_t blocks = 0;
+  const int code = bwd_grid_blocks<DQ>(smem, &blocks);
+  if (code != 0) return code;
+  const int64_t grid = std::min(s.items, blocks);
+  tiled_core_bwd_kernel<DQ><<<static_cast<unsigned>(grid), kBwdThreads, smem, stream>>>(
+      m, w, patch, g, dw, dpatch, s);
+  RDETR_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 // m, w (B, nt, H, E, T); patch (B, nt, M, C); out (B, nt, T, C), written whole.
@@ -191,24 +511,29 @@ extern "C" int tiled_core_fwd(const int* m, const float* w, const float* patch, 
 }
 
 // g (B, nt, T, C); dw (B, nt, H, E, T) and dpatch (B, nt, M, C), written
-// whole. D = C / H must be a power of two <= 32.
+// whole. D = C / H must be 4, 8, 16 or 32, E * T a multiple of 4 and every
+// pointer 16-byte aligned.
 extern "C" int tiled_core_bwd(const int* m, const float* w, const float* patch,
                               const float* g, float* dw, float* dpatch, int64_t B, int64_t nt,
                               int64_t H, int64_t E, int64_t T, int64_t M, int64_t C,
                               void* stream) {
-  if (B * nt == 0) return 0;
-  if (H < 1 || C % H != 0 || E < 1 || M < 1 || bad_grid(B, nt, H)) return RDETR_INVALID;
-  const int64_t D = C / H;
-  if (D > 32 || (D & (D - 1)) != 0) return RDETR_INVALID;
-  const int64_t smem = 2 * M * D * 4;
-  const int code = allow_smem(reinterpret_cast<const void*>(tiled_core_bwd_kernel), smem);
-  if (code != 0) return code;
-  tiled_core_bwd_kernel<<<dim3(static_cast<unsigned>(nt), static_cast<unsigned>(B * H)),
-                          kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      m, w, patch, g, dw, dpatch, static_cast<int>(nt), static_cast<int>(H),
-      static_cast<int>(E), static_cast<int>(T), static_cast<int>(M), static_cast<int>(C),
-      static_cast<int>(D));
-  RDETR_RETURN_LAUNCH_STATUS();
+  if (B * nt * H == 0) return 0;
+  if (H < 1 || C % H != 0 || E < 1 || T < 1 || M < 1 || (E * T) % 4 != 0) return RDETR_INVALID;
+  if (E * T > (1 << 24) || M * kBwdWarps > (1 << 24) || C > (1 << 24)) return RDETR_INVALID;
+  for (const void* p : {static_cast<const void*>(m), static_cast<const void*>(w),
+                        static_cast<const void*>(patch), static_cast<const void*>(g),
+                        static_cast<const void*>(dpatch)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return RDETR_INVALID;
+  const BwdShape s = bwd_shape(B, nt, H, E, T, M, C);
+  if (bwd_smem_bytes(s) > kMaxSmem) return RDETR_INVALID;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C / H) {
+    case 4: return launch_tiled_core_bwd<1>(m, w, patch, g, dw, dpatch, s, st);
+    case 8: return launch_tiled_core_bwd<2>(m, w, patch, g, dw, dpatch, s, st);
+    case 16: return launch_tiled_core_bwd<4>(m, w, patch, g, dw, dpatch, s, st);
+    case 32: return launch_tiled_core_bwd<8>(m, w, patch, g, dw, dpatch, s, st);
+    default: return RDETR_INVALID;
+  }
 }
 
 // oy (B, nt, H, P, ph, T), ox (B, nt, H, P, pw, T), patch (B, nt, ph * pw, C);

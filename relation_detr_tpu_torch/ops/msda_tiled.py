@@ -32,6 +32,7 @@ kernel on CUDA tensors, or raises; each counts its launches.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -106,6 +107,13 @@ def _perm_untile(x, inv, perm, valid):
     return _PermUntile.apply(x, inv, perm, valid)
 
 
+@functools.lru_cache(maxsize=None)
+def _window_origins(y0u, x0u):
+    """(y0s, x0s) tuples of a band grid's windows in row-major tile order,
+    made once per grid."""
+    return tuple(y for y in y0u for _ in x0u), tuple(x for _ in y0u for x in x0u)
+
+
 class SlicePatchesFunction(torch.autograd.Function):
     """``_slice_patches`` (order "yx"): vl (B, h, w, C) -> the patch slab
     (B, nt, ph, pw, C), nt = len(y0u) * len(x0u) windows in row-major tile
@@ -124,12 +132,10 @@ class SlicePatchesFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        y0u, x0u = ctx.grid
+        y0s, x0s = _window_origins(*ctx.grid)
         h, w = ctx.canvas
-        y0s = np.repeat(np.asarray(y0u, np.int32), len(x0u))
-        x0s = np.tile(np.asarray(x0u, np.int32), len(y0u))
-        d = torch.stack([window_accumulate(g[b].float().contiguous(), y0s, x0s, h, w)
-                         for b in range(g.shape[0])])
+        d = torch.stack([window_accumulate(g[b].float().contiguous(), y0s, x0s, h, w,
+                                           grid=ctx.grid) for b in range(g.shape[0])])
         return d.to(g.dtype), None, None, None, None
 
 
@@ -178,6 +184,21 @@ def tiled_core_backward_reference(m_all, w_all, patch, g, dims):
     return dw, dpatch.reshape(bs, nt, rows, num_heads * head_dim)
 
 
+_MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
+
+
+def _bwd_smem_bytes(rows, head_dim, e, t):
+    """Dynamic shared memory of ``tiled_core_bwd`` (csrc/tiled_msda.cu::
+    bwd_smem_bytes): two stages of the swizzled patch and g slices (whole
+    128-byte lines), m and w; a (row, warp) histogram of 16 warps, 32 ints
+    of scan scratch; one (weight, slot) pair per entry."""
+    def lines(n):
+        return -(-n // 32) * 32
+
+    stage = lines(rows * head_dim) + lines(t * head_dim) + 2 * e * t
+    return (2 * stage + -(-rows * 16 // 4) * 4 + 32) * 4 + e * t * 8
+
+
 def _check_core_args(m_all, w_all, patch, dims, g=None):
     tensors = (m_all, w_all, patch) if g is None else (m_all, w_all, patch, g)
     if any(t.device != patch.device for t in tensors):
@@ -194,16 +215,18 @@ def _check_core_args(m_all, w_all, patch, dims, g=None):
     if patch.dim() != 4 or patch.shape[:2] != (bs, nt) or patch.shape[3] != num_heads * head_dim:
         raise ValueError(f"tiled core: bad patch {tuple(patch.shape)}")
     rows = patch.shape[2]
-    smem = (1 if g is None else 2) * rows * head_dim * 4
-    if smem > 232448:
+    smem = rows * head_dim * 4 if g is None else _bwd_smem_bytes(rows, head_dim, e, t)
+    if smem > _MAX_SMEM:
         raise ValueError(f"tiled core: a {rows}-row patch head slice needs {smem} bytes of "
                          "shared memory, more than a Hopper block has")
     if g is not None:
         if g.shape != (bs, nt, t, num_heads * head_dim):
             raise ValueError(f"tiled core backward: bad g {tuple(g.shape)}")
-        if head_dim > 32 or head_dim & (head_dim - 1):
-            raise ValueError(f"tiled_core_bwd takes a head dim that is a power of two <= 32, "
-                             f"got {head_dim}")
+        if head_dim not in (4, 8, 16, 32) or (e * t) % 4:
+            raise ValueError(f"tiled_core_bwd takes a head dim of 4, 8, 16 or 32 and E * T a "
+                             f"multiple of 4, got {head_dim} and {e} * {t}")
+        if any(x.data_ptr() % 16 for x in tensors):
+            raise ValueError("tiled_core_bwd takes 16-byte aligned tensors only")
 
 
 def _tiled_core_fwd(m_all, w_all, patch, dims):
@@ -224,8 +247,9 @@ def _tiled_core_fwd(m_all, w_all, patch, dims):
 def tiled_core_backward(m_all, w_all, patch, g, dims):
     """(dw, dpatch) of ``tiled_matmul_core`` for the cotangent g
     (B, nt, T, C): ``tiled_core_backward_reference`` on CPU tensors, kernel
-    ``tiled_core_bwd`` on CUDA tensors (head dim a power of two <= 32), or
-    raises."""
+    ``tiled_core_bwd`` on CUDA tensors (head dim 4, 8, 16 or 32), or
+    raises. The kernel sums each dpatch row's entries in ascending (e, t)
+    and dw's channels in order: two launches give the same bits."""
     if patch.device.type == "cpu":
         return tiled_core_backward_reference(m_all, w_all, patch, g, dims)
     if patch.device.type != "cuda":
@@ -358,7 +382,7 @@ def _sep_contract_fwd(oy, ox, patch):
     if patch.dim() != 4 or patch.shape[:3] != (bs, nt, ph * pw) or patch.shape[3] % num_heads:
         raise ValueError(f"sep_contract_fused: bad patch {tuple(patch.shape)}")
     c = patch.shape[3]
-    if ph * pw * (c // num_heads + 32) * 4 > 232448:
+    if ph * pw * (c // num_heads + 32) * 4 > _MAX_SMEM:
         raise ValueError(f"sep_contract_fwd: a {ph}x{pw} patch needs more shared memory "
                          "than a Hopper block has")
     lib = _build.load_library()

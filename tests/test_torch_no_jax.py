@@ -159,6 +159,28 @@ def test_backward_kernels_match_plain_versions_on_card(batch, heads, head_dim):
     got = patch_scatter.window_accumulate(g, y0s, x0s, 16, 11)
     want = patch_scatter.window_accumulate_reference(g, y0s, x0s, 16, 11)
     assert torch.equal(got, want)
+    # non-grid origins with repeats, float4 channels (C = 32 heads * dims),
+    # values of mixed magnitude: bit-identical, and one table build for the
+    # geometry however often it runs
+    y0s = [int(v) for v in torch.randint(0, 12, (40,), generator=gen, device=dev)]
+    x0s = [int(v) for v in torch.randint(0, 9, (40,), generator=gen, device=dev)]
+    y0s[5:9], x0s[5:9] = [y0s[4]] * 4, [x0s[4]] * 4
+    scale = 10.0 ** torch.randint(-4, 5, (40, 1, 1, 1), generator=gen, device=dev)
+    g = torch.randn(40, 5, 4, heads * head_dim, generator=gen, device=dev) * scale
+    builds = patch_scatter.window_table.builds
+    for _ in range(3):
+        got = patch_scatter.window_accumulate(g, y0s, x0s, 16, 12)
+        assert torch.equal(got, patch_scatter.window_accumulate_reference(g, y0s, x0s, 16, 12))
+    assert patch_scatter.window_table.builds - builds <= 1
+    # a table keyed by the band grid, as SlicePatchesFunction's backward asks
+    y0u, x0u = (0, 4, 9), (0, 3, 6)
+    y0s, x0s = [y for y in y0u for _ in x0u], [x for _ in y0u for x in x0u]
+    g = torch.randn(9, 7, 6, heads * head_dim, generator=gen, device=dev)
+    builds = patch_scatter.window_table.builds
+    for _ in range(3):
+        got = patch_scatter.window_accumulate(g, y0s, x0s, 16, 12, grid=(y0u, x0u))
+        assert torch.equal(got, patch_scatter.window_accumulate_reference(g, y0s, x0s, 16, 12))
+    assert patch_scatter.window_table.builds - builds <= 1
 
 
 @pytest.mark.cuda
@@ -169,7 +191,9 @@ def test_tiled_and_rel_kernels_match_plain_versions_on_card(batch, heads, rel_he
     6 texels off, so some corners clamp to the patch border), plus entries
     with rows outside the patch; relation_bias_rel_fwd against its plain
     version. Forwards 1e-5 abs; the backward 1e-4 of each gradient's max
-    (shared-memory atomics add in no fixed order)."""
+    (its own summation order), also with a row that no entry hits and one
+    that every entry of an item hits, and bit-identical over two
+    launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
     from relation_detr_tpu_torch.ops import msda_tiled, relation_bias
@@ -193,8 +217,10 @@ def test_tiled_and_rel_kernels_match_plain_versions_on_card(batch, heads, rel_he
         x0i, y0i, fx, fy, at, bx, by = lvl["sample"]
         ph, pw, h, w = lvl["ph"], lvl["pw"], lvl["h"], lvl["w"]
         m, wt = msda_tiled._tiled_entries(x0i, y0i, fx, fy, at, bx, by, ph, pw, h, w)
+        m[m == ph * pw // 2] = ph * pw // 2 + 1  # a row no entry hits
         m[..., :3, ::5] = torch.tensor([-1, ph * pw, 10 ** 6], dtype=torch.int32,
                                        device=dev)[:, None]
+        m[-1, -1, -1] = ph * pw - 1  # every entry of one item on one row
         patch = lvl["patch"].contiguous()
         dims = (heads, head_dim)
         torch.testing.assert_close(msda_tiled.tiled_matmul_core(m, wt, patch, dims),
@@ -207,6 +233,9 @@ def test_tiled_and_rel_kernels_match_plain_versions_on_card(batch, heads, rel_he
         for name, a, b in zip(("dw", "dpatch"), got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()),
                                        msg=name)
+        again = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert not bool(got[1][:, :, ph * pw // 2].any())
         oy = msda_tiled._axis_soft(y0i, fy, by, ph, h, at).contiguous()
         ox = msda_tiled._axis_soft(x0i, fx, bx, pw, w, None).contiguous()
         torch.testing.assert_close(msda_tiled.sep_contract_fused(oy, ox, patch),
