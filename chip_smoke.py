@@ -9,9 +9,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   3. kernels against their plain PyTorch versions on the card, TF32 off, at
      the flagship's shapes, with CUDA-event times of both (and of one
      PyTorch call computing the same function, where there is one) and the
-     least time the card could take (bound): msda_fwd, relation_bias_v4_fwd,
-     msda_bwd (encoder Q=S=22,323, decoder Q=1100 and 1500), the relation
-     bias's backward (N=1100), window_accumulate at the four levels' window
+     least time the card could take (bound): msda_fwd and msda_bwd at the
+     encoder shape (Q=S=22,323) and the decoder shapes Q=900, 1100 and
+     1500, each on the encoder-like and the scattered location sets,
+     relation_bias_v4_fwd (N=900 and 1100) and the relation bias's
+     backward (N=1100), window_accumulate at the four levels' window
      grids (bit-identical, one covering-window table build per level, at
      the first call), the tiled encoder MSDA's tiled_core_fwd,
      tiled_core_bwd and sep_contract_fwd on its operands at the four levels
@@ -26,19 +28,24 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   5. the flagship config (ResNet-50, embed 256, 6+6 layers, 900 queries,
      91 classes, fp32, seeded random weights) answers 4 requests on the
      800x1344 canvas through ``inference.detect``, each going through 12
-     MSDA and 5 relation-bias kernel launches; then the B=1 p50 latency and
-     peak device memory; then the same weights on the full-canvas request
-     under impl="tiled", under "tiled_xla" + tiled_sep_kernel and under
-     relation versions 1 and 2: pre-top-k heads against the default's,
-     launches per forward, p50 and peak memory of each;
+     MSDA and 5 relation-bias kernel launches; then the B=1 p50 latency (15
+     detects) and peak device memory; then the same weights on the
+     full-canvas request under impl="tiled", under "tiled_xla" +
+     tiled_sep_kernel and under relation versions 1 and 2: pre-top-k heads
+     against the default's, launches per forward, p50 and peak memory of
+     each;
   6. the flagship train step (``parallel.train_step.make_train_step``: CDN,
      hybrid branch, matcher, criterion, backward, clip, AdamW) on synthetic
-     batches in the loader's layout: B=1 at GT capacity 100 and 16 (2
-     warm-up + 5 timed steps each), B=2 at 100 (3 steps), then B=1 at 100
-     under impl="tiled" (1 + 3 steps, no covering-window table built);
+     batches in the loader's layout: B=1 at GT capacity 100 (2 warm-up + 15
+     timed steps) and 16 (2 + 5), B=2 at 100 (3 steps), then B=1 at 100
+     under impl="tiled" (1 + 8 steps, no covering-window table built);
      p50 step time, peak memory, kernel launches and host matching
      seconds per step;
-  7. a JSON kernel table, one row per kernel (launches: from the run of the
+  7. torch.profiler, after every timed phase (so that no profiler session
+     runs before a p50): the MSDA kernels' device time per launch at each
+     phase-3 shape and set, and the MSDA and relation kernels' device time
+     in one default train step and one flagship detect; then a JSON kernel
+     table, one row per kernel (launches: from the run of the
      path that takes it, each counter set to 0 just before that run:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
      step, tiled_core_fwd/bwd and window_accumulate from the tiled train
@@ -87,8 +94,9 @@ TOL_BWD_REL = 1e-4
 # is held on the unpinned run too.
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
-TRAIN_RUNS = ((1, 100, 2, 5), (1, 16, 2, 5), (2, 100, 0, 3))  # B, GT cap, warm-up, timed
+TRAIN_RUNS = ((1, 100, 2, 15), (1, 16, 2, 5), (2, 100, 0, 3))  # B, GT cap, warm-up, timed
 TILED_TRAIN_RUN = (1, 100, 1, 8)
+DETECT_RUNS = 15  # timed default detects (the p50 of the eval path)
 # phase 4's MSDA forms (msda_defaults settings)
 TINY_VARIANTS = (("gather", {}), ("tiled", dict(impl="tiled")),
                  ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True)))
@@ -169,9 +177,52 @@ def size(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def profile_kernels(torch, fn, names):
+    """Device time of the kernels in one run of fn, from torch.profiler's
+    key_averages(): {kernel name: [ms, launches]} for every kernel whose
+    name contains one of names (each template instance on its own line),
+    or None when the profiler saw no device time at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found, busy = {}, 0.0
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        busy += us
+        if any(n in evt.key for n in names) and us > 0:
+            found[evt.key] = [us / 1e3, evt.count]
+    return found if busy > 0 else None
+
+
+# (label, fn, kernel names, row, key): torch.profiler runs of fn, made in
+# phase 7 after every timed phase, so that no profiler session precedes a
+# p50; each stores {kernel: [ms, launches]} (or None) at row[key]
+PROFILES = []
+
+
+def run_profiles(torch):
+    """Prints and stores the device time of the named kernels in one run of
+    each of PROFILES' fns (``profile_kernels``)."""
+    for label, fn, names, row, key in PROFILES:
+        found = profile_kernels(torch, fn, names)
+        row[key] = found
+        if found is None:
+            phase(7, f"{label}: torch.profiler saw no device time")
+            continue
+        phase(7, f"{label}: device time (torch.profiler key_averages()): " +
+              "; ".join(f"{k} {v[0]:.4f} ms over {v[1]} launches" for k, v in found.items()))
+
+
 def msda_inputs(torch, gen, num_queries, dev):
-    """Encoder-like locations (token centres plus offsets of a few pixels),
-    with points past every border and exactly on the borders."""
+    """The scattered set, the worst case for locality and the correctness
+    set: locations uniform over the image (point 0) or over the image and a
+    margin past it (points 1-3), whatever the query; every 7th query
+    with point 1 on the left and top borders, every 11th with point 2 on
+    the right and bottom ones, every 5th with point 3 on pixel centres of
+    random tokens plus whole-pixel offsets."""
     total = sum(h * w for h, w in LEVELS)
     h_, l_, p_, d_ = 8, len(LEVELS), 4, 32
     value = torch.randn(1, total, h_, d_, generator=gen, device=dev)
@@ -183,6 +234,45 @@ def msda_inputs(torch, gen, num_queries, dev):
     attn = torch.rand(1, num_queries, h_, l_, p_, generator=gen, device=dev)
     attn = attn / attn.sum(dim=(-2, -1), keepdim=True)
     return value, locs.contiguous(), attn.contiguous()
+
+
+def msda_encoder_inputs(torch, gen, num_queries, dev):
+    """The encoder-like set: each query is a token sampling near its own
+    reference point at every level, the cell centre at valid ratio 1
+    (``models/base_transformer.py::get_full_reference_points``), plus the
+    radial offset initialisation (``models/attention.py::
+    sampling_offsets_bias``) and N(0, 1.5 px) jitter, both in each level's
+    pixels, as ``models/attention.py`` divides offsets by the level's size.
+    Every 97th query samples point 3 anywhere over the image and a margin
+    past it (far outside its tile), every 89th point 0 past a border. At
+    Q = S the queries are the tokens in order (the encoder); otherwise Q
+    tokens in random order (a decoder's queries have no spatial order)."""
+    from relation_detr_tpu_torch.models.attention import sampling_offsets_bias
+
+    total = sum(h * w for h, w in LEVELS)
+    h_, l_, p_, d_ = 8, len(LEVELS), 4, 32
+    value = torch.randn(1, total, h_, d_, generator=gen, device=dev)
+    refs = torch.cat([torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
+                                                 (torch.arange(h, device=dev) + 0.5) / h,
+                                                 indexing="xy"), -1).reshape(-1, 2)
+                      for h, w in LEVELS])
+    if num_queries != total:
+        refs = refs[torch.randperm(total, generator=gen, device=dev)[:num_queries]]
+    size = torch.tensor([(w, h) for h, w in LEVELS], device=dev, dtype=torch.float32)
+    offs = sampling_offsets_bias(h_, l_, p_).to(dev).reshape(h_, l_, p_, 2)
+    offs = offs + torch.randn(1, num_queries, h_, l_, p_, 2, generator=gen, device=dev) * 1.5
+    locs = refs[None, :, None, None, None] + offs / size[:, None]
+    far = locs[:, ::97, :, :, 3]
+    far.copy_(torch.rand(far.shape, generator=gen, device=dev) * 1.2 - 0.1)
+    past = locs[:, ::89, :, :, 0]
+    past.copy_(torch.tensor([-0.05, 1.05], device=dev)[
+        torch.randint(0, 2, past.shape, generator=gen, device=dev)])
+    attn = torch.rand(1, num_queries, h_, l_, p_, generator=gen, device=dev)
+    attn = attn / attn.sum(dim=(-2, -1), keepdim=True)
+    return value, locs.contiguous(), attn.contiguous()
+
+
+MSDA_SETS = (("encoder-like", msda_encoder_inputs), ("scattered", msda_inputs))
 
 
 def on_pixel_centres(torch, gen, locs, levels):
@@ -213,42 +303,109 @@ def relation_inputs(torch, gen, n, dev):
     return src, tgt, kernel, bias
 
 
+def check_msda_kernels(torch, rows):
+    """msda_fwd and msda_bwd against their plain versions at the encoder
+    shape (Q = S) and the decoder shapes Q = 900 (eval), 1100 (train:
+    200 CDN slots + 900) and 1500 (hybrid), each on the encoder-like and
+    the scattered set, timed in turns with them. A row's ms is the encoder
+    shape on the encoder-like set; shapes_ms lists [kernel, plain, bound]
+    for every shape and set."""
+    from relation_detr_tpu_torch.ops import msda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    total = sum(h * w for h, w in LEVELS)
+    found = {"fwd": {}, "bwd": {}}
+    errs = {"fwd": [], "bwd": []}
+    device = {}  # phase 7: kernel-only device time per shape and set
+    for nq in (total, 900, 1100, 1500):
+        for set_name, make in MSDA_SETS:
+            value, locs, attn = make(torch, gen, nq, dev)
+            label = f"Q={nq} {set_name}"
+            shape = f"B=1 Q={nq} S={total} H=8 D=32 L=4 P=4, {set_name}"
+            with torch.no_grad():
+                got = msda.multi_scale_deformable_attention(value, LEVELS, locs, attn)
+                want = msda.msda_reference(value, LEVELS, locs, attn)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                if not (err <= TOL_KERNEL):
+                    raise AssertionError(f"msda_fwd {shape}: max abs err {err} > {TOL_KERNEL}")
+                ms, plain_ms = in_turns(
+                    lambda: msda.msda_reference(value, LEVELS, locs, attn),
+                    lambda: msda.multi_scale_deformable_attention(value, LEVELS, locs, attn),
+                    5, 20)
+            # 4 corner FMAs and a weight FMA per (q, h, l, p, d)
+            fb = bound(size(value, locs, attn, got), 10 * got.numel() * 16)
+            errs["fwd"].append(err)
+            found["fwd"][label] = [ms, plain_ms, fb[0], fb[1]]
+            phase(3, f"msda_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]})")
+            del got, want
+
+            grad_out = torch.randn(1, nq, 256, generator=gen, device=dev)
+            got = msda.msda_backward(value, LEVELS, locs, attn, grad_out)
+            inputs = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
+            with torch.enable_grad():
+                out = msda.msda_reference(inputs[0], LEVELS, inputs[1], inputs[2])
+
+            def plain():
+                return torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+
+            want = plain()
+            torch.cuda.synchronize()
+            rel = [max_rel(g, w) for g, w in zip(got, want)]
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            if not all(r <= TOL_BWD_REL for r in rel):
+                raise AssertionError(f"msda_bwd {shape}: max rel err (value, locations, "
+                                     f"weights) {rel} > {TOL_BWD_REL}")
+            ms, plain_ms = in_turns(
+                plain, lambda: msda.msda_backward(value, LEVELS, locs, attn, grad_out), 3, 10)
+            PROFILES.append((
+                f"msda_fwd x20 + msda_bwd x10, {shape}",
+                lambda args=(value, locs, attn, grad_out): msda_calls(torch, msda, *args),
+                ("msda_fwd_kernel", "msda_bwd_kernel"), device, label))
+            # per (q, h, l, p, d): 4 corner atomics, 4 x 2 location FMAs, 4
+            # weight FMAs and the sample FMA
+            bb = bound(size(value, locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
+            errs["bwd"].append(err)
+            found["bwd"][label] = [ms, plain_ms, bb[0], bb[1]]
+            phase(3, f"msda_bwd {shape}: max rel err value {rel[0]:.3e}, locations "
+                     f"{rel[1]:.3e}, weights {rel[2]:.3e} (max abs {err:.3e}); kernel {ms:.4f} "
+                     f"ms, plain backward {plain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+            del out, inputs, want, got
+    head = f"Q={total} encoder-like"
+    for key, name, library in (("fwd", "msda_fwd", "none: grid_sample takes one level per call"),
+                               ("bwd", "msda_bwd", "none: no one backward call")):
+        ms, plain_ms, bound_ms, bound_by = found[key][head]
+        rows["msda" if key == "fwd" else "msda_bwd"] = dict(
+            name=name, route="cuda", source="relation_detr_tpu_torch/csrc/msda.cu",
+            replaces="relation_detr_tpu/ops/msda.py:375", max_abs_err=max(errs[key]), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library=library, scattered_ms=found[key][f"Q={total} scattered"][0],
+            shape=f"encoder B=1 Q=S={total} H=8 D=32 L=P=4, encoder-like set (shapes_ms: "
+                  "[kernel, plain, bound] per shape and set)",
+            shapes_ms={k: v[:3] for k, v in found[key].items()},
+            device_ms=device,
+        )
+
+
+def msda_calls(torch, msda, value, locs, attn, grad_out):
+    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 7
+    profiles them: each kernel's device time without the host's gaps)."""
+    with torch.no_grad():
+        for _ in range(20):
+            msda.multi_scale_deformable_attention(value, LEVELS, locs, attn)
+    for _ in range(10):
+        msda.msda_backward(value, LEVELS, locs, attn, grad_out)
+
+
 def check_kernels(torch):
-    from relation_detr_tpu_torch.ops import msda, relation_bias
+    from relation_detr_tpu_torch.ops import relation_bias
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
-    total = sum(h * w for h, w in LEVELS)
-    errs, times = [], []
-    for name, nq in (("encoder", total), ("decoder", 900)):
-        value, locs, attn = msda_inputs(torch, gen, nq, dev)
-        with torch.no_grad():
-            got = msda.multi_scale_deformable_attention(value, LEVELS, locs, attn)
-            want = msda.msda_reference(value, LEVELS, locs, attn)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            if not (err <= TOL_KERNEL):
-                raise AssertionError(f"msda {name} Q={nq}: max abs err {err} > {TOL_KERNEL}")
-            ms, plain_ms = in_turns(
-                lambda: msda.msda_reference(value, LEVELS, locs, attn),
-                lambda: msda.multi_scale_deformable_attention(value, LEVELS, locs, attn),
-                5, 20,
-            )
-        errs.append(err)
-        times.append((ms, plain_ms))
-        if name == "encoder":  # 4 corner FMAs and a weight FMA per (q, h, l, p, d)
-            fwd_bound = bound(size(value, locs, attn, got), 10 * got.numel() * 16)
-        phase(3, f"msda_fwd {name} B=1 Q={nq} S={total} H=8 D=32 L=4 P=4: "
-                 f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rows["msda"] = dict(
-        name="msda_fwd", route="cuda", source="relation_detr_tpu_torch/csrc/msda.cu",
-        replaces="relation_detr_tpu/ops/msda.py:375", max_abs_err=max(errs),
-        ms=times[0][0], plain_ms=times[0][1], bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-        library_ms=None, library="none: grid_sample takes one level per call",
-        decoder_ms=times[1][0], decoder_plain_ms=times[1][1],
-        shape="encoder B=1 Q=S=22323 H=8 D=32 L=P=4 (decoder: Q=900)",
-    )
+    check_msda_kernels(torch, rows)
 
     src, tgt, kernel, bias = relation_inputs(torch, gen, 900, dev)
     with torch.no_grad():
@@ -291,52 +448,11 @@ def max_rel(got, want):
 
 
 def check_backward_kernels(torch, rows):
-    from relation_detr_tpu_torch.ops import msda, patch_scatter, relation_bias
+    from relation_detr_tpu_torch.ops import patch_scatter, relation_bias
     from relation_detr_tpu_torch.ops.tile_geometry import MARGIN, TILE_TOKENS, _tile_geometry
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    total = sum(h * w for h, w in LEVELS)
-    errs, times = [], {}
-    for name, nq in (("encoder", total), ("decoder", 1100), ("hybrid decoder", 1500)):
-        value, locs, attn = msda_inputs(torch, gen, nq, dev)
-        grad_out = torch.randn(1, nq, 256, generator=gen, device=dev)
-        got = msda.msda_backward(value, LEVELS, locs, attn, grad_out)
-        inputs = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
-        with torch.enable_grad():
-            out = msda.msda_reference(inputs[0], LEVELS, inputs[1], inputs[2])
-
-        def plain():
-            return torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
-
-        want = plain()
-        torch.cuda.synchronize()
-        rel = [max_rel(g, w) for g, w in zip(got, want)]
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        if not all(r <= TOL_BWD_REL for r in rel):
-            raise AssertionError(f"msda_bwd {name} Q={nq}: max rel err (value, locations, "
-                                 f"weights) {rel} > {TOL_BWD_REL}")
-        ms, plain_ms = in_turns(
-            plain, lambda: msda.msda_backward(value, LEVELS, locs, attn, grad_out), 3, 10)
-        errs.append(err)
-        times[name] = (ms, plain_ms)
-        if name == "encoder":  # per (q, h, l, p, d): 4 corner atomics, 4 x 2 location
-            # FMAs, 4 weight FMAs and the sample FMA
-            bwd_bound = bound(size(value, locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
-        phase(3, f"msda_bwd {name} B=1 Q={nq} S={total} H=8 D=32 L=4 P=4: max rel err "
-                 f"value {rel[0]:.3e}, locations {rel[1]:.3e}, weights {rel[2]:.3e} "
-                 f"(max abs {err:.3e}); kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms")
-        del out, inputs, want, got
-    rows["msda_bwd"] = dict(
-        name="msda_bwd", route="cuda", source="relation_detr_tpu_torch/csrc/msda.cu",
-        replaces="relation_detr_tpu/ops/msda.py:375", max_abs_err=max(errs),
-        ms=times["encoder"][0], plain_ms=times["encoder"][1], bound_ms=bwd_bound[0],
-        bound_by=bwd_bound[1], library_ms=None, library="none: no one backward call",
-        decoder_ms=times["decoder"][0], decoder_plain_ms=times["decoder"][1],
-        hybrid_ms=times["hybrid decoder"][0], hybrid_plain_ms=times["hybrid decoder"][1],
-        shape="encoder B=1 Q=S=22323 H=8 D=32 L=P=4 (decoder: Q=1100; hybrid: Q=1500)",
-    )
-
     src, tgt, kernel, bias = relation_inputs(torch, gen, 1100, dev)
     with torch.no_grad():  # the train path's shape: 200 CDN slots + 900 queries
         fwd = relation_bias.relation_bias_v4(src, tgt, kernel, bias)
@@ -345,6 +461,10 @@ def check_backward_kernels(torch, rows):
         fwd_err = (fwd - fwd_want).abs().max().item()
     if not (fwd_err <= TOL_KERNEL):
         raise AssertionError(f"relation bias N=1100: max abs err {fwd_err} > {TOL_KERNEL}")
+    with torch.no_grad():
+        n1100_ms, n1100_plain_ms = in_turns(
+            lambda: relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias),
+            lambda: relation_bias.relation_bias_v4(src, tgt, kernel, bias), 10, 50)
     del fwd, fwd_want
     cot = torch.randn(1, 8, 1100, 1100, generator=gen, device=dev)
     k, b = kernel.requires_grad_(True), bias.requires_grad_(True)
@@ -362,12 +482,15 @@ def check_backward_kernels(torch, rows):
     ms, plain_ms = in_turns(
         plain_rel,
         lambda: relation_bias.relation_bias_v4_backward(src, tgt, kernel, bias, cot), 3, 5)
-    phase(3, f"relation_bias_v4_fwd B=1 N1=N2=1100 H=8: max_abs_err {fwd_err:.3e}; relation "
+    phase(3, f"relation_bias_v4_fwd B=1 N1=N2=1100 H=8: max_abs_err {fwd_err:.3e}, kernel "
+             f"{n1100_ms:.4f} ms, plain {n1100_plain_ms:.4f} ms; relation "
              f"bias backward (RelationBiasFunction: plain separable recompute, not a kernel): "
              f"max rel err kernel {rel[0]:.3e}, bias {rel[1]:.3e}; {ms:.4f} ms, plain autograd "
              f"backward {plain_ms:.4f} ms")
     rows["relation"].update(max_abs_err=max(rows["relation"]["max_abs_err"], fwd_err),
-                            max_abs_err_n1100=fwd_err, backward_ms=ms, backward_plain_ms=plain_ms)
+                            max_abs_err_n1100=fwd_err, n1100_ms=n1100_ms,
+                            n1100_plain_ms=n1100_plain_ms, backward_ms=ms,
+                            backward_plain_ms=plain_ms)
     del out, cot
 
     # window_accumulate at the four levels' window grids, keyed by the band
@@ -900,6 +1023,15 @@ def run_flagship_train(torch, model, kernels):
         kernels[row]["launches"] = fn.launches
         if fn.launches == 0:
             raise AssertionError(f"{key} was never launched by the train step")
+    batch = synthetic_batch(torch, gen, 1, 100, CANVAS, "cuda", REQUESTS[0])
+
+    def default_step(batch=batch):
+        model.train()
+        step(batch)
+
+    PROFILES.append(("[gather] B=1 GT capacity 100 train step (in the model)", default_step,
+                     ("msda_fwd_kernel", "msda_bwd_kernel", "relation_bias_v4_kernel"),
+                     kernels["msda_bwd"], "in_model_train"))
 
     # the tiled encoder MSDA: per step and image 6 encoder layers x 4 levels
     # of tiled_core_fwd, tiled_core_bwd and window_accumulate (the patch
@@ -1025,7 +1157,7 @@ def run_flagship(torch, kernels):
     images, mask, sizes = request(*REQUESTS[0])
     detect(model, images, mask, sizes, 100)  # warm-up
     times = []
-    for _ in range(5):
+    for _ in range(DETECT_RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1034,8 +1166,16 @@ def run_flagship(torch, kernels):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     phase(5, f"flagship B=1 800x1344 fp32 detect: p50 {statistics.median(times):.3f} ms "
-             f"(5 runs: {', '.join(f'{t:.3f}' for t in times)}), peak memory "
+             f"({len(times)} runs: {', '.join(f'{t:.3f}' for t in times)}), peak memory "
              f"{peak / 2**30:.3f} GiB (max_memory_allocated over the 4 requests)")
+
+    def one_detect():
+        model.eval()
+        detect(model, images, mask, sizes, 100)
+
+    PROFILES.append(("flagship B=1 detect (in the model)", one_detect,
+                     ("msda_fwd_kernel", "relation_bias_v4_kernel"), kernels["msda"],
+                     "in_model_eval"))
     run_flagship_variants(torch, model, raw, request, kernels)
     hook.remove()
     return model
@@ -1178,6 +1318,7 @@ def main() -> int:
         timed(4, check_tiny_train, torch, label, settings)
     model = timed(5, run_flagship, torch, kernels)
     timed(6, run_flagship_train, torch, model, kernels)
+    timed(7, run_profiles, torch)
     phase(7, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     leaked = [m for m in ("jax", "flax", "cv2", "relation_detr_tpu") if m in sys.modules]

@@ -9,8 +9,11 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
+
+from msda_inputs import close_where_finite, encoder_like, scattered
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -305,3 +308,68 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
         assert [fn.launches for fn in wrappers] == launched
     finally:
         _build.load_library.cache_clear()
+
+
+# a quarter of the flagship's canvas, and a small ragged level set
+MID_LEVELS = ((50, 84), (25, 42), (13, 21), (7, 11))
+SMALL_LEVELS = ((19, 21), (10, 11), (5, 6), (3, 3))
+
+
+def _msda_card_case(value, locs, attn, grad_out, levels):
+    """msda_fwd and msda_bwd against their plain versions on the card: the
+    output within 1e-4 abs, each gradient within 1e-4 of its max, where
+    both are finite; the NaN sample (image 0, query 3, head 0, level 1,
+    point 2) gives a NaN output and a NaN weight gradient on both."""
+    from relation_detr_tpu_torch.ops import msda
+
+    dev = torch.device("cuda")
+    tv, tl, ta, tg = (t if isinstance(t, torch.Tensor) else torch.from_numpy(t).to(dev)
+                      for t in (value, locs, attn, grad_out))
+    with torch.no_grad():
+        got = msda.multi_scale_deformable_attention(tv, levels, tl, ta)
+        want = msda.msda_reference(tv, levels, tl, ta)
+    assert torch.isnan(got[0, 3]).any() and torch.isnan(want[0, 3]).any()
+    want_np = want.cpu().numpy()
+    close_where_finite(got.cpu().numpy(), want_np,
+                       1e-4 / np.abs(want_np[np.isfinite(want_np)]).max(), "out")
+    grads = msda.msda_backward(tv, levels, tl, ta, tg)
+    wants = msda.msda_backward_reference(tv, levels, tl, ta, tg)
+    for name, g, w in zip(("grad_value", "grad_loc", "grad_attn"), grads, wants):
+        close_where_finite(g.cpu().numpy(), w.cpu().numpy(), 1e-4, name)
+    assert torch.isnan(grads[2][0, 3, 0, 1, 2]) and torch.isnan(wants[2][0, 3, 0, 1, 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["encoder-like", "scattered"])
+@pytest.mark.parametrize("layout,batch,heads,head_dim", [
+    ("encoder", 1, 8, 32), ("encoder", 2, 4, 16), ("decoder", 2, 8, 32), ("decoder", 1, 3, 8)])
+def test_msda_kernels_match_plain_versions_on_card(inputs, layout, batch, heads, head_dim):
+    """The gather MSDA kernels in the encoder layout (Q = S) and the
+    decoder layout, on the encoder-like and the scattered sets, 8 / 4 / 2
+    lanes per item."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    rng = np.random.RandomState(head_dim + batch)
+    total = sum(h * w for h, w in MID_LEVELS)
+    num_queries = total if layout == "encoder" else 300
+    make = encoder_like if inputs == "encoder-like" else scattered
+    _msda_card_case(*make(rng, MID_LEVELS, batch, num_queries, heads, head_dim), MID_LEVELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["encoder", "decoder"])
+def test_msda_kernels_take_unaligned_tensors_on_card(layout):
+    """Contiguous views that start 4 bytes into their storage: the kernels
+    then take one channel per lane instead of four."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    rng = np.random.RandomState(9)
+    total = sum(h * w for h, w in SMALL_LEVELS)
+    arrays = encoder_like(rng, SMALL_LEVELS, 1, total if layout == "encoder" else 29, 2, 32)
+    shifted = []
+    for a in arrays:
+        flat = torch.zeros(a.size + 1, device="cuda")
+        flat[1:] = torch.from_numpy(a).reshape(-1).cuda()
+        shifted.append(flat[1:].view(a.shape))
+    assert all(t.data_ptr() % 16 and t.is_contiguous() for t in shifted)
+    _msda_card_case(*shifted, SMALL_LEVELS)
