@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the exit code is non-zero:
-  1. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
+  1. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions, and
+     which JPEG decoders the machine has (nvjpeg.h with libnvjpeg.so,
+     jpeglib.h with libjpeg.so; informational, never fails);
   2. build: nvcc builds the CUDA kernels from csrc/ (seconds printed);
   3. kernels against their plain PyTorch versions on the card, TF32 off, at
      the flagship's shapes, with CUDA-event times of both (and of one
@@ -12,14 +14,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      least time the card could take (bound): msda_fwd and msda_bwd at the
      encoder shape (Q=S=22,323) and the decoder shapes Q=900, 1100 and
      1500, each on the encoder-like and the scattered location sets,
-     relation_bias_v4_fwd (N=900 and 1100) and the relation bias's
-     backward (N=1100), window_accumulate at the four levels' window
+     relation_bias_v4_fwd (N=900 and 1100, with bounds) and the relation
+     bias's backward (N=1100), window_accumulate at the four levels' window
      grids (bit-identical, one covering-window table build per level, at
      the first call), the tiled encoder MSDA's tiled_core_fwd,
      tiled_core_bwd and sep_contract_fwd on its operands at the four levels
      (B=1, and level 0 at B=2; tiled_core_bwd also on adversarial entries,
-     and two launches bit-identical), and relation_bias_rel_fwd (N=900 and
-     1100);
+     and two launches bit-identical; sep_contract_fwd beside the
+     3-operand torch.einsum), each with its bound, and
+     relation_bias_rel_fwd (N=900 and 1100);
   4. in-model parity: the tiny-test config on the GPU (kernels) and on the
      CPU (plain versions), same weights and inputs: the eval forward, then
      one train forward + backward with the same CDN draws, run on the CPU
@@ -43,8 +46,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      seconds per step;
   7. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
-     phase-3 shape and set, and the MSDA and relation kernels' device time
-     in one default train step and one flagship detect; then a JSON kernel
+     phase-3 shape and set, relation_bias_v4_fwd's at N=900 and 1100, the
+     MSDA and relation kernels' device time in one default train step and
+     one flagship detect (with its host-to-device copies), and
+     sep_contract_fwd's in one sep-kernel eval forward; then 5 calls of the
+     flagship decoder's relation module, whose only device work must be
+     one relation_bias_v4_fwd launch a call; then a JSON kernel
      table, one row per kernel (launches: from the run of the
      path that takes it, each counter set to 0 just before that run:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
@@ -207,7 +214,8 @@ def run_profiles(torch):
     """Prints and stores the device time of the named kernels in one run of
     each of PROFILES' fns (``profile_kernels``)."""
     for label, fn, names, row, key in PROFILES:
-        found = profile_kernels(torch, fn, names)
+        # a session now and then sees no device activity at all: take a second
+        found = profile_kernels(torch, fn, names) or profile_kernels(torch, fn, names)
         row[key] = found
         if found is None:
             phase(7, f"{label}: torch.profiler saw no device time")
@@ -423,24 +431,41 @@ def check_kernels(torch):
             lambda: relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias),
             lambda: relation_bias.relation_bias_v4(src, tgt, kernel, bias), 10, 50,
         )
+    v4_bound = relation_v4_bound(src, tgt, kernel, bias, got)
     phase(3, f"relation_bias_v4_fwd B=1 N1=N2=900 H=8: max_abs_err {err:.3e}, "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    # per pair: 32 sin/cos (one operation each) and 2 x 32 FMAs per head
-    # (xy and wh halves); the per-box wh features count as inputs
-    a_feats, b_feats = relation_bias._box_wh_features(
-        src, tgt, kernel, 16, torch.from_numpy(relation_bias._freqs(16, 1e4, 100.0)).cuda(),
-        1e-5)
-    v4_bound = bound(size(src, tgt, a_feats, b_feats, kernel, bias, got),
-                     got.numel() // 8 * (32 + 2 * 2 * 32 * 8))
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {v4_bound[0]:.4f} ms "
+             f"({v4_bound[1]})")
+    device = {}  # phase 7: the kernel's device time per launch at N = 900 and 1100
+    PROFILES.append(("relation_bias_v4_fwd x20, B=1 N1=N2=900 H=8",
+                     lambda args=(src, tgt, kernel, bias): relation_calls(torch, *args),
+                     ("relation_bias_v4_kernel",), device, "N=900"))
     rows["relation"] = dict(
         name="relation_bias_v4_fwd", route="cuda",
         source="relation_detr_tpu_torch/csrc/relation_bias.cu",
         replaces="relation_detr_tpu/ops/relation_pallas.py:164", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=v4_bound[0], bound_by=v4_bound[1],
         library_ms=None, library="none: no one call builds the pair features",
-        shape="B=1 N1=N2=900 H=8 E=16",
+        shape="B=1 N1=N2=900 H=8 E=16", device_ms=device,
     )
     return rows
+
+
+def relation_v4_bound(src, tgt, kernel, bias, out):
+    """Bound of relation_bias_v4_fwd: the boxes, weights and bias in, the
+    bias out; per pair 32 sines and cosines (one operation each) and 2 x 32
+    FMAs per head (xy and wh halves). The per-box wh features (O(N)) are
+    left out."""
+    pairs = out.numel() // out.shape[1]
+    return bound(size(src, tgt, kernel, bias, out), pairs * (32 + 2 * 2 * 32 * out.shape[1]))
+
+
+def relation_calls(torch, src, tgt, kernel, bias):
+    """relation_bias_v4 20 times (phase 7 profiles its kernel)."""
+    from relation_detr_tpu_torch.ops import relation_bias
+
+    with torch.no_grad():
+        for _ in range(20):
+            relation_bias.relation_bias_v4(src, tgt, kernel, bias)
 
 
 def max_rel(got, want):
@@ -465,6 +490,11 @@ def check_backward_kernels(torch, rows):
         n1100_ms, n1100_plain_ms = in_turns(
             lambda: relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias),
             lambda: relation_bias.relation_bias_v4(src, tgt, kernel, bias), 10, 50)
+    n1100_bound = relation_v4_bound(src, tgt, kernel, bias, fwd)
+    PROFILES.append(("relation_bias_v4_fwd x20, B=1 N1=N2=1100 H=8",
+                     lambda args=(src, tgt, kernel.detach(), bias.detach()):
+                     relation_calls(torch, *args),
+                     ("relation_bias_v4_kernel",), rows["relation"]["device_ms"], "N=1100"))
     del fwd, fwd_want
     cot = torch.randn(1, 8, 1100, 1100, generator=gen, device=dev)
     k, b = kernel.requires_grad_(True), bias.requires_grad_(True)
@@ -483,13 +513,15 @@ def check_backward_kernels(torch, rows):
         plain_rel,
         lambda: relation_bias.relation_bias_v4_backward(src, tgt, kernel, bias, cot), 3, 5)
     phase(3, f"relation_bias_v4_fwd B=1 N1=N2=1100 H=8: max_abs_err {fwd_err:.3e}, kernel "
-             f"{n1100_ms:.4f} ms, plain {n1100_plain_ms:.4f} ms; relation "
+             f"{n1100_ms:.4f} ms, plain {n1100_plain_ms:.4f} ms, bound {n1100_bound[0]:.4f} ms "
+             f"({n1100_bound[1]}); relation "
              f"bias backward (RelationBiasFunction: plain separable recompute, not a kernel): "
              f"max rel err kernel {rel[0]:.3e}, bias {rel[1]:.3e}; {ms:.4f} ms, plain autograd "
              f"backward {plain_ms:.4f} ms")
     rows["relation"].update(max_abs_err=max(rows["relation"]["max_abs_err"], fwd_err),
                             max_abs_err_n1100=fwd_err, n1100_ms=n1100_ms,
-                            n1100_plain_ms=n1100_plain_ms, backward_ms=ms,
+                            n1100_plain_ms=n1100_plain_ms, n1100_bound_ms=n1100_bound[0],
+                            backward_ms=ms,
                             backward_plain_ms=plain_ms)
     del out, cot
 
@@ -701,8 +733,10 @@ def check_tiled_kernels(torch, rows):
             name=name, route="cuda", source=f"relation_detr_tpu_torch/csrc/{source}",
             replaces=replaces, max_abs_err=max(found[key]["errs"]), ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, library=library,
-            shape="level 0 B=1: nt=189 T=128 M=437 H=8 D=32 (levels_ms: per (B, level))",
-            levels_ms={f"B{b} L{lv}": [k, p, bd[0]] for b, lv, k, p, _, bd in times},
+            shape="level 0 B=1: nt=189 T=128 M=437 H=8 D=32 (levels_ms: per (B, level) "
+                  "[kernel, plain, bound] and the library call's, where there is one)",
+            levels_ms={f"B{b} L{lv}": [k, p, bd[0]] + ([lib] if lib is not None else [])
+                       for b, lv, k, p, lib, bd in times},
         )
     rows["tiled_core_bwd"].update(deterministic=True,
                                   adversarial_max_rel=found["bwd"]["adversarial"])
@@ -740,7 +774,7 @@ def check_tiled_kernels(torch, rows):
         ms=times[0][0], plain_ms=times[0][1], bound_ms=times[0][2][0],
         bound_by=times[0][2][1], library_ms=None,
         library="none: no one call builds the sine features", shape="B=1 N1=N2=900 H=8 E=16",
-        n1100_ms=times[1][0], n1100_plain_ms=times[1][1],
+        n1100_ms=times[1][0], n1100_plain_ms=times[1][1], n1100_bound_ms=times[1][2][0],
     )
 
 
@@ -1174,11 +1208,81 @@ def run_flagship(torch, kernels):
         detect(model, images, mask, sizes, 100)
 
     PROFILES.append(("flagship B=1 detect (in the model)", one_detect,
-                     ("msda_fwd_kernel", "relation_bias_v4_kernel"), kernels["msda"],
+                     ("msda_fwd_kernel", "relation_bias_v4_kernel", "Memcpy"), kernels["msda"],
                      "in_model_eval"))
     run_flagship_variants(torch, model, raw, request, kernels)
     hook.remove()
     return model
+
+
+def check_relation_calls(torch, model, kernels):
+    """The flagship decoder's relation module on 900 boxes, 5 calls in
+    inference mode under torch.profiler: its only device work must be
+    relation_bias_v4_fwd (no copy, no feature op), launched once a call
+    (the wrapper's count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from relation_detr_tpu_torch.ops.relation_bias import relation_bias_v4
+
+    module = model.transformer.decoder.position_relation_embedding
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    src, tgt = (torch.rand(1, 900, 4, generator=gen, device="cuda") * 0.5 + 0.01
+                for _ in range(2))
+
+    def five_calls():
+        with torch.inference_mode():
+            launches = relation_bias_v4.launches
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    module(src, tgt)
+                torch.cuda.synchronize()
+        # device work: kernels, copies and fills (profiler bookkeeping aside)
+        return relation_bias_v4.launches - launches, {
+            e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key}
+
+    with torch.inference_mode():
+        module(src, tgt)
+        torch.cuda.synchronize()
+    launches, device = five_calls()
+    if not device:  # a session now and then sees no device activity at all
+        launches, device = five_calls()
+    phase(7, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
+             f"relation_bias_v4_fwd launches, device work {device}")
+    kernels["relation"]["device_work_5_calls"] = device
+    if launches != 5 or not device or any("relation_bias_v4_kernel" not in k for k in device):
+        raise AssertionError(f"relation bias: expected one relation_bias_v4_fwd launch per "
+                             f"call and no other device work, got {launches} launches and "
+                             f"{device}")
+
+
+def jpeg_decoders():
+    """Which JPEG decoders the machine has, for the folder CLI's image decode
+    (informational: never raises)."""
+    import ctypes.util
+    import glob
+
+    try:
+        cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+        def first(patterns):
+            hits = [h for pat in patterns for h in sorted(glob.glob(pat))]
+            return hits[0] if hits else None
+
+        found = {
+            "nvjpeg.h": first([f"{cuda}/include/nvjpeg.h",
+                               f"{cuda}/targets/*/include/nvjpeg.h", "/usr/include/nvjpeg.h"]),
+            "libnvjpeg.so": first([f"{cuda}/lib64/libnvjpeg.so*",
+                                   f"{cuda}/targets/*/lib/libnvjpeg.so*"]),
+            "jpeglib.h": first(["/usr/include/jpeglib.h", "/usr/include/*/jpeglib.h",
+                                "/usr/local/include/jpeglib.h"]),
+            "libjpeg.so": ctypes.util.find_library("jpeg") or first(
+                ["/usr/lib/*/libjpeg.so*", "/usr/lib/libjpeg.so*", "/usr/local/lib/libjpeg.so*"]),
+        }
+        return "; ".join(f"{k} {v or 'absent'}" for k, v in found.items())
+    except Exception as exc:  # informational only
+        return f"not checked ({exc!r})"
 
 
 def run_flagship_variants(torch, model, raw, request, kernels):
@@ -1266,6 +1370,14 @@ def run_flagship_variants(torch, model, raw, request, kernels):
         phase(5, f"flagship B=1 800x1344 (valid 800x1344) detect [{label}]: {msg}launches per "
                  f"forward {got}; p50 {statistics.median(times):.3f} ms (5 runs: "
                  f"{', '.join(f'{t:.3f}' for t in times)}), peak memory {peak / 2**30:.3f} GiB")
+
+    def sep_detect():
+        with msda.msda_defaults(impl="tiled_xla", tiled_sep_kernel=True):
+            detect(model, images, mask, sizes, 100)
+
+    PROFILES.append(("flagship B=1 detect [tiled_xla + tiled_sep_kernel] (in the model)",
+                     sep_detect, ("sep_contract_fwd_kernel",), kernels["sep_contract_fwd"],
+                     "in_model_eval"))
     kernels["tiled_core_fwd"]["eval_launches"] = found["tiled"]["launches"]["tiled_core_fwd"]
     kernels["sep_contract_fwd"]["launches"] = \
         found["tiled_xla + tiled_sep_kernel"]["launches"]["sep_contract_fwd"]
@@ -1294,6 +1406,7 @@ def main() -> int:
     phase(1, f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
              f"python {sys.version.split()[0]}, torch {torch.__version__}, "
              f"CUDA {torch.version.cuda}; nvcc {nvcc_version}")
+    phase(1, f"JPEG decoders (informational): {jpeg_decoders()}")
 
     fresh = not _build.library_path().is_file()
     t0 = time.perf_counter()
@@ -1319,6 +1432,7 @@ def main() -> int:
     model = timed(5, run_flagship, torch, kernels)
     timed(6, run_flagship_train, torch, model, kernels)
     timed(7, run_profiles, torch)
+    timed(7, check_relation_calls, torch, model, kernels)
     phase(7, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     leaked = [m for m in ("jax", "flax", "cv2", "relation_detr_tpu") if m in sys.modules]

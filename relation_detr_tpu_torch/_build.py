@@ -115,10 +115,10 @@ def load_library() -> ctypes.CDLL:
     #                       rows (device int32 [nt * ph * pw]), out, positions, C, stream)
     lib.window_accumulate.argtypes = [_P, _P, _P, _P, _I, _I, _P]
     lib.window_accumulate.restype = ctypes.c_int
-    # int relation_bias_v4_fwd(src, tgt, a_feats, b_feats, w_xy, bias, freqs
+    # int relation_bias_v4_fwd(src, tgt, w, w_stride_f, w_stride_h, bias, freqs
     #                          (host float [E/2]), out, B, N1, N2, H, E, eps, stream)
     lib.relation_bias_v4_fwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+        _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ]
     lib.relation_bias_v4_fwd.restype = ctypes.c_int
     # int relation_bias_rel_fwd(rel, w, bias, freqs (host float [E/2]), out,

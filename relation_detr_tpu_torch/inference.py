@@ -9,7 +9,9 @@ Port of the root ``inference.py``:
 Images are decoded with cv2 (imported inside ``main``; nothing else of the
 port needs it) and resized on the host by the port's ``data.transforms.EvalPreset``
 onto the fixed 800x1344 canvas. ``--checkpoint`` takes the JAX package's
-``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays).
+``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays),
+loaded leniently as the root CLI loads them (``utils.weights.load_weights``:
+missing and shape-mismatched tensors keep their values and are reported).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from relation_detr_tpu_torch.data.transforms import EvalPreset
 from relation_detr_tpu_torch.models.post_process import post_process
 from relation_detr_tpu_torch.utils.config import Config
-from relation_detr_tpu_torch.utils.weights import state_dict_from_jax
+from relation_detr_tpu_torch.utils.weights import load_weights
 
 CANVAS = (800, 1344)
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
@@ -50,16 +52,6 @@ def detect(model: torch.nn.Module, images, masks, orig_sizes,
         return post_process(out["pred_logits"], out["pred_boxes"], sizes, select_box_nums)
 
 
-def load_jax_weights(model: torch.nn.Module, path: str) -> None:
-    """Strict load of a JAX-package ``.npz`` weight file into ``model``."""
-    with np.load(path) as archive:
-        params = {k[len("params/"):]: archive[k] for k in archive.files
-                  if k.startswith("params/")}
-        stats = {k[len("batch_stats/"):]: archive[k] for k in archive.files
-                 if k.startswith("batch_stats/")}
-    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser("relation_detr_tpu_torch inference")
     p.add_argument("--image-dir", required=True)
@@ -77,7 +69,7 @@ def main(argv=None):
     cfg = Config(args.model_config)
     model = cfg.build_model(device=args.device)
     if args.checkpoint:
-        load_jax_weights(model, args.checkpoint)
+        load_weights(model, args.checkpoint)
     preset = EvalPreset(cfg.get("min_size", 800), cfg.get("max_size", 1333))
     files = sorted(f for f in os.listdir(args.image_dir) if f.lower().endswith(IMAGE_EXTS))
     for fname in files:

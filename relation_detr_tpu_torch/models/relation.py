@@ -90,7 +90,8 @@ class PositionRelationEmbedding(nn.Module):
 
     def forward(self, src_boxes: torch.Tensor, tgt_boxes: torch.Tensor) -> torch.Tensor:
         conv = self.pos_proj[0]
-        kernel = conv.weight.reshape(self.num_heads, 4 * self.embed_dim).t().contiguous()
+        # (4E, H) as a view of the (H, 4E, 1, 1) weight: the v4 kernel reads it in place
+        kernel = conv.weight.reshape(self.num_heads, 4 * self.embed_dim).t()
         # the sine embedding carries no gradient: boxes are detached
         src, tgt = src_boxes.detach().contiguous(), tgt_boxes.detach().contiguous()
         settings = (self.embed_dim, self.temperature, self.scale)
@@ -102,6 +103,6 @@ class PositionRelationEmbedding(nn.Module):
             if rb.fused_relation_version() == 3:
                 return separable_relation_bias(src, tgt, kernel, conv.bias, *settings)
             if rb.fused_relation_version() in (1, 2):
-                return rb.fused_relation_bias(box_rel_encoding(src, tgt), kernel, conv.bias,
-                                              *settings)
+                return rb.fused_relation_bias(box_rel_encoding(src, tgt), kernel.contiguous(),
+                                              conv.bias, *settings)
         return rb.relation_bias_v4(src, tgt, kernel, conv.bias, *settings)

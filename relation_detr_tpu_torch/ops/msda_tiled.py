@@ -367,6 +367,13 @@ def _fused_bwd(oy, ox, patch, g):
     return d_oy, d_ox, d_patch.reshape(bs, nt, ph * pw, c)
 
 
+# csrc/tiled_msda.cu's sep_contract_fwd: kSepMaxP, 2 x kSepXSlots, and its
+# two A chunks (2 x kSepChunkRows x kSepTokens floats) beside the patch slice
+_SEP_MAX_POINTS = 4
+_SEP_MAX_PW = 20
+_SEP_A_FLOATS = 2 * 40 * 128
+
+
 def _sep_contract_fwd(oy, ox, patch):
     tensors = (oy, ox, patch)
     if any(t.device != patch.device for t in tensors):
@@ -382,9 +389,16 @@ def _sep_contract_fwd(oy, ox, patch):
     if patch.dim() != 4 or patch.shape[:3] != (bs, nt, ph * pw) or patch.shape[3] % num_heads:
         raise ValueError(f"sep_contract_fused: bad patch {tuple(patch.shape)}")
     c = patch.shape[3]
-    if ph * pw * (c // num_heads + 32) * 4 > _MAX_SMEM:
+    head_dim = c // num_heads
+    if head_dim not in (4, 8, 16, 32) or points > _SEP_MAX_POINTS or pw > _SEP_MAX_PW:
+        raise ValueError(f"sep_contract_fwd takes D = C / H of 4, 8, 16 or 32, at most "
+                         f"{_SEP_MAX_POINTS} points and patches at most {_SEP_MAX_PW} wide; "
+                         f"got D={head_dim}, P={points}, pw={pw}")
+    if (-(-ph * pw * head_dim // 4) * 4 + _SEP_A_FLOATS) * 4 > _MAX_SMEM:
         raise ValueError(f"sep_contract_fwd: a {ph}x{pw} patch needs more shared memory "
                          "than a Hopper block has")
+    if patch.data_ptr() % 16:
+        raise ValueError("sep_contract_fwd takes a 16-byte aligned patch")
     lib = _build.load_library()
     out = torch.empty(bs, nt, t, c, device=patch.device, dtype=torch.float32)
     with torch.cuda.device(patch.device):

@@ -14,11 +14,15 @@ zero gradient and the kernel and bias gradients come from the plain
 version, recomputed and differentiated.
 
 Version 4 (``relation_bias_v4``, ``fused_relation_bias_v4`` in the JAX
-package, the TPU default): the kernel
-(``csrc/relation_bias.cu``, whose header says what bounds it on the card)
-builds the xy pair features per (b, i, j); the separable wh half uses
-per-box features folded with the projection weights, computed here in plain
-torch exactly as ``_v4_fwd`` computes them outside its Pallas call.
+package, the TPU default): one launch of ``csrc/relation_bias.cu`` (whose
+header says what bounds it on the card) per call, from the boxes, the
+weights read through their strides (the model hands conv's (H, 4E) weight
+as its transposed view, no copy) and the bias. The kernel builds the xy
+pair features per (b, i, j) and the separable wh half's per-box features
+(the projection weights folded in, as ``_v4_fwd`` computes them outside its
+Pallas call) itself; the wrapper checks its arguments and allocates the
+output, nothing else. The plain version computes the per-box features in
+torch (``_box_wh_features``).
 
 Ratio clamp: the xy ratio ``|c1 - c2| / (w1 + eps)`` is clamped to
 [0, 1e8] with NaN going to 1e8 (``relation_pallas.py:198-200``), so a NaN or
@@ -39,6 +43,7 @@ backward is not a Pallas kernel either).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -74,6 +79,13 @@ def _freqs(embed_dim: int, temperature: float, scale: float) -> np.ndarray:
     rounded, as ``relation_pallas.py::_freqs``."""
     k = np.arange(embed_dim // 2, dtype=np.float64)
     return (scale / temperature ** (k * 2.0 / embed_dim)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs_host(embed_dim: int, temperature: float, scale: float):
+    """``_freqs`` as the host float array the C entries copy by value."""
+    freqs = _freqs(embed_dim, temperature, scale)
+    return (ctypes.c_float * len(freqs))(*freqs.tolist())
 
 
 def _box_wh_features(src_boxes, tgt_boxes, kernel, embed_dim, inv, eps):
@@ -134,8 +146,9 @@ def _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim):
         raise ValueError("relation bias: all tensors must be on one device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("relation bias kernel takes float32 tensors only")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("relation bias kernel takes contiguous tensors only")
+    # the kernel reads the weights through their strides (any layout)
+    if not (src_boxes.is_contiguous() and tgt_boxes.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("relation bias kernel takes contiguous boxes and bias")
     bs, n1, _ = src_boxes.shape
     if src_boxes.shape != (bs, n1, 4) or tgt_boxes.shape != (bs, tgt_boxes.shape[1], 4):
         raise ValueError("relation bias: boxes must be (B, N, 4)")
@@ -154,19 +167,13 @@ def _relation_bias_v4_fwd(src_boxes, tgt_boxes, kernel, bias, embed_dim,
     bs, n1, _ = src_boxes.shape
     n2 = tgt_boxes.shape[1]
     num_heads = kernel.shape[1]
-    freqs = _freqs(embed_dim, temperature, scale)
-    inv = torch.from_numpy(freqs).to(src_boxes.device)
-    a_feats, b_feats = _box_wh_features(src_boxes, tgt_boxes, kernel, embed_dim, inv, eps)
-    a_feats = a_feats.contiguous()
-    b_feats = b_feats.contiguous()
     out = torch.empty(bs, num_heads, n1, n2, device=src_boxes.device, dtype=torch.float32)
-    freqs_host = (ctypes.c_float * len(freqs))(*freqs.tolist())
     with torch.cuda.device(src_boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.relation_bias_v4_fwd(
-            src_boxes.data_ptr(), tgt_boxes.data_ptr(), a_feats.data_ptr(),
-            b_feats.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-            ctypes.addressof(freqs_host),
+            src_boxes.data_ptr(), tgt_boxes.data_ptr(), kernel.data_ptr(), kernel.stride(0),
+            kernel.stride(1), bias.data_ptr(),
+            ctypes.addressof(_freqs_host(embed_dim, temperature, scale)),
             out.data_ptr(), bs, n1, n2, num_heads, embed_dim, eps, stream,
         )
     _build.check(lib, code, "relation_bias_v4_fwd")
@@ -274,8 +281,7 @@ def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
         raise ValueError(f"relation bias kernel takes 4, 8 or 16 heads, got {num_heads}")
     lib = _build.load_library()
     bs, n1, n2, _ = rel.shape
-    freqs = _freqs(embed_dim, temperature, scale)
-    freqs_host = (ctypes.c_float * len(freqs))(*freqs.tolist())
+    freqs_host = _freqs_host(embed_dim, temperature, scale)
     out = torch.empty(bs, num_heads, n1, n2, device=rel.device, dtype=torch.float32)
     with torch.cuda.device(rel.device):
         stream = torch.cuda.current_stream().cuda_stream

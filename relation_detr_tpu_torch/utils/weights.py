@@ -6,15 +6,20 @@ model's parameters and FrozenBN statistics as '/'-keyed numpy arrays (the
 ``params`` and ``batch_stats`` collections flattened) and returns the port's
 ``state_dict``: HWIO -> OIHW conv kernels, (in, out) -> (out, in) linear
 kernels, q/k/v projections merged back into ``in_proj_weight``/``in_proj_bias``
-and the flax module names mapped onto the reference's.
+and the flax module names mapped onto the reference's. ``load_weights``
+reads the JAX package's ``.npz`` weight files into a model leniently, as
+``relation_detr_tpu/utils/checkpoint.py::load_weights`` does.
 """
 from __future__ import annotations
 
+import logging
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _INDEXED = re.compile(r"^(layers|convs|class_head|bbox_head)_(\d+)$")
 _STAGE_BLOCK = re.compile(r"^layer(\d+)_(\d+)$")
@@ -55,36 +60,113 @@ def _torch_name(key: str) -> str:
     return f"{_module_path(parts[:-1])}.{_LEAVES[parts[-1]]}"
 
 
+def _param_slot(key: str) -> Tuple[str, Optional[int]]:
+    """Where a JAX ``params`` array goes in the port: (state_dict name,
+    part), part 0 / 1 / 2 for the q / k / v rows of a merged
+    ``in_proj_weight`` / ``in_proj_bias``, else None."""
+    parts = key.split("/")
+    if len(parts) >= 3 and parts[-2] in _QKV:
+        leaf = "in_proj_weight" if parts[-1] == "kernel" else "in_proj_bias"
+        return f"{_module_path(parts[:-2])}.{leaf}", _QKV.index(parts[-2])
+    return _torch_name(key), None
+
+
+def _param_entry(key: str, value: np.ndarray) -> Tuple[str, Optional[int], np.ndarray]:
+    """``_param_slot`` of a JAX ``params`` array and its value in the port's
+    layout."""
+    value = np.asarray(value, np.float32)
+    if key.endswith("/kernel"):
+        if value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif key.split("/")[-2] == "pos_proj":  # (in, H) Dense -> (H, in, 1, 1) conv
+            value = value.T[:, :, None, None]
+        else:
+            value = value.T
+    return (*_param_slot(key), value)
+
+
 def state_dict_from_jax(
     params_flat: Mapping[str, np.ndarray],
     batch_stats_flat: Mapping[str, np.ndarray],
 ) -> Dict[str, torch.Tensor]:
     """JAX '/'-keyed params and batch_stats -> the port's state_dict."""
     sd: Dict[str, torch.Tensor] = {}
-    qkv: Dict[str, Dict[str, np.ndarray]] = {}
+    qkv: Dict[str, Dict[int, np.ndarray]] = {}
     for key, value in params_flat.items():
-        value = np.asarray(value, np.float32)
-        parts = key.split("/")
-        if len(parts) >= 3 and parts[-2] in _QKV:
-            qkv.setdefault("/".join(parts[:-2]), {})[f"{parts[-2]}/{parts[-1]}"] = value
-            continue
-        name = _torch_name(key)
-        if parts[-1] == "kernel":
-            if value.ndim == 4:
-                value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            elif parts[-2] == "pos_proj":  # (in, H) Dense -> (H, in, 1, 1) conv
-                value = value.T[:, :, None, None]
-            else:
-                value = value.T
-        sd[name] = torch.from_numpy(np.ascontiguousarray(value))
-    for prefix, parts in qkv.items():
-        base = _module_path(prefix.split("/"))
-        sd[f"{base}.in_proj_weight"] = torch.from_numpy(np.ascontiguousarray(
-            np.concatenate([parts[f"{n}/kernel"].T for n in _QKV], axis=0)
-        ))
-        sd[f"{base}.in_proj_bias"] = torch.from_numpy(
-            np.concatenate([parts[f"{n}/bias"] for n in _QKV], axis=0)
-        )
+        name, part, value = _param_entry(key, value)
+        if part is None:
+            sd[name] = torch.from_numpy(np.ascontiguousarray(value))
+        else:
+            qkv.setdefault(name, {})[part] = value
+    for name, parts in qkv.items():
+        sd[name] = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([parts[i] for i in range(len(_QKV))], axis=0)))
     for key, value in batch_stats_flat.items():
         sd[_torch_name(key)] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
     return sd
+
+
+def _label(name: str, part: Optional[int]) -> str:
+    return name if part is None else f"{name}[{'qkv'[part]}]"
+
+
+def jax_key_label(key: str) -> str:
+    """The port's name of a '/'-keyed array of a JAX weight file
+    (``params/...`` or ``batch_stats/...``): its state_dict name, with
+    ``[q]``, ``[k]`` or ``[v]`` for a part of a merged in_proj tensor."""
+    collection, _, rest = key.partition("/")
+    if collection == "batch_stats":
+        return _torch_name(rest)
+    return _label(*_param_slot(rest))
+
+
+def load_weights(model: torch.nn.Module, path: str, strict: bool = False) -> Dict[str, list]:
+    """Lenient load of a JAX-package ``.npz`` weight file (``params/...`` and
+    ``batch_stats/...`` arrays) into ``model``, as the JAX package's
+    ``utils/checkpoint.py::load_weights``: ``.npz`` is appended to a bare
+    path; a tensor (or q / k / v part of a merged in_proj tensor) that the
+    file lacks or holds at another shape keeps the model's value and is
+    reported; ``strict=True`` raises on either before loading anything.
+    Returns the report: ``loaded`` and ``missing`` names and ``mismatched``
+    (name, file shape, model shape), named as ``jax_key_label``."""
+    path = path if path.endswith(".npz") else path + ".npz"
+    entries = {}  # (state_dict name, part) -> value in the port's layout
+    with np.load(path) as archive:
+        for key in archive.files:
+            collection, _, rest = key.partition("/")
+            if collection == "params":
+                name, part, value = _param_entry(rest, archive[key])
+                entries[(name, part)] = value
+            elif collection == "batch_stats":
+                entries[(_torch_name(rest), None)] = np.asarray(archive[key], np.float32)
+    report = {"loaded": [], "mismatched": [], "missing": []}
+    update: Dict[str, torch.Tensor] = {}
+    for name, current in model.state_dict().items():
+        merged = name.endswith((".in_proj_weight", ".in_proj_bias"))
+        rows = current.shape[0] // len(_QKV) if merged else 0
+        for part in range(len(_QKV)) if merged else (None,):
+            label = _label(name, part)
+            target = current if part is None else current[part * rows:(part + 1) * rows]
+            value = entries.get((name, part))
+            if value is None:
+                report["missing"].append(label)
+            elif tuple(value.shape) != tuple(target.shape):
+                report["mismatched"].append((label, tuple(value.shape), tuple(target.shape)))
+            else:
+                report["loaded"].append(label)
+                value = torch.from_numpy(np.ascontiguousarray(value)).to(current.dtype)
+                if part is None:
+                    update[name] = value
+                else:
+                    update.setdefault(name, current.clone())[part * rows:(part + 1) * rows] = value
+    for label, got, want in report["mismatched"]:
+        logger.warning(f"shape mismatch for {label}: checkpoint {got} vs model {want}")
+    if report["missing"]:
+        logger.warning(f"{len(report['missing'])} parameters missing from {path}")
+    if strict and (report["mismatched"] or report["missing"]):
+        raise ValueError(f"strict load failed: {len(report['mismatched'])} mismatched, "
+                         f"{len(report['missing'])} missing")
+    model.load_state_dict(update, strict=False)
+    total = len(report["loaded"]) + len(report["mismatched"]) + len(report["missing"])
+    logger.info(f"loaded {len(report['loaded'])}/{total} tensors from {path}")
+    return report

@@ -1,7 +1,8 @@
-"""MSDA inputs shared by the CPU schedule tests and the card-only kernel
-tests, numpy only (the card's machine has no jax): the encoder-like and the
-scattered sets of ``chip_smoke.py`` at small sizes, from a seeded
-``np.random.RandomState``."""
+"""Kernel inputs shared by the CPU schedule tests and the card-only kernel
+tests, numpy only (the card's machine has no jax), from a seeded
+``np.random.RandomState``: the MSDA's encoder-like and scattered sets of
+``chip_smoke.py`` at small sizes, the relation bias's boxes and the
+separable contraction's operands."""
 import numpy as np
 
 from relation_detr_tpu_torch.models.attention import sampling_offsets_bias
@@ -60,3 +61,63 @@ def close_where_finite(got, want, tol, what):
     both = np.isfinite(got) & np.isfinite(want)
     scale = np.abs(want[both]).max()
     np.testing.assert_allclose(got[both], want[both], rtol=0, atol=tol * scale, err_msg=what)
+
+
+# edge shapes of the relation bias (B, N1, N2, H, weight layout) and of the
+# separable contraction (B, nt, H, D, P, ph, pw, T, dense), held on the card
+# (test_torch_no_jax.py) and by the CPU schedule tests
+# (test_torch_kernel_schedule.py; the last relation shape only on the card)
+V4_CASES = [(1, 1, 1, 8, "rows"), (2, 37, 300, 4, "conv"), (1, 130, 33, 8, "conv"),
+            (3, 9, 129, 16, "rows"), (1, 900, 900, 8, "conv")]
+SEP_CASES = [(1, 3, 2, 32, 4, 23, 19, 128, False), (2, 2, 4, 16, 3, 7, 20, 131, True),
+             (1, 2, 8, 8, 1, 5, 1, 13, False), (1, 1, 1, 4, 2, 1, 5, 4, True),
+             (1, 2, 2, 32, 4, 13, 11, 100, True)]
+
+
+def relation_boxes(rng, batch, n1, n2, heads):
+    """cxcywh boxes (B, N1, 4) and (B, N2, 4) with w/h from 10**-4.5 to 1
+    (xy angles up to ~1.2e3 rad), a zero width, a NaN and an Inf centre
+    (clamped: finite biases) and a NaN width and an Inf height (NaN
+    biases along that row or column); kernel (64, H) and bias (H)."""
+    def boxes(n):
+        return np.concatenate([rng.rand(batch, n, 2), 10 ** rng.uniform(-4.5, 0, (batch, n, 2))],
+                              -1).astype(np.float32)
+
+    src, tgt = boxes(n1), boxes(n2)
+    src[0, 1 % n1, 2] = 0.0
+    src[0, 3 % n1, :2] = np.nan
+    tgt[0, 5 % n2, 0] = np.inf
+    if n1 > 2:
+        src[-1, n1 - 1, 2] = np.nan
+    if n2 > 2:
+        tgt[-1, n2 - 2, 3] = np.inf
+    kernel = (rng.randn(64, heads) * 0.1).astype(np.float32)
+    bias = (rng.randn(heads) * 0.1).astype(np.float32)
+    return src, tgt, kernel, bias
+
+
+def sep_operands(rng, batch, nt, heads, head_dim, points, ph, pw, tokens, dense):
+    """oy (B, nt, H, P, ph, T), ox (B, nt, H, P, pw, T) and patch (B, nt,
+    ph * pw, H * D): per (point, token) soft one-hot rows as ``_axis_soft``
+    builds them (two taps, the first one row or column before the patch
+    or on it, attention folded into oy), or with ``dense`` every entry
+    drawn, U(0, 1) / ph and / pw."""
+    shape = (batch, nt, heads, points)
+    if dense:
+        oy = rng.rand(*shape, ph, tokens) / ph
+        ox = rng.rand(*shape, pw, tokens) / pw
+    else:
+        def soft(size, fold):
+            out = np.zeros((*shape, size, tokens))
+            c0 = rng.randint(-1, size, (*shape, tokens))
+            frac = rng.rand(*shape, tokens)
+            for d, wgt in ((0, 1.0 - frac), (1, frac)):
+                c = c0 + d
+                hot = (c[..., None, :] == np.arange(size)[:, None])
+                out += hot * (wgt * fold)[..., None, :]
+            return out
+
+        oy = soft(ph, rng.rand(*shape, tokens))
+        ox = soft(pw, 1.0)
+    patch = rng.randn(batch, nt, ph * pw, heads * head_dim)
+    return [a.astype(np.float32) for a in (oy, ox, patch)]

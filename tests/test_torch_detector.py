@@ -19,8 +19,9 @@ from tools.convert_torch_weights import convert_state_dict  # noqa: E402
 
 from relation_detr_tpu.models.detector import RelationDETR as JRelationDETR  # noqa: E402
 from relation_detr_tpu.models.post_process import post_process as j_post_process  # noqa: E402
-from relation_detr_tpu_torch.inference import detect, load_jax_weights  # noqa: E402
+from relation_detr_tpu_torch.inference import detect  # noqa: E402
 from relation_detr_tpu_torch.models.detector import RelationDETR  # noqa: E402
+from relation_detr_tpu_torch.utils.weights import load_weights  # noqa: E402
 from tests.test_torch_modules import flatten, perturb, unflatten  # noqa: E402
 
 CASES = {
@@ -128,8 +129,8 @@ def test_detections_match_jax(pair):
 def test_weight_bridge_round_trip(pair, tmp_path):
     """The port's state_dict holds exactly the JAX model's parameters (names
     and shapes, hybrid and CDN included), and convert_state_dict followed by
-    a JAX-format .npz weight file and ``load_jax_weights`` (strict
-    state_dict_from_jax load) gives every tensor back bit for bit."""
+    a JAX-format .npz weight file and ``load_weights(strict=True)`` gives
+    every tensor back bit for bit."""
     for name, flat in (("params", pair["params"]), ("batch_stats", pair["stats"])):
         want = pair["jax_shapes"][name]
         got = {k: tuple(v.shape) for k, v in flat.items()}
@@ -139,6 +140,7 @@ def test_weight_bridge_round_trip(pair, tmp_path):
              **{f"batch_stats/{k}": v for k, v in pair["stats"].items()})
     fresh = RelationDETR(**pair["case"]["model"], backbone_arch="resnet50",
                          generator=torch.Generator().manual_seed(1))
-    load_jax_weights(fresh, path)
+    report = load_weights(fresh, path, strict=True)
+    assert not report["missing"] and not report["mismatched"]
     for k, v in pair["model"].state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from msda_inputs import close_where_finite, encoder_like, scattered
+from msda_inputs import (SEP_CASES, V4_CASES, close_where_finite, encoder_like,
+                         relation_boxes, scattered, sep_operands)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -373,3 +374,68 @@ def test_msda_kernels_take_unaligned_tensors_on_card(layout):
         shifted.append(flat[1:].view(a.shape))
     assert all(t.data_ptr() % 16 and t.is_contiguous() for t in shifted)
     _msda_card_case(*shifted, SMALL_LEVELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n1,n2,heads,layout", V4_CASES)
+def test_relation_bias_v4_kernel_edge_shapes_on_card(batch, n1, n2, heads, layout):
+    """relation_bias_v4_fwd against its plain version: N1 != N2, row and
+    column tiles cut short, 4 / 8 / 16 heads, the weights contiguous
+    ("rows") or as the model hands them, the transposed view of conv's
+    (H, 4E) weight ("conv"); NaN and Inf centres give the same finite
+    biases, a NaN width and an Inf height NaN ones in both. One launch per
+    call; 1e-4 abs where finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.ops import relation_bias
+
+    src, tgt, kernel, bias = (torch.from_numpy(a).cuda()
+                              for a in relation_boxes(np.random.RandomState(n1), batch, n1, n2,
+                                                      heads))
+    if layout == "conv":
+        kernel = kernel.t().contiguous().t()
+        assert kernel.stride() == (1, 64)
+    launches = relation_bias.relation_bias_v4.launches
+    with torch.no_grad():
+        got = relation_bias.relation_bias_v4(src, tgt, kernel, bias)
+        want = relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias)
+    assert relation_bias.relation_bias_v4.launches == launches + 1
+    finite = torch.isfinite(want)
+    assert torch.equal(finite, torch.isfinite(got))
+    assert bool(torch.isnan(got[~finite]).all())
+    if n1 > 2 and n2 > 2:
+        assert not bool(finite[-1, :, n1 - 1].any()) and not bool(finite[-1, :, :, n2 - 2].any())
+    torch.testing.assert_close(got[finite], want[finite], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,nt,heads,head_dim,points,ph,pw,tokens,dense", SEP_CASES)
+def test_sep_contract_kernel_edge_shapes_on_card(batch, nt, heads, head_dim, points, ph, pw,
+                                                 tokens, dense):
+    """sep_contract_fwd against its plain version at 1e-5 abs: odd M, T
+    not a multiple of the 4-token tile and above one 128-slot pass, 1 to 4
+    points, D of 4 to 32, a patch one row high, one column wide and 20
+    wide (the most the kernel takes); and the wrapper's refusals (a
+    21-wide patch, D = 64) raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.ops import msda_tiled
+
+    oy, ox, patch = (torch.from_numpy(a).cuda() for a in sep_operands(
+        np.random.RandomState(ph * pw), batch, nt, heads, head_dim, points, ph, pw, tokens,
+        dense))
+    launches = msda_tiled.sep_contract_fused.launches
+    with torch.no_grad():
+        got = msda_tiled.sep_contract_fused(oy, ox, patch)
+        want = msda_tiled.sep_contract_reference(oy, ox, patch)
+    assert msda_tiled.sep_contract_fused.launches == launches + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    wide = torch.zeros(1, 1, 1, 1, 21, 8, device="cuda")
+    with pytest.raises(ValueError, match="20 wide"):
+        msda_tiled.sep_contract_fused(torch.zeros(1, 1, 1, 1, 2, 8, device="cuda"), wide,
+                                      torch.zeros(1, 1, 42, 4, device="cuda"))
+    with pytest.raises(ValueError, match="D = C / H"):
+        msda_tiled.sep_contract_fused(torch.zeros(1, 1, 1, 1, 2, 8, device="cuda"),
+                                      torch.zeros(1, 1, 1, 1, 3, 8, device="cuda"),
+                                      torch.zeros(1, 1, 6, 64, device="cuda"))
+    assert msda_tiled.sep_contract_fused.launches == launches + 1
