@@ -19,15 +19,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      grids (bit-identical, one covering-window table build per level, at
      the first call), the tiled encoder MSDA's tiled_core_fwd,
      tiled_core_bwd and sep_contract_fwd on its operands at the four levels
-     (B=1, and level 0 at B=2; tiled_core_bwd also on adversarial entries,
-     and two launches bit-identical; sep_contract_fwd beside the
+     (B=1, and level 0 at B=2; tiled_core_fwd also on edge entries: rows
+     negative or >= M and NaN weights on them, which add nothing, and a NaN
+     weight on a row inside, which gives NaN; tiled_core_bwd on adversarial
+     entries, and two launches bit-identical; sep_contract_fwd beside the
      3-operand torch.einsum), each with its bound, and
-     relation_bias_rel_fwd (N=900 and 1100);
+     relation_bias_rel_fwd (N=900 and 1100, rel from boxes with a NaN and an
+     Inf centre; at N=900 also |rel| up to 90 and a NaN and an Inf rel, the
+     same NaN pattern as the plain version);
   4. in-model parity: the tiny-test config on the GPU (kernels) and on the
      CPU (plain versions), same weights and inputs: the eval forward, then
      one train forward + backward with the same CDN draws, run on the CPU
      twice: as is, and sampling at the GPU's MSDA locations; under the
-     gather, impl="tiled" and impl="tiled_xla" with tiled_sep_kernel;
+     gather, impl="tiled", impl="tiled_xla" with tiled_sep_kernel, and the
+     gather under relation version 1 (the card's relation_bias_rel_fwd
+     against its plain version on the CPU, which takes the v4 math's
+     otherwise);
   5. the flagship config (ResNet-50, embed 256, 6+6 layers, 900 queries,
      91 classes, fp32, seeded random weights) answers 4 requests on the
      800x1344 canvas through ``inference.detect``, each going through 12
@@ -46,13 +53,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      seconds per step;
   7. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
-     phase-3 shape and set, relation_bias_v4_fwd's at N=900 and 1100, the
-     MSDA and relation kernels' device time in one default train step and
-     one flagship detect (with its host-to-device copies), and
-     sep_contract_fwd's in one sep-kernel eval forward; then 5 calls of the
-     flagship decoder's relation module, whose only device work must be
-     one relation_bias_v4_fwd launch a call; then a JSON kernel
-     table, one row per kernel (launches: from the run of the
+     phase-3 shape and set, relation_bias_v4_fwd's and
+     relation_bias_rel_fwd's at N=900 and 1100, tiled_core_fwd's at the four
+     levels and B=2 level 0, the MSDA and relation kernels' device time in
+     one default train step and one flagship detect (with its host-to-device
+     copies), sep_contract_fwd's in one sep-kernel eval forward,
+     tiled_core_fwd's in one impl="tiled" detect and
+     relation_bias_rel_fwd's in one relation-version-1 detect (each row's
+     device_ms and in_model_eval: [ms, launches] per kernel name); then 5
+     calls of the flagship decoder's relation module, whose only device
+     work must be one relation_bias_v4_fwd launch a call; then a JSON
+     kernel table, one row per kernel (launches: from the run of the
      path that takes it, each counter set to 0 just before that run:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
      step, tiled_core_fwd/bwd and window_accumulate from the tiled train
@@ -104,9 +115,12 @@ TOL_TRAIN_GRAD = 1e-3
 TRAIN_RUNS = ((1, 100, 2, 15), (1, 16, 2, 5), (2, 100, 0, 3))  # B, GT cap, warm-up, timed
 TILED_TRAIN_RUN = (1, 100, 1, 8)
 DETECT_RUNS = 15  # timed default detects (the p50 of the eval path)
-# phase 4's MSDA forms (msda_defaults settings)
-TINY_VARIANTS = (("gather", {}), ("tiled", dict(impl="tiled")),
-                 ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True)))
+# phase 4's forms: msda_defaults settings and relation bias version (None:
+# the default, 4)
+TINY_VARIANTS = (("gather", {}, None), ("tiled", dict(impl="tiled"), None),
+                 ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True),
+                  None),
+                 ("gather + relation v1", {}, 1))
 BOXES_PER_IMAGE = 7
 # the tiled forms' contraction kernels against their plain versions: the
 # forwards sum in another order than the dense one-hot product (1e-5 abs);
@@ -593,6 +607,38 @@ def adversarial_entries(torch, m, rows):
     return m
 
 
+def edge_entries(torch, m, wt, rows):
+    """m, w (B, nt, H, E, T) with entries outside [0, rows) (-1, rows, 10**6,
+    -10**6 on entries 0-3 of every 5th token slot), NaN weights on entries
+    0-3 of every 10th slot (outside: dropped) and on one entry inside (item
+    (0, 0, 0), entry 5, slot 0: NaN for that token's 32 channels of head 0)."""
+    m, wt = m.clone(), wt.clone()
+    m[..., :4, ::5] = torch.tensor([-1, rows, 10 ** 6, -10 ** 6], dtype=torch.int32,
+                                   device=m.device)[:, None]
+    wt[..., :4, ::10] = float("nan")
+    m[0, 0, 0, 5, 0] = rows - 1
+    wt[0, 0, 0, 5, 0] = float("nan")
+    return m, wt
+
+
+def tiled_core_calls(torch, m, wt, patch, dims):
+    """tiled_matmul_core 20 times (phase 7 profiles its kernel)."""
+    from relation_detr_tpu_torch.ops import msda_tiled
+
+    with torch.no_grad():
+        for _ in range(20):
+            msda_tiled.tiled_matmul_core(m, wt, patch, dims)
+
+
+def relation_rel_calls(torch, rel, kernel, bias):
+    """fused_relation_bias 20 times (phase 7 profiles its kernel)."""
+    from relation_detr_tpu_torch.ops import relation_bias
+
+    with torch.no_grad():
+        for _ in range(20):
+            relation_bias.fused_relation_bias(rel, kernel, bias)
+
+
 def tiled_inputs(torch, gen, bs, dev):
     """Encoder inputs in the tiled forms' regime: every token samples near
     its own raster position, up to num_points = 4 texels off on each level
@@ -623,6 +669,7 @@ def check_tiled_kernels(torch, rows):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     found = {k: dict(errs=[], times=[]) for k in ("fwd", "bwd", "sep")}
+    fwd_device = {}  # phase 7: tiled_core_fwd's device time per (B, level)
     for bs, lvls in ((1, range(4)), (2, range(1))):
         value, locs, attn = tiled_inputs(torch, gen, bs, dev)
         with torch.no_grad():
@@ -650,6 +697,24 @@ def check_tiled_kernels(torch, rows):
                 err = (kernel() - plain()).abs().max().item()
                 if not (err <= TOL_TILED):
                     raise AssertionError(f"tiled_core_fwd {shape}: max abs err {err}")
+                if bs == 1 and lvl == 0:
+                    edge = edge_entries(torch, m, wt, ph * pw)
+                    got = msda_tiled.tiled_matmul_core(*edge, patch, dims)
+                    want = msda_tiled.tiled_core_reference(*edge, patch, dims)
+                    nan = torch.isnan(want)
+                    edge_err = (got[~nan] - want[~nan]).abs().max().item()
+                    if not torch.equal(nan, torch.isnan(got)) or int(nan.sum()) != 32 or \
+                            not (edge_err <= TOL_TILED):
+                        raise AssertionError(f"tiled_core_fwd {shape}, edge entries: "
+                                             f"{int(nan.sum())} NaN outputs (plain), "
+                                             f"{int(torch.isnan(got).sum())} (kernel), max abs "
+                                             f"err {edge_err}")
+                    found["fwd"]["edge_max_abs_err"] = edge_err
+                    phase(3, f"tiled_core_fwd {shape} with entries outside [0, M) (-1, M, "
+                             f"10**6, -10**6; NaN weights on some: dropped) and a NaN weight on "
+                             f"one inside: the same 32 NaN outputs as the plain version, max abs "
+                             f"err {edge_err:.3e} elsewhere")
+                    del edge, got, want
                 ms, plain_ms = in_turns(plain, kernel, 2, 10)
                 # per entry and channel one FMA
                 b_fwd = bound(size(m, wt, patch) + size(g), 2 * m.numel() * 32)
@@ -657,6 +722,12 @@ def check_tiled_kernels(torch, rows):
                 found["fwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_fwd))
                 phase(3, f"tiled_core_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
                          f"plain {plain_ms:.4f} ms, bound {b_fwd[0]:.4f} ms ({b_fwd[1]})")
+                # phase 7: device time per launch, the operands kept on the host
+                # meanwhile (the flagship phases' peak memory stays as it was)
+                PROFILES.append((f"tiled_core_fwd x20, {shape}",
+                                 lambda args=(m.cpu(), wt.cpu(), patch.cpu()), dims=dims:
+                                 tiled_core_calls(torch, *(a.cuda() for a in args), dims),
+                                 ("tiled_core_fwd_kernel",), fwd_device, f"B{bs} L{lvl}"))
 
                 got = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
                 want = msda_tiled.tiled_core_backward_reference(m, wt, patch, g, dims)
@@ -740,8 +811,11 @@ def check_tiled_kernels(torch, rows):
         )
     rows["tiled_core_bwd"].update(deterministic=True,
                                   adversarial_max_rel=found["bwd"]["adversarial"])
+    rows["tiled_core_fwd"].update(edge_max_abs_err=found["fwd"]["edge_max_abs_err"],
+                                  device_ms=fwd_device)
 
     errs, times = [], []
+    rel_device = {}  # phase 7: the kernel's device time per launch at N = 900 and 1100
     for n in (900, 1100):
         src, tgt, kernel, bias = relation_inputs(torch, gen, n, dev)
         rel = box_rel_encoding(src, tgt)
@@ -766,6 +840,29 @@ def check_tiled_kernels(torch, rows):
                  f"Inf centre: {int((~finite).sum())} NaN biases in both): max_abs_err "
                  f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                  f"{b_rel[0]:.4f} ms ({b_rel[1]})")
+        PROFILES.append((f"relation_bias_rel_fwd x20, B=1 N1=N2={n} H=8",
+                         lambda args=(rel, kernel, bias): relation_rel_calls(torch, *args),
+                         ("relation_bias_rel_kernel",), rel_device, f"N={n}"))
+        if n == 900:
+            edge = rel.clone()
+            # |rel| up to 90 (angles to 9e3 rad) on every 35th pair, a NaN and an Inf
+            edge[:, ::7, ::5] = torch.rand(edge[:, ::7, ::5].shape, generator=gen,
+                                           device=dev) * 180 - 90
+            edge[0, 10, 20, 1] = float("nan")
+            edge[0, 30, 40, 3] = float("inf")
+            with torch.no_grad():
+                got = relation_bias.fused_relation_bias(edge, kernel, bias)
+                want = relation_bias.fused_relation_bias_reference(edge, kernel, bias)
+            finite = torch.isfinite(want)
+            edge_err = (got[finite] - want[finite]).abs().max().item()
+            if not torch.equal(finite, torch.isfinite(got)) or bool(finite[0, :, 10, 20].any()) \
+                    or not (edge_err <= TOL_TILED):
+                raise AssertionError(f"relation_bias_rel_fwd N={n}, |rel| to 90 and NaN / Inf "
+                                     f"rel: NaN pattern or max abs err {edge_err}")
+            phase(3, f"relation_bias_rel_fwd N1=N2={n} with |rel| up to 90 (angles to 9e3 rad) "
+                     f"on every 35th pair and a NaN and an Inf rel: {int((~finite).sum())} NaN "
+                     f"biases in both, max abs err {edge_err:.3e} elsewhere")
+            del edge
     rows["relation_rel"] = dict(
         name="relation_bias_rel_fwd", route="cuda",
         source="relation_detr_tpu_torch/csrc/relation_bias_rel.cu",
@@ -775,6 +872,7 @@ def check_tiled_kernels(torch, rows):
         bound_by=times[0][2][1], library_ms=None,
         library="none: no one call builds the sine features", shape="B=1 N1=N2=900 H=8 E=16",
         n1100_ms=times[1][0], n1100_plain_ms=times[1][1], n1100_bound_ms=times[1][2][0],
+        edge_max_abs_err=edge_err, device_ms=rel_device,
     )
 
 
@@ -866,6 +964,59 @@ class PinnedKinks:
             hook.remove()
 
 
+class RelationVersion:
+    """Context for phase 4: relation bias ``version`` (None: the default)
+    on the card through ``set_fused_relation``, and on the CPU model given
+    the same version's plain version (CPU tensors otherwise take the v4
+    math's, whatever the setting): for versions 1 and 2 each relation
+    module of cpu_model computes ``fused_relation_bias`` over
+    ``box_rel_encoding``, as the card's does. ``check`` asserts that the
+    card launched relation_bias_rel_fwd inside the context."""
+
+    def __init__(self, version, cpu_model):
+        self.version, self.cpu_model, self.patched = version, cpu_model, []
+
+    def __enter__(self):
+        from relation_detr_tpu_torch.models.relation import PositionRelationEmbedding
+        from relation_detr_tpu_torch.ops import relation_bias
+
+        self.launches = relation_bias.fused_relation_bias.launches
+        if self.version is None:
+            return self
+        relation_bias.set_fused_relation(version=self.version)
+        for mod in self.cpu_model.modules():
+            if isinstance(mod, PositionRelationEmbedding):
+                mod.forward = lambda src, tgt, mod=mod: self.plain(mod, src, tgt)
+                self.patched.append(mod)
+        return self
+
+    @staticmethod
+    def plain(mod, src, tgt):
+        from relation_detr_tpu_torch.models.relation import box_rel_encoding
+        from relation_detr_tpu_torch.ops import relation_bias
+
+        conv = mod.pos_proj[0]
+        kernel = conv.weight.reshape(mod.num_heads, 4 * mod.embed_dim).t().contiguous()
+        return relation_bias.fused_relation_bias(
+            box_rel_encoding(src.detach(), tgt.detach()), kernel, conv.bias, mod.embed_dim,
+            mod.temperature, mod.scale)
+
+    def check(self, label):
+        from relation_detr_tpu_torch.ops import relation_bias
+
+        launched = relation_bias.fused_relation_bias.launches - self.launches
+        if self.version is not None and not launched:
+            raise AssertionError(f"[{label}]: the card launched no relation_bias_rel_fwd")
+
+    def __exit__(self, *exc):
+        from relation_detr_tpu_torch.ops import relation_bias
+
+        relation_bias.set_fused_relation(version=4)
+        for mod in self.patched:
+            del mod.forward
+        self.patched = []
+
+
 def synthetic_batch(torch, gen, bs, cap, hw, dev, valid_hw=None):
     """A batch in the loader's layout: padded canvas, mask, and GT padded to
     ``cap`` with BOXES_PER_IMAGE valid boxes (normalised cxcywh)."""
@@ -886,7 +1037,7 @@ def synthetic_batch(torch, gen, bs, cap, hw, dev, valid_hw=None):
             "gt_valid": valid}
 
 
-def check_tiny_train(torch, label, settings):
+def check_tiny_train(torch, label, settings, version):
     from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
     from relation_detr_tpu_torch.ops import msda
 
@@ -911,10 +1062,12 @@ def check_tiny_train(torch, label, settings):
     def run(model, dev, record=None):
         b = {k: v.to(dev) for k, v in batch.items()}
         with TopkRecorder() as rec, PinnedKinks(model, record) as pins, \
-                msda.msda_defaults(**settings):
+                msda.msda_defaults(**settings), RelationVersion(version, cpu_model) as launched:
             outputs = model(b["images"], b["mask"], b["gt_labels"], b["gt_boxes"],
                             b["gt_valid"], train=True,
                             noise_draws={k: v.to(dev) for k, v in draws.items()})
+        if dev == "cuda":
+            launched.check(label)
         total, losses = relation_detr_loss(cfg.build_criterion(), outputs, b["gt_labels"],
                                            b["gt_boxes"], b["gt_valid"], cfg.hybrid_assign)
         total.backward()
@@ -1113,7 +1266,7 @@ def run_flagship_train(torch, model, kernels):
              f"{step.state.nonfinite_count}")
 
 
-def check_tiny_model(torch, label, settings):
+def check_tiny_model(torch, label, settings, version):
     from relation_detr_tpu_torch.ops import msda
 
     cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
@@ -1125,9 +1278,11 @@ def check_tiny_model(torch, label, settings):
     mask[1, 192:] = True
     mask[1, :, 240:] = True
     images[mask] = 0.0
-    with torch.inference_mode(), msda.msda_defaults(**settings):
+    with torch.inference_mode(), msda.msda_defaults(**settings), \
+            RelationVersion(version, cpu_model) as launched:
         want = cpu_model(images, mask)
         got = gpu_model(images.cuda(), mask.cuda())
+    launched.check(label)
     for name in ("pred_logits", "pred_boxes"):
         torch.testing.assert_close(got[name].cpu(), want[name], rtol=TOL_MODEL, atol=TOL_MODEL)
         err = (got[name].cpu() - want[name]).abs().max().item()
@@ -1375,9 +1530,24 @@ def run_flagship_variants(torch, model, raw, request, kernels):
         with msda.msda_defaults(impl="tiled_xla", tiled_sep_kernel=True):
             detect(model, images, mask, sizes, 100)
 
+    def tiled_detect():
+        with msda.msda_defaults(impl="tiled"):
+            detect(model, images, mask, sizes, 100)
+
+    def v1_detect():
+        relation_bias.set_fused_relation(version=1)
+        try:
+            detect(model, images, mask, sizes, 100)
+        finally:
+            relation_bias.set_fused_relation(version=4)
+
     PROFILES.append(("flagship B=1 detect [tiled_xla + tiled_sep_kernel] (in the model)",
                      sep_detect, ("sep_contract_fwd_kernel",), kernels["sep_contract_fwd"],
                      "in_model_eval"))
+    PROFILES.append(("flagship B=1 detect [tiled] (in the model)", tiled_detect,
+                     ("tiled_core_fwd_kernel",), kernels["tiled_core_fwd"], "in_model_eval"))
+    PROFILES.append(("flagship B=1 detect [relation v1] (in the model)", v1_detect,
+                     ("relation_bias_rel_kernel",), kernels["relation_rel"], "in_model_eval"))
     kernels["tiled_core_fwd"]["eval_launches"] = found["tiled"]["launches"]["tiled_core_fwd"]
     kernels["sep_contract_fwd"]["launches"] = \
         found["tiled_xla + tiled_sep_kernel"]["launches"]["sep_contract_fwd"]
@@ -1426,9 +1596,9 @@ def main() -> int:
     kernels = timed(3, check_kernels, torch)
     timed(3, check_backward_kernels, torch, kernels)
     timed(3, check_tiled_kernels, torch, kernels)
-    for label, settings in TINY_VARIANTS:
-        timed(4, check_tiny_model, torch, label, settings)
-        timed(4, check_tiny_train, torch, label, settings)
+    for label, settings, version in TINY_VARIANTS:
+        timed(4, check_tiny_model, torch, label, settings, version)
+        timed(4, check_tiny_train, torch, label, settings, version)
     model = timed(5, run_flagship, torch, kernels)
     timed(6, run_flagship_train, torch, model, kernels)
     timed(7, run_profiles, torch)

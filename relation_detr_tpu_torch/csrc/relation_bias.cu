@@ -41,16 +41,9 @@
 //   beat fewer column prologues); the rows' features and the xy weights
 //   are read as
 //   float4 broadcasts, each used for 4 heads (wh) or 4 heads x R rows (xy);
-// * sincos_rr: one argument reduction per angle for both its sine and its
-//   cosine, q = rint(x 2 / pi) (by the 1.5 x 2^23 shift) and r = x - q pi / 2
-//   in two FMA steps against
-//   pi / 2 = C1 + C2 (C1 the fp32 pi / 2; the dropped remainder is 1.8e-15,
-//   so q * 1.8e-15 < 1e-11 rad for |x| < 1e4), then the minimax
-//   polynomials of Cephes's sinf and cosf on |r| <= pi / 4. Its error
-//   against float64 is at most 1.5e-7 over [0, 1.9e3] rad (xy) and
-//   [-9e3, 9e3] rad (wh), as tests/test_torch_kernel_schedule.py holds (the
-//   accurate sinf: ~4e-8). The fast __sinf / __cosf on the unreduced angle
-//   stay out: they lose accuracy at these angles.
+// * sincos_rr (common.cuh): one argument reduction per angle for both its
+//   sine and its cosine, the xy angles in [0, 1.9e3] rad and the wh ones in
+//   [-9e3, 9e3].
 // Warps whose 32 columns all lie past N2 leave after the staging.
 #include <math.h>
 
@@ -68,29 +61,6 @@ constexpr int kRowsH16 = 2;       // at 16 heads
 struct Freqs {
   float f[kHalf];
 };
-
-// sin(x) and cos(x) from one argument reduction (see the header).
-__device__ __forceinline__ void sincos_rr(float x, float* s, float* c) {
-  // q = rint(x 2 / pi) by the 1.5 * 2^23 shift (no conversion instruction);
-  // its low two bits are the quadrant, for negative q too
-  const float t = fmaf(x, 0.636619772f, 0x1.8p+23f);
-  const float q = t - 0x1.8p+23f;
-  float r = fmaf(q, -0x1.921fb6p+0f, x);
-  r = fmaf(q, 0x1.777a5cp-25f, r);
-  const float z = r * r;
-  float ps = fmaf(z, -1.9515295891e-4f, 8.3321608736e-3f);
-  ps = fmaf(ps, z, -1.6666654611e-1f);
-  const float sr = fmaf(ps * z, r, r);
-  float pc = fmaf(z, 2.443315711809948e-5f, -1.388731625493765e-3f);
-  pc = fmaf(pc, z, 4.166664568298827e-2f);
-  const float cr = fmaf(pc * z, z, fmaf(-0.5f, z, 1.0f));
-  // NaN and Inf angles give a NaN r, so any quadrant serves them
-  const unsigned qi = static_cast<unsigned>(__float_as_int(t));
-  const float ss = (qi & 1u) ? cr : sr;
-  const float cc = (qi & 1u) ? sr : cr;
-  *s = (qi & 2u) ? -ss : ss;
-  *c = ((qi + 1u) & 2u) ? -cc : cc;
-}
 
 template <int NH, int R>
 __global__ void __launch_bounds__(kCols) relation_bias_v4_kernel(

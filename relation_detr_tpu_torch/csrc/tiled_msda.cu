@@ -17,14 +17,37 @@
 // (M = 437, T = 128) that matrix is 224 KB, the whole of a Hopper block's
 // shared memory. So:
 //
-// - tiled_core_fwd keeps only the head's patch slice (M x D, 56 KB at
-//   D = 32) in dynamic shared memory and sums the E entries of each token
-//   directly: out[t, d] = sum_e w[e, t] * patch[m[e, t], d]. It is the
-//   one-hot product with the zero terms skipped; entries whose row lies
-//   outside [0, M) add nothing, as no iota row matches them on the TPU.
-//   It sums in entry order where the TPU's dot sums over rows, so results
-//   differ in the last bits. Bound on the card: the bytes (m, w, patch in,
-//   out; 134 MB at level 0 for B = 1), 2 E flops per output element.
+// - tiled_core_fwd sums the E entries of each token directly:
+//   out[t, d] = sum_e w[e, t] * patch[m[e, t], d], the one-hot product with
+//   the zero terms skipped; an entry whose row lies outside [0, M) adds
+//   nothing (a NaN weight on it included), as no iota row matches it on the
+//   TPU. It sums in ascending e where the TPU's dot sums over rows, so
+//   results differ in the last bits; and a NaN in the patch reaches only the
+//   tokens with an entry on its row, where the dense product spreads it to
+//   every token. Bound on the card: the bytes (m, w, patch in, out; 134 MB
+//   at level 0 for B = 1, 0.040 ms), 2 E flops per output element. The
+//   previous design (one block per item staging the head's patch slice, 56
+//   KB at D = 32, with scalar loads, then per output element a serial loop
+//   of E dependent global loads of m and w) took 0.2337 ms at level 0
+//   (NVIDIA H100 80GB HBM3, 700.00 W): latency-bound. This design, after
+//   tiled_core_bwd's:
+//   * a persistent grid (SMs x resident blocks) of 512-thread blocks walks
+//     the items (image, tile, head); cp.async 16-byte copies stage an
+//     item's patch slice (M x D, rows strided by C) and its m and w (E x T
+//     each), and prefetch the next item's into a second buffer while the
+//     current one is computed, so no loop waits on a global load;
+//   * D / 4 lanes per token slot, each a float4 of channels; the token's E
+//     entries read from shared memory as broadcasts, in ascending e, and
+//     its output row stored as float4s in one coalesced line. At D = 32 a
+//     quarter-warp reads one whole 128-byte patch row, so the slice needs
+//     no swizzle to be free of bank conflicts.
+//   Shared memory 2 x (M D + 2 E T) floats: 144,640 bytes at level 0
+//   (M = 437), one block per SM; 98,048 at level 1, two. The design that
+//   gathers patch rows through L1 instead (no staging, one 256-thread
+//   block per item, entries in chunks of 8 with their loads in flight
+//   together) took 0.071 ms at level 0 against this one's 0.050, and
+//   ~0.066 ms at levels 1-3 against 0.034-0.040 (device time, same card).
+//   D must be 4, 8, 16 or 32 and E x T a multiple of 4.
 // - tiled_core_bwd: dw[e, t] = sum_d patch[m[e, t], d] * g[t, d] (0 for an
 //   entry outside [0, M)) and dpatch[r, :] = sum over the entries on row r
 //   of w[e, t] * g[t, :]; m gets no gradient. Bound on the card: the bytes
@@ -95,65 +118,18 @@
 //     blocks per SM. D must be 4, 8, 16 or 32, pw <= 20 (the port's tiling
 //     gives pw <= 19: 8 columns per tile, halos of 5, a margin of 1).
 //
-// tiled_core_fwd runs one block of 256 threads per (image, tile, head).
 // Every kernel launches on the caller's stream; the entries return
 // cudaGetLastError().
 #include <algorithm>
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int64_t kMaxSmem = 232448;  // bytes a Hopper block may use
-
-__device__ __forceinline__ void load_head_slice(float* dst, const float* patch, int M,
-                                                int C, int D) {
-  for (int idx = threadIdx.x; idx < M * D; idx += blockDim.x)
-    dst[idx] = patch[static_cast<int64_t>(idx / D) * C + idx % D];
-}
-
-__global__ void tiled_core_fwd_kernel(const int* __restrict__ m, const float* __restrict__ w,
-                                      const float* __restrict__ patch, float* __restrict__ out,
-                                      int nt, int H, int E, int T, int M, int C, int D) {
-  extern __shared__ float smem[];  // patch slice (M, D)
-  const int h = blockIdx.y % H;
-  const int64_t bn = static_cast<int64_t>(blockIdx.y / H) * nt + blockIdx.x;
-  load_head_slice(smem, patch + bn * M * C + h * D, M, C, D);
-  __syncthreads();
-  const int* mr = m + (bn * H + h) * E * T;
-  const float* wr = w + (bn * H + h) * E * T;
-  float* o = out + bn * T * C + h * D;
-  for (int idx = threadIdx.x; idx < T * D; idx += blockDim.x) {
-    const int t = idx / D;
-    const int d = idx % D;
-    float acc = 0.f;
-    for (int e = 0; e < E; ++e) {
-      const int row = mr[e * T + t];
-      if (row >= 0 && row < M) acc += wr[e * T + t] * smem[row * D + d];
-    }
-    o[static_cast<int64_t>(t) * C + d] = acc;
-  }
-}
-
-// --- tiled_core_bwd ------------------------------------------------------------
-
-constexpr int kBwdThreads = 512;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-struct BwdEntry {  // a sorted entry: its weight and token slot
-  float w;
-  int t;
-};
-
-constexpr int kDwSplit = 4;  // dw threads per token slot
-
-// The swizzled position of 16-byte chunk a of a staged slice.
-__device__ __forceinline__ int swz(int a) { return a ^ ((a >> 3) & 7); }
 
 __device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
   acc.x = fmaf(w, v.x, acc.x);
@@ -179,6 +155,103 @@ __device__ __forceinline__ void cp_async_wait() {
 __host__ __device__ constexpr int64_t round_up(int64_t v, int64_t to) {
   return (v + to - 1) / to * to;
 }
+
+// --- tiled_core_fwd ------------------------------------------------------------
+
+struct FwdShape {
+  int64_t items;  // B * nt * H
+  int H, E, T, M, C, ET;
+  int ps_floats;  // the staged patch slice, M x D
+};
+
+constexpr int kFwdThreads = 512;
+
+// Starts the cp.async copies of one item's patch slice, m and w into a
+// stage buffer.
+template <int DQ>
+__device__ void fwd_stage(float* buf, const FwdShape& s, int64_t item, const int* m,
+                          const float* w, const float* patch) {
+  constexpr int D = DQ * 4;
+  const int64_t bn = item / s.H;
+  const int h = static_cast<int>(item - bn * s.H);
+  float* ms = buf + s.ps_floats;
+  float* ws = ms + s.ET;
+  const float* pg = patch + bn * s.M * s.C + h * D;
+  for (int i = threadIdx.x; i < s.M * DQ; i += kFwdThreads)
+    cp_async16(buf + i * 4, pg + static_cast<int64_t>(i / DQ) * s.C + (i % DQ) * 4);
+  const int* mm = m + item * s.ET;
+  const float* wm = w + item * s.ET;
+  for (int i = threadIdx.x; i < s.ET / 4; i += kFwdThreads) {
+    cp_async16(ms + i * 4, mm + i * 4);
+    cp_async16(ws + i * 4, wm + i * 4);
+  }
+}
+
+// The persistent grid walks the items (image, tile, head): each item's
+// operands are staged while the previous one is computed; D / 4 lanes per
+// token slot, a float4 of channels each, entries in ascending e.
+template <int DQ>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    tiled_core_fwd_kernel(const int* __restrict__ m, const float* __restrict__ w,
+                          const float* __restrict__ patch, float* __restrict__ out,
+                          FwdShape s) {
+  constexpr int D = 4 * DQ;
+  constexpr int kTokens = kFwdThreads / DQ;  // token slots per pass
+  extern __shared__ __align__(16) float smem[];  // two stage buffers
+  const int stage = s.ps_floats + 2 * s.ET;
+  const int q = threadIdx.x % DQ;
+  int64_t item = blockIdx.x;
+  fwd_stage<DQ>(smem, s, item, m, w, patch);  // the grid has at most s.items blocks
+  cp_async_commit();
+  for (int k = 0; item < s.items; item += gridDim.x, ++k) {
+    // prefetch the next item into the other buffer, then wait for this one
+    const int64_t next = item + gridDim.x;
+    if (next < s.items) fwd_stage<DQ>(smem + ((k + 1) & 1) * stage, s, next, m, w, patch);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* buf = smem + (k & 1) * stage;
+    const float4* ps = reinterpret_cast<const float4*>(buf) + q;  // row r at ps[r * DQ]
+    const int* ms = reinterpret_cast<const int*>(buf + s.ps_floats);
+    const float* ws = buf + s.ps_floats + s.ET;
+    const int64_t bn = item / s.H;
+    const int h = static_cast<int>(item - bn * s.H);
+    float4* og = reinterpret_cast<float4*>(out + bn * s.T * s.C + h * D) + q;
+    for (int t = threadIdx.x / DQ; t < s.T; t += kTokens) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int e = 0; e < s.E; ++e) {
+        const int r = ms[e * s.T + t];
+        if (static_cast<unsigned>(r) < static_cast<unsigned>(s.M))
+          fma4(acc, ws[e * s.T + t], ps[r * DQ]);
+      }
+      og[static_cast<int64_t>(t) * (s.C / 4)] = acc;
+    }
+    __syncthreads();  // the buffer is free for the stage after next
+  }
+  cp_async_wait<0>();
+}
+
+// Two stage buffers of the patch slice, m and w.
+int64_t fwd_smem_bytes(const FwdShape& s) {
+  return 2 * (static_cast<int64_t>(s.ps_floats) + 2 * s.ET) * 4;
+}
+
+// --- tiled_core_bwd ------------------------------------------------------------
+
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+struct BwdEntry {  // a sorted entry: its weight and token slot
+  float w;
+  int t;
+};
+
+constexpr int kDwSplit = 4;  // dw threads per token slot
+
+// The swizzled position of 16-byte chunk a of a staged slice.
+__device__ __forceinline__ int swz(int a) { return a ^ ((a >> 3) & 7); }
 
 struct BwdShape {
   int64_t items;  // B * nt * H
@@ -555,24 +628,19 @@ int allow_smem(const void* kernel, int64_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-bool bad_grid(int64_t B, int64_t nt, int64_t H) {
-  return B * H > 65535 || nt > 2147483647;
-}
-
-// The persistent grid's blocks for a launch that needs smem bytes: SMs x
-// the blocks that fit on one. Worked out once per device and size, and the
-// kernel's shared-memory limit raised to the most a block may use once per
-// device, so a launch after the first makes no attribute or occupancy query.
-template <int DQ>
-int bwd_grid_blocks(int64_t smem, int64_t* blocks) {
+// The persistent grid's blocks for a kernel of `threads` threads whose
+// launch needs smem bytes: SMs x the blocks that fit on one. Worked out once
+// per device, kernel and size, and the kernel's shared-memory limit raised
+// to the most a block may use at the first, so a launch after the first
+// makes no attribute or occupancy query.
+int grid_blocks(const void* kernel, int threads, int64_t smem, int64_t* blocks) {
   static std::mutex mu;
-  static std::map<std::pair<int, int64_t>, int64_t> known;  // (device, smem) -> blocks
-  const void* kernel = reinterpret_cast<const void*>(tiled_core_bwd_kernel<DQ>);
+  static std::map<std::tuple<int, const void*, int64_t>, int64_t> known;
   int device = 0;
   int code = static_cast<int>(cudaGetDevice(&device));
   if (code != 0) return code;
   std::lock_guard<std::mutex> lock(mu);
-  const auto it = known.find({device, smem});
+  const auto it = known.find({device, kernel, smem});
   if (it != known.end()) {
     *blocks = it->second;
     return 0;
@@ -583,11 +651,25 @@ int bwd_grid_blocks(int64_t smem, int64_t* blocks) {
     code = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
   if (code == 0)
     code = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kBwdThreads, static_cast<size_t>(smem)));
+        &per_sm, kernel, threads, static_cast<size_t>(smem)));
   if (code != 0) return code;
   if (per_sm < 1) return RDETR_INVALID;
-  *blocks = known[{device, smem}] = static_cast<int64_t>(sms) * per_sm;
+  *blocks = known[{device, kernel, smem}] = static_cast<int64_t>(sms) * per_sm;
   return 0;
+}
+
+template <int DQ>
+int launch_tiled_core_fwd(const int* m, const float* w, const float* patch, float* out,
+                          const FwdShape& s, cudaStream_t stream) {
+  const int64_t smem = fwd_smem_bytes(s);
+  int64_t blocks = 0;
+  const int code = grid_blocks(reinterpret_cast<const void*>(tiled_core_fwd_kernel<DQ>),
+                               kFwdThreads, smem, &blocks);
+  if (code != 0) return code;
+  const int64_t grid = std::min(s.items, blocks);
+  tiled_core_fwd_kernel<DQ><<<static_cast<unsigned>(grid), kFwdThreads, smem, stream>>>(
+      m, w, patch, out, s);
+  RDETR_RETURN_LAUNCH_STATUS();
 }
 
 template <int DQ>
@@ -595,7 +677,8 @@ int launch_tiled_core_bwd(const int* m, const float* w, const float* patch, cons
                           float* dw, float* dpatch, const BwdShape& s, cudaStream_t stream) {
   const int64_t smem = bwd_smem_bytes(s);
   int64_t blocks = 0;
-  const int code = bwd_grid_blocks<DQ>(smem, &blocks);
+  const int code = grid_blocks(reinterpret_cast<const void*>(tiled_core_bwd_kernel<DQ>),
+                               kBwdThreads, smem, &blocks);
   if (code != 0) return code;
   const int64_t grid = std::min(s.items, blocks);
   tiled_core_bwd_kernel<DQ><<<static_cast<unsigned>(grid), kBwdThreads, smem, stream>>>(
@@ -617,21 +700,36 @@ int launch_sep_contract(const float* oy, const float* ox, const float* patch, fl
 
 }  // namespace
 
-// m, w (B, nt, H, E, T); patch (B, nt, M, C); out (B, nt, T, C), written whole.
+// m, w (B, nt, H, E, T); patch (B, nt, M, C); out (B, nt, T, C), written
+// whole. D = C / H must be 4, 8, 16 or 32, E * T a multiple of 4 and every
+// pointer 16-byte aligned.
 extern "C" int tiled_core_fwd(const int* m, const float* w, const float* patch, float* out,
                               int64_t B, int64_t nt, int64_t H, int64_t E, int64_t T,
                               int64_t M, int64_t C, void* stream) {
-  if (B * nt * T == 0) return 0;
-  if (H < 1 || C % H != 0 || E < 1 || M < 1 || bad_grid(B, nt, H)) return RDETR_INVALID;
-  const int64_t D = C / H;
-  const int64_t smem = M * D * 4;
-  const int code = allow_smem(reinterpret_cast<const void*>(tiled_core_fwd_kernel), smem);
-  if (code != 0) return code;
-  tiled_core_fwd_kernel<<<dim3(static_cast<unsigned>(nt), static_cast<unsigned>(B * H)),
-                          kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      m, w, patch, out, static_cast<int>(nt), static_cast<int>(H), static_cast<int>(E),
-      static_cast<int>(T), static_cast<int>(M), static_cast<int>(C), static_cast<int>(D));
-  RDETR_RETURN_LAUNCH_STATUS();
+  if (B * nt * H * T == 0) return 0;
+  if (H < 1 || C % H != 0 || E < 1 || M < 1 || (E * T) % 4 != 0) return RDETR_INVALID;
+  if (E * T > (1 << 24) || M * C > (1 << 30) || T * C > (1 << 30)) return RDETR_INVALID;
+  for (const void* p : {static_cast<const void*>(m), static_cast<const void*>(w),
+                        static_cast<const void*>(patch), static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return RDETR_INVALID;
+  FwdShape s;
+  s.items = B * nt * H;
+  s.H = static_cast<int>(H);
+  s.E = static_cast<int>(E);
+  s.T = static_cast<int>(T);
+  s.M = static_cast<int>(M);
+  s.C = static_cast<int>(C);
+  s.ET = static_cast<int>(E * T);
+  s.ps_floats = static_cast<int>(round_up(M * (C / H), 4));
+  if (fwd_smem_bytes(s) > kMaxSmem) return RDETR_INVALID;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C / H) {
+    case 4: return launch_tiled_core_fwd<1>(m, w, patch, out, s, st);
+    case 8: return launch_tiled_core_fwd<2>(m, w, patch, out, s, st);
+    case 16: return launch_tiled_core_fwd<4>(m, w, patch, out, s, st);
+    case 32: return launch_tiled_core_fwd<8>(m, w, patch, out, s, st);
+    default: return RDETR_INVALID;
+  }
 }
 
 // g (B, nt, T, C); dw (B, nt, H, E, T) and dpatch (B, nt, M, C), written

@@ -199,6 +199,12 @@ def _bwd_smem_bytes(rows, head_dim, e, t):
     return (2 * stage + -(-rows * 16 // 4) * 4 + 32) * 4 + e * t * 8
 
 
+def _fwd_smem_bytes(rows, head_dim, e, t):
+    """Dynamic shared memory of ``tiled_core_fwd`` (csrc/tiled_msda.cu::
+    fwd_smem_bytes): two stages of the patch slice, m and w."""
+    return 2 * (-(-rows * head_dim // 4) * 4 + 2 * e * t) * 4
+
+
 def _check_core_args(m_all, w_all, patch, dims, g=None):
     tensors = (m_all, w_all, patch) if g is None else (m_all, w_all, patch, g)
     if any(t.device != patch.device for t in tensors):
@@ -214,19 +220,18 @@ def _check_core_args(m_all, w_all, patch, dims, g=None):
                          f"heads {num_heads}")
     if patch.dim() != 4 or patch.shape[:2] != (bs, nt) or patch.shape[3] != num_heads * head_dim:
         raise ValueError(f"tiled core: bad patch {tuple(patch.shape)}")
+    if g is not None and g.shape != (bs, nt, t, num_heads * head_dim):
+        raise ValueError(f"tiled core backward: bad g {tuple(g.shape)}")
+    if head_dim not in (4, 8, 16, 32) or (e * t) % 4:
+        raise ValueError(f"tiled core kernels take a head dim of 4, 8, 16 or 32 and E * T a "
+                         f"multiple of 4, got {head_dim} and {e} * {t}")
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("tiled core kernels take 16-byte aligned tensors only")
     rows = patch.shape[2]
-    smem = rows * head_dim * 4 if g is None else _bwd_smem_bytes(rows, head_dim, e, t)
+    smem = (_fwd_smem_bytes if g is None else _bwd_smem_bytes)(rows, head_dim, e, t)
     if smem > _MAX_SMEM:
-        raise ValueError(f"tiled core: a {rows}-row patch head slice needs {smem} bytes of "
-                         "shared memory, more than a Hopper block has")
-    if g is not None:
-        if g.shape != (bs, nt, t, num_heads * head_dim):
-            raise ValueError(f"tiled core backward: bad g {tuple(g.shape)}")
-        if head_dim not in (4, 8, 16, 32) or (e * t) % 4:
-            raise ValueError(f"tiled_core_bwd takes a head dim of 4, 8, 16 or 32 and E * T a "
-                             f"multiple of 4, got {head_dim} and {e} * {t}")
-        if any(x.data_ptr() % 16 for x in tensors):
-            raise ValueError("tiled_core_bwd takes 16-byte aligned tensors only")
+        raise ValueError(f"tiled core: a {rows}-row patch needs {smem} bytes of shared "
+                         "memory, more than a Hopper block has")
 
 
 def _tiled_core_fwd(m_all, w_all, patch, dims):

@@ -279,6 +279,8 @@ def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
                          f"{embed_dim} and {tuple(kernel.shape)}")
     if num_heads not in (4, 8, 16):
         raise ValueError(f"relation bias kernel takes 4, 8 or 16 heads, got {num_heads}")
+    if rel.data_ptr() % 16:
+        raise ValueError("relation bias kernel takes a 16-byte aligned rel only")
     lib = _build.load_library()
     bs, n1, n2, _ = rel.shape
     freqs_host = _freqs_host(embed_dim, temperature, scale)

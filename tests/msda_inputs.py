@@ -69,6 +69,14 @@ def close_where_finite(got, want, tol, what):
 # (test_torch_kernel_schedule.py; the last relation shape only on the card)
 V4_CASES = [(1, 1, 1, 8, "rows"), (2, 37, 300, 4, "conv"), (1, 130, 33, 8, "conv"),
             (3, 9, 129, 16, "rows"), (1, 900, 900, 8, "conv")]
+# edge shapes of tiled_core_fwd (B, nt, H, D, E, T, M) and of
+# relation_bias_rel_fwd (B, N1, N2, H), held the same way (the last relation
+# shape only on the card): the flagship's level-0 item (E = 16, T = 128,
+# M = 437), M = 1, T not a multiple of 32, D 4 to 32; H 4 to 16, N1 != N2;
+# B up to 3
+TILED_FWD_CASES = [(1, 2, 2, 32, 16, 128, 437), (2, 3, 2, 16, 8, 45, 60),
+                   (3, 2, 2, 8, 8, 20, 1), (1, 2, 4, 4, 4, 33, 30)]
+REL_CASES = [(1, 1, 1, 8), (2, 37, 300, 4), (3, 9, 129, 16), (1, 130, 33, 8), (1, 900, 900, 8)]
 SEP_CASES = [(1, 3, 2, 32, 4, 23, 19, 128, False), (2, 2, 4, 16, 3, 7, 20, 131, True),
              (1, 2, 8, 8, 1, 5, 1, 13, False), (1, 1, 1, 4, 2, 1, 5, 4, True),
              (1, 2, 2, 32, 4, 13, 11, 100, True)]
@@ -121,3 +129,39 @@ def sep_operands(rng, batch, nt, heads, head_dim, points, ph, pw, tokens, dense)
         ox = soft(pw, 1.0)
     patch = rng.randn(batch, nt, ph * pw, heads * head_dim)
     return [a.astype(np.float32) for a in (oy, ox, patch)]
+
+
+def tiled_fwd_operands(rng, batch, nt, heads, head_dim, entries, tokens, rows):
+    """m, w (B, nt, H, E, T) and patch (B, nt, M, H * D) for tiled_core_fwd:
+    rows drawn from [-2, M + 2) (some outside the patch) plus -1, M, 10**6
+    and -10**6 on entry 0, NaN weights on entries outside [0, M) (dropped:
+    finite outputs) and on one entry inside it (item (-1, -1, -1), token
+    T - 1: that token's head slice NaN)."""
+    shape = (batch, nt, heads, entries, tokens)
+    m = rng.randint(-2, rows + 2, shape).astype(np.int32)
+    m[..., 0, ::4] = np.array([-1, rows, 10 ** 6, -10 ** 6], np.int32)[
+        np.arange(len(range(0, tokens, 4))) % 4]
+    w = rng.rand(*shape).astype(np.float32)
+    w[..., 0, ::4] = np.nan
+    outside = (m < 0) | (m >= rows)
+    w[0, 0, 0][outside[0, 0, 0]] = np.nan
+    m[-1, -1, -1, -1, -1] = rows - 1
+    w[-1, -1, -1, -1, -1] = np.nan
+    patch = rng.randn(batch, nt, rows, heads * head_dim).astype(np.float32)
+    return m, w, patch
+
+
+def relation_rel(rng, batch, n1, n2, heads):
+    """rel (B, N1, N2, 4) as box_rel_encoding gives it (coordinates 0-1
+    in [0, 18.4], 2-3 in [-10.4, 10.4]: angles up to ~1.8e3 rad) with some
+    |rel| up to 90 (9e3 rad), a NaN and an Inf (NaN biases for that pair);
+    kernel (64, H) and bias (H)."""
+    rel = np.concatenate([rng.uniform(0, 18.4, (batch, n1, n2, 2)),
+                          rng.uniform(-10.4, 10.4, (batch, n1, n2, 2))], -1)
+    rel[:, ::7, ::5] = rng.uniform(-90, 90, rel[:, ::7, ::5].shape)
+    rel = rel.astype(np.float32)
+    rel[0, n1 // 2, n2 // 3, 1] = np.nan
+    rel[-1, n1 - 1, n2 - 1, 3] = np.inf
+    kernel = (rng.randn(64, heads) * 0.1).astype(np.float32)
+    bias = (rng.randn(heads) * 0.1).astype(np.float32)
+    return rel, kernel, bias

@@ -1,17 +1,24 @@
-"""The schedules of ``relation_bias_v4_fwd`` (``csrc/relation_bias.cu``) and
-``sep_contract_fwd`` (``csrc/tiled_msda.cu``), emulated on the CPU in
-float32 from what their wrappers hand them, against the plain versions and
-the JAX Pallas kernels (interpret mode).
+"""The schedules of ``relation_bias_v4_fwd`` (``csrc/relation_bias.cu``),
+``relation_bias_rel_fwd`` (``csrc/relation_bias_rel.cu``),
+``sep_contract_fwd`` and ``tiled_core_fwd`` (``csrc/tiled_msda.cu``),
+emulated on the CPU in float32 from what their wrappers hand them, against
+the plain versions and the JAX Pallas kernels (interpret mode).
 
 relation_bias_v4_fwd: the block tiles (128 columns x R rows, R read from the
 source by head count) with their clamped loads and masked stores, the
 per-block prologue (rows' alpha|beta from the weights read through their
 strides), each column's cos|sin features, the kernel's order of FMAs and its
-sine-cosine argument reduction (``sincos_rr``), whose error against float64
-is held over the whole range of angles. sep_contract_fwd: the 128-slot token
-passes, the chunks of whole patch rows with the build threads' even and odd
-columns, each A element's FMA chain over the points, and the register tiles
-of 4 tokens x 4 channels summing the rows in ascending order. A fused
+sine-cosine argument reduction (``sincos_rr``, ``csrc/common.cuh``), whose
+error against float64 is held over the whole range of angles.
+relation_bias_rel_fwd: the flat pair tiles (threads x P pairs, P read from
+the source by head count) with masked loads and stores, each pair's 32
+sine-cosine pairs by ``sincos_rr`` and the FMAs in the kernel's order.
+sep_contract_fwd: the 128-slot token passes, the chunks of whole patch rows
+with the build threads' even and odd columns, each A element's FMA chain
+over the points, and the register tiles of 4 tokens x 4 channels summing
+the rows in ascending order. tiled_core_fwd: the token passes of a block
+over an item, entries outside [0, M) skipped (their NaN weights too) and
+the others summed in ascending order. A fused
 multiply-add is emulated in float64 and rounded once to float32 (the
 product of two float32 values is exact in float64). The card holds the
 kernels themselves: ``chip_smoke.py`` phase 3 and the card-only tests in
@@ -26,23 +33,36 @@ import numpy as np
 import pytest
 import torch
 
+from relation_detr_tpu.ops import relation_pallas
+from relation_detr_tpu.ops.msda_pallas import tiled_matmul_core as j_tiled_core
 from relation_detr_tpu.ops.msda_sep_pallas import sep_contract_fused as j_sep
 from relation_detr_tpu.ops.relation_pallas import fused_relation_bias_v4
 from relation_detr_tpu_torch.ops import msda_tiled, relation_bias
 
-from msda_inputs import SEP_CASES, V4_CASES, relation_boxes, sep_operands
+from msda_inputs import (REL_CASES, SEP_CASES, TILED_FWD_CASES, V4_CASES, relation_boxes,
+                         relation_rel, sep_operands, tiled_fwd_operands)
 
 CSRC = Path(relation_bias.__file__).resolve().parent.parent / "csrc"
-REL_SRC = (CSRC / "relation_bias.cu").read_text()
-SEP_SRC = (CSRC / "tiled_msda.cu").read_text()
-K = {name: int(v) for src in (REL_SRC, SEP_SRC)
-     for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+COMMON_SRC = (CSRC / "common.cuh").read_text()
+V4_SRC = (CSRC / "relation_bias.cu").read_text()
+REL_SRC = (CSRC / "relation_bias_rel.cu").read_text()
+TILED_SRC = (CSRC / "tiled_msda.cu").read_text()
+K = {}
+for src in (V4_SRC, REL_SRC, TILED_SRC):
+    for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src):
+        assert K.setdefault(name, int(v)) == int(v), name  # one value per name
 ROWS = {4: K["kRowsH4"], 8: K["kRowsH8"], 16: K["kRowsH16"]}
+PAIRS = {4: K["kPairsH4"], 8: K["kPairsH8"], 16: K["kPairsH16"]}
 F32 = np.float32
 # jitted: one XLA compile runs the interpret-mode kernels far quicker than
 # op-by-op dispatch
 J_V4 = jax.jit(fused_relation_bias_v4)
 J_SEP = jax.jit(j_sep)
+J_TILED = jax.jit(j_tiled_core, static_argnums=3)
+# relation version 2's kernel (the version is read when the call is traced;
+# version 1's kernel computes the same function and compiles ~20x slower in
+# interpret mode: test_torch_tiled.py holds the port against both)
+J_REL_V2 = jax.jit(relation_pallas.fused_relation_bias)
 
 # sincos_rr's constants, as the source writes them
 TWO_OVER_PI = F32(0.636619772)
@@ -54,7 +74,7 @@ COS = (F32(2.443315711809948e-5), F32(-1.388731625493765e-3), F32(4.166664568298
 for literal in ("0.636619772f", "0x1.8p+23f", "0x1.921fb6p+0f", "0x1.777a5cp-25f",
                 "-1.9515295891e-4f", "8.3321608736e-3f", "-1.6666654611e-1f",
                 "2.443315711809948e-5f", "-1.388731625493765e-3f", "4.166664568298827e-2f"):
-    assert literal in REL_SRC, literal
+    assert literal in COMMON_SRC, literal
 
 
 def fma(a, b, c):
@@ -250,3 +270,139 @@ def test_sep_contract_schedule_matches_plain_and_jax(batch, nt, heads, head_dim,
     np.testing.assert_allclose(got, plain.numpy(), rtol=0, atol=1e-5)
     want = np.asarray(J_SEP(*(jnp.asarray(a) for a in (oy, ox, patch))))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def emulate_relation_rel(rel, kernel, bias, embed_dim=16, temperature=10000.0, scale=100.0):
+    """relation_bias_rel_fwd tile by tile: returns the output and how many
+    times each element was stored."""
+    bs, n1, n2, _ = rel.shape
+    heads = kernel.shape[1]
+    threads, per = K["kRelThreads"], PAIRS[heads]
+    half = embed_dim // 2
+    freqs = relation_bias._freqs(embed_dim, temperature, scale)
+    pairs = n1 * n2
+    flat = rel.reshape(bs, pairs, 4)
+    out = np.zeros((bs, heads, pairs), F32)
+    stores = np.zeros(out.shape, np.int64)
+    for p0 in range(0, pairs, threads * per):
+        # thread t of the block: pairs p0 + t + u * threads, u < per
+        p = p0 + np.arange(per)[:, None] * threads + np.arange(threads)[None, :]
+        live = p < pairs
+        r = np.where(live[..., None], flat[:, np.minimum(p, pairs - 1)], F32(0))  # (B, P, T, 4)
+        acc = np.broadcast_to(bias, (*r.shape[:3], heads)).astype(F32)
+        for c in range(4):
+            for k in range(half):
+                s, co = sincos_rr(r[..., c] * freqs[k])
+                row = c * 2 * half + 2 * k
+                acc = fma(co[..., None], kernel[row + 1], fma(s[..., None], kernel[row], acc))
+        res = np.where(acc < 0, F32(0), acc)  # relu that keeps NaN
+        out[:, :, p[live]] = res[:, live].transpose(0, 2, 1)
+        stores[:, :, p[live]] += 1
+    return out.reshape(bs, heads, n1, n2), stores.reshape(bs, heads, n1, n2)
+
+
+@pytest.mark.parametrize("batch,n1,n2,heads", REL_CASES[:4])
+def test_relation_rel_schedule_matches_plain_and_jax(batch, n1, n2, heads):
+    """The emulated relation_bias_rel_fwd on the card tests' edge shapes (one
+    pair, N1 != N2, a last block cut short, 4 / 8 / 16 heads, |rel| up to
+    90: angles to 9e3 rad) against the plain version and the JAX kernel of
+    version 2: every element stored once, NaN where they are NaN (a NaN and
+    an Inf in rel), 1e-5 abs elsewhere."""
+    rel, kernel, bias = relation_rel(np.random.RandomState(n2), batch, n1, n2, heads)
+    got, stores = emulate_relation_rel(rel, kernel, bias)
+    assert (stores == 1).all()
+    plain = relation_bias.fused_relation_bias_reference(
+        *(torch.from_numpy(a) for a in (rel, kernel, bias))).numpy()
+    try:
+        relation_pallas.set_fused_relation(version=2)
+        jax_out = np.asarray(J_REL_V2(*(jnp.asarray(a) for a in (rel, kernel, bias))))
+    finally:
+        relation_pallas.set_fused_relation(version=4)
+    for want in (plain, jax_out):
+        finite = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), finite)
+        assert np.isnan(got[~finite]).all()
+        np.testing.assert_allclose(got[finite], want[finite], rtol=0, atol=1e-5)
+    assert np.isnan(got[0, :, n1 // 2, n2 // 3]).all()
+    assert np.isnan(got[-1, :, n1 - 1, n2 - 1]).all()
+
+
+def emulate_tiled_core_fwd(m, w, patch, dims):
+    """tiled_core_fwd item by item (vectorised over the items, which the
+    persistent grid takes in any order): returns the output and how many
+    times each output element was stored."""
+    bs, nt, heads, entries, tokens = m.shape
+    rows = patch.shape[2]
+    _, head_dim = dims
+    assert head_dim in (4, 8, 16, 32) and entries * tokens % 4 == 0  # 16-byte staging
+    per_pass = K["kFwdThreads"] // (head_dim // 4)
+    m_i = m.reshape(-1, entries, tokens)
+    w_i = w.reshape(-1, entries, tokens)
+    p_i = patch.reshape(bs, nt, rows, heads, head_dim).transpose(0, 1, 3, 2, 4).reshape(
+        -1, rows, head_dim)
+    items = np.arange(len(m_i))[:, None]
+    out = np.zeros((len(m_i), tokens, head_dim), F32)
+    stores = np.zeros(out.shape, np.int64)
+    for t0 in range(0, tokens, per_pass):
+        tt = np.arange(t0, min(t0 + per_pass, tokens))
+        acc = np.zeros((len(m_i), len(tt), head_dim), F32)
+        for e in range(entries):  # ascending e; a row outside [0, M) is skipped
+            row = m_i[:, e, tt]
+            inside = (row >= 0) & (row < rows)
+            v = p_i[items, np.clip(row, 0, rows - 1)]
+            with np.errstate(invalid="ignore"):
+                acc = np.where(inside[..., None], fma(w_i[:, e, tt, None], v, acc), acc)
+        out[:, tt] = acc
+        stores[:, tt] += 1
+    out = out.reshape(bs, nt, heads, tokens, head_dim).transpose(0, 1, 3, 2, 4)
+    return out.reshape(bs, nt, tokens, heads * head_dim), stores
+
+
+@pytest.mark.parametrize("batch,nt,heads,head_dim,entries,tokens,rows", TILED_FWD_CASES)
+def test_tiled_core_fwd_schedule_matches_plain_and_jax(batch, nt, heads, head_dim, entries,
+                                                       tokens, rows):
+    """The emulated tiled_core_fwd on the card tests' edge shapes (the
+    flagship's level 0 item shape, M = 1, T not a multiple of 32, D 4 to 32)
+    with rows outside [0, M) (-2, -1, M, M + 1, +-10**6) and NaN weights on
+    them (dropped) and on one entry inside (its token's head slice NaN):
+    every output stored once, the NaN pattern of the plain version and the
+    JAX kernel, 1e-5 abs elsewhere."""
+    m, w, patch = tiled_fwd_operands(np.random.RandomState(rows), batch, nt, heads, head_dim,
+                                     entries, tokens, rows)
+    dims = (heads, head_dim)
+    got, stores = emulate_tiled_core_fwd(m, w, patch, dims)
+    assert (stores == 1).all()
+    plain = msda_tiled.tiled_core_reference(*(torch.from_numpy(a) for a in (m, w, patch)),
+                                            dims).numpy()
+    jax_out = np.asarray(J_TILED(*(jnp.asarray(a) for a in (m, w, patch)), dims))
+    nan_slice = np.zeros(got.shape, bool)
+    nan_slice[-1, -1, -1, (heads - 1) * head_dim:] = True
+    for want in (plain, jax_out):
+        np.testing.assert_array_equal(np.isnan(want), nan_slice)
+        np.testing.assert_array_equal(np.isnan(got), nan_slice)
+        np.testing.assert_allclose(got[~nan_slice], want[~nan_slice], rtol=0, atol=1e-5)
+
+
+def test_tiled_core_fwd_wrapper_checks():
+    """The CUDA wrapper's checks of tiled_core_fwd, run on CPU tensors: its
+    two stages at the flagship's level 0 take 144,640 bytes (one block per
+    SM), every level of the flagship fits, and a head dim the kernel does
+    not take, E * T not a multiple of 4 and a patch too large for the
+    stages raise."""
+    assert msda_tiled._fwd_smem_bytes(437, 32, 16, 128) == 144640
+    for rows in (437, 255, 182, 156):
+        assert msda_tiled._fwd_smem_bytes(rows, 32, 16, 128) <= 232448
+
+    def check(rows, heads, head_dim, t=8):
+        m = torch.zeros(1, 2, heads, 16 if t % 4 == 0 else 3, t, dtype=torch.int32)
+        w = torch.zeros(m.shape)
+        patch = torch.zeros(1, 2, rows, heads * head_dim)
+        msda_tiled._check_core_args(m, w, patch, (heads, head_dim))
+
+    check(437, 8, 32, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        check(20, 2, 64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        check(20, 2, 32, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        check(1500, 8, 32, 128)

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from msda_inputs import (SEP_CASES, V4_CASES, close_where_finite, encoder_like,
-                         relation_boxes, scattered, sep_operands)
+from msda_inputs import (REL_CASES, SEP_CASES, TILED_FWD_CASES, V4_CASES, close_where_finite,
+                         encoder_like, relation_boxes, relation_rel, scattered, sep_operands,
+                         tiled_fwd_operands)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -439,3 +440,72 @@ def test_sep_contract_kernel_edge_shapes_on_card(batch, nt, heads, head_dim, poi
                                       torch.zeros(1, 1, 1, 1, 3, 8, device="cuda"),
                                       torch.zeros(1, 1, 6, 64, device="cuda"))
     assert msda_tiled.sep_contract_fused.launches == launches + 1
+
+
+def _misaligned(a):
+    """A contiguous CUDA copy of a that starts 4 bytes past a 16-byte line."""
+    flat = torch.zeros(a.size + 1, device="cuda")
+    flat[1:] = torch.from_numpy(a).reshape(-1).cuda()
+    return flat[1:].reshape(a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,nt,heads,head_dim,entries,tokens,rows", TILED_FWD_CASES)
+def test_tiled_core_fwd_kernel_edge_shapes_on_card(batch, nt, heads, head_dim, entries, tokens,
+                                                   rows):
+    """tiled_core_fwd against its plain version at 1e-5 abs: the flagship's
+    level-0 item shape, M = 1, T not a multiple of 32, D of 4 to 32, rows
+    outside [0, M) whose NaN weights are dropped and one NaN weight inside
+    (its token's head slice NaN in both); and the wrapper's refusals (D =
+    64, a patch not 16-byte aligned) raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.ops import msda_tiled
+
+    arrays = tiled_fwd_operands(np.random.RandomState(rows), batch, nt, heads, head_dim,
+                                entries, tokens, rows)
+    m, w, patch = (torch.from_numpy(a).cuda() for a in arrays)
+    dims = (heads, head_dim)
+    launches = msda_tiled.tiled_matmul_core.launches
+    with torch.no_grad():
+        got = msda_tiled.tiled_matmul_core(m, w, patch, dims)
+        want = msda_tiled.tiled_core_reference(m, w, patch, dims)
+    assert msda_tiled.tiled_matmul_core.launches == launches + 1
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got)) and int(nan.sum()) == head_dim
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="head dim"):
+        msda_tiled.tiled_matmul_core(m[:, :, :1].contiguous(), w[:, :, :1].contiguous(),
+                                     torch.zeros(batch, nt, rows, 64, device="cuda"), (1, 64))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        msda_tiled.tiled_matmul_core(m, w, _misaligned(arrays[2]), dims)
+    assert msda_tiled.tiled_matmul_core.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n1,n2,heads", REL_CASES)
+def test_relation_bias_rel_kernel_edge_shapes_on_card(batch, n1, n2, heads):
+    """relation_bias_rel_fwd against its plain version at 1e-5 abs where
+    finite: one pair, N1 != N2, a last block cut short, 4 / 8 / 16 heads,
+    |rel| up to 90 (angles to 9e3 rad), the flagship's N = 900; a NaN and
+    an Inf in rel give NaN biases in both. One launch per call; a rel not
+    16-byte aligned raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.ops import relation_bias
+
+    arrays = relation_rel(np.random.RandomState(n2), batch, n1, n2, heads)
+    rel, kernel, bias = (torch.from_numpy(a).cuda() for a in arrays)
+    launches = relation_bias.fused_relation_bias.launches
+    with torch.no_grad():
+        got = relation_bias.fused_relation_bias(rel, kernel, bias)
+        want = relation_bias.fused_relation_bias_reference(rel, kernel, bias)
+    assert relation_bias.fused_relation_bias.launches == launches + 1
+    finite = torch.isfinite(want)
+    assert torch.equal(finite, torch.isfinite(got))
+    assert bool(torch.isnan(got[~finite]).all())
+    assert not bool(finite[0, :, n1 // 2, n2 // 3].any())
+    torch.testing.assert_close(got[finite], want[finite], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        relation_bias.fused_relation_bias(_misaligned(arrays[0]), kernel, bias)
+    assert relation_bias.fused_relation_bias.launches == launches + 1
