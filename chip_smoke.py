@@ -7,7 +7,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: nvidia-smi name and power limit, torch/CUDA/nvcc versions, and
      which JPEG decoders the machine has (nvjpeg.h with libnvjpeg.so,
      jpeglib.h with libjpeg.so; informational, never fails);
-  2. build: nvcc builds the CUDA kernels from csrc/ (seconds printed);
+  2. build: nvcc builds the CUDA kernels and the nvJPEG decoder from csrc/
+     (two libraries, every source's nvcc started at once; seconds printed);
   3. kernels against their plain PyTorch versions on the card, TF32 off, at
      the flagship's shapes, with CUDA-event times of both (and of one
      PyTorch call computing the same function, where there is one) and the
@@ -26,7 +27,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      3-operand torch.einsum), each with its bound, and
      relation_bias_rel_fwd (N=900 and 1100, rel from boxes with a NaN and an
      Inf centre; at N=900 also |rel| up to 90 and a NaN and an Inf rel, the
-     same NaN pattern as the plain version);
+     same NaN pattern as the plain version); and the evaluation path's
+     shapes: msda_fwd at B=2 (Q = S and 900) on the levels of every canvas
+     the eval CLI batches the committed split into (from the loader's
+     batches and the annotated sizes) and of the portrait bucket (1344,
+     800), and relation_bias_v4_fwd at B=2, N=900; and the JPEG decoder's
+     ycc_to_rgb (libjpeg-turbo's chroma upsampling and colour conversion)
+     on nvJPEG's planes of the split's largest file, bit-identical, through
+     the wrapper the decoder calls;
   4. in-model parity: the tiny-test config on the GPU (kernels) and on the
      CPU (plain versions), same weights and inputs: the eval forward, then
      one train forward + backward with the same CDN draws, run on the CPU
@@ -51,7 +59,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      under impl="tiled" (1 + 8 steps, no covering-window table built);
      p50 step time, peak memory, kernel launches and host matching
      seconds per step;
-  7. torch.profiler, after every timed phase (so that no profiler session
+  7. the COCO evaluation path on the committed synthetic val split
+     (tests/data/torch_port/): (a) nvJPEG decodes the fixtures (4:4:4,
+     4:2:0, grayscale, EXIF Orientation 6) against cv2's decodes, shapes
+     exact and mean |difference| within TOL_DECODE_MEAN (max, mean and the
+     share more than 8 levels off printed), and the split's 8 JPEGs at
+     their annotated sizes; (b) ``relation_detr_tpu_torch.test`` on the
+     flagship config (seeded weights, B=2) over the split, twice: every
+     canvas one that phase 3 held msda_fwd on, 12 msda_fwd and 5
+     relation_bias_v4_fwd launches per batch and one ycc_to_rgb per image,
+     300 finite detections per image, stats equal to the --eval-json
+     re-score of its own results JSON; (c) the same CLI over the split
+     EVAL_CYCLES times (new image ids): images/s and ms per image by stage
+     (decode, host transform, pinning, copy to the card, forward,
+     evaluator) over hundreds of images; (d) a control with nonzero AP:
+     the split's jittered ground truth as the detections through the
+     CLI's ``evaluate``, AP50 1 and AP above 0.5, equal to the --eval-json
+     re-score; (e) the tiny-test config over the split's card-decoded
+     batches through ``make_detections_fn`` on the GPU (kernels) and the
+     CPU (plain versions): normalised canvases bit-identical, pre-top-k
+     heads at TOL_MODEL;
+  8. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's and
      relation_bias_rel_fwd's at N=900 and 1100, tiled_core_fwd's at the four
@@ -62,21 +90,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      relation_bias_rel_fwd's in one relation-version-1 detect (each row's
      device_ms and in_model_eval: [ms, launches] per kernel name); then 5
      calls of the flagship decoder's relation module, whose only device
-     work must be one relation_bias_v4_fwd launch a call; then a JSON
+     work must be one relation_bias_v4_fwd launch a call; one B=2 eval
+     forward's span on the stream against its device-busy time (the idle
+     share of phase 7's "forward" stage); then a JSON
      kernel table, one row per kernel (launches: from the run of the
      path that takes it, each counter set to 0 just before that run:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
      step, tiled_core_fwd/bwd and window_accumulate from the tiled train
      step, sep_contract_fwd from the sep-kernel eval, relation_bias_rel_fwd
-     from the version-1 and version-2 evals), then the last line
+     from the version-1 and version-2 evals; ycc_to_rgb, and
+     eval_cli_launches of msda_fwd and relation_bias_v4_fwd, from phase
+     7 (b)'s second CLI run), after a JSON
+     line of phase 7's results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: bytes are each input read once and each output written once;
 operations count one per sin/cos and two per FMA, as each row's comment
 says.
 
-Imports neither jax, flax, cv2 nor the JAX package. Exits non-zero, printing
-no result, without a CUDA device or outside a checkout of the repository.
+Imports neither jax, flax, cv2, PIL nor the JAX package. Exits non-zero,
+printing no result, without a CUDA device or outside a checkout of the
+repository.
 """
 from __future__ import annotations
 
@@ -144,6 +178,27 @@ EVAL_VARIANTS = (
     ("relation v1", {}, 1, TOL_MODEL),
     ("relation v2", {}, 2, TOL_MODEL),
 )
+
+
+# phase 7, the COCO evaluation path: the committed synthetic val split
+# (tests/make_synth_coco.py's, 8 JPEGs) and the decode fixtures
+# (tests/data/torch_port/make_fixtures.py) with cv2's decodes as .npy
+EVAL_DATA = os.path.join("tests", "data", "torch_port")
+EVAL_BATCH = 2
+# the portrait bucket, which real COCO batches reach and the committed split
+# does not: phase 3 holds msda_fwd at B=2 on its levels beside those of
+# every canvas the eval CLI batches the split into (``eval_canvases``)
+PORTRAIT_CANVAS = (1344, 800)
+# phase 7's throughput run: the split's 8 images this many times over
+EVAL_CYCLES = 50
+# the decode fixtures and the mean |nvJPEG - cv2| in levels each may have,
+# at most. With libjpeg-turbo's chroma upsampling and colour conversion
+# (ycc_to_rgb) only the inverse DCT's rounding differs: 0.02-0.05 on the
+# H100, against 4.78 at 4:2:0 with nvJPEG's own RGB output (saturated
+# rectangles on noise, the synthetic split's worst case)
+DECODE_FIXTURES = ("decode_444", "decode_gray", "decode_420", "decode_exif6")
+TOL_DECODE_MEAN = 0.25
+STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs", "ARm", "ARl")
 
 
 def phase(n, msg):
@@ -219,7 +274,7 @@ def profile_kernels(torch, fn, names):
 
 
 # (label, fn, kernel names, row, key): torch.profiler runs of fn, made in
-# phase 7 after every timed phase, so that no profiler session precedes a
+# phase 8 after every timed phase, so that no profiler session precedes a
 # p50; each stores {kernel: [ms, launches]} (or None) at row[key]
 PROFILES = []
 
@@ -232,9 +287,9 @@ def run_profiles(torch):
         found = profile_kernels(torch, fn, names) or profile_kernels(torch, fn, names)
         row[key] = found
         if found is None:
-            phase(7, f"{label}: torch.profiler saw no device time")
+            phase(8, f"{label}: torch.profiler saw no device time")
             continue
-        phase(7, f"{label}: device time (torch.profiler key_averages()): " +
+        phase(8, f"{label}: device time (torch.profiler key_averages()): " +
               "; ".join(f"{k} {v[0]:.4f} ms over {v[1]} launches" for k, v in found.items()))
 
 
@@ -258,7 +313,7 @@ def msda_inputs(torch, gen, num_queries, dev):
     return value, locs.contiguous(), attn.contiguous()
 
 
-def msda_encoder_inputs(torch, gen, num_queries, dev):
+def msda_encoder_inputs(torch, gen, num_queries, dev, levels=LEVELS, batch=1):
     """The encoder-like set: each query is a token sampling near its own
     reference point at every level, the cell centre at valid ratio 1
     (``models/base_transformer.py::get_full_reference_points``), plus the
@@ -271,25 +326,26 @@ def msda_encoder_inputs(torch, gen, num_queries, dev):
     tokens in random order (a decoder's queries have no spatial order)."""
     from relation_detr_tpu_torch.models.attention import sampling_offsets_bias
 
-    total = sum(h * w for h, w in LEVELS)
-    h_, l_, p_, d_ = 8, len(LEVELS), 4, 32
-    value = torch.randn(1, total, h_, d_, generator=gen, device=dev)
+    total = sum(h * w for h, w in levels)
+    h_, l_, p_, d_ = 8, len(levels), 4, 32
+    value = torch.randn(batch, total, h_, d_, generator=gen, device=dev)
     refs = torch.cat([torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
                                                  (torch.arange(h, device=dev) + 0.5) / h,
                                                  indexing="xy"), -1).reshape(-1, 2)
-                      for h, w in LEVELS])
+                      for h, w in levels])
     if num_queries != total:
         refs = refs[torch.randperm(total, generator=gen, device=dev)[:num_queries]]
-    size = torch.tensor([(w, h) for h, w in LEVELS], device=dev, dtype=torch.float32)
+    size = torch.tensor([(w, h) for h, w in levels], device=dev, dtype=torch.float32)
     offs = sampling_offsets_bias(h_, l_, p_).to(dev).reshape(h_, l_, p_, 2)
-    offs = offs + torch.randn(1, num_queries, h_, l_, p_, 2, generator=gen, device=dev) * 1.5
+    offs = offs + torch.randn(batch, num_queries, h_, l_, p_, 2, generator=gen,
+                              device=dev) * 1.5
     locs = refs[None, :, None, None, None] + offs / size[:, None]
     far = locs[:, ::97, :, :, 3]
     far.copy_(torch.rand(far.shape, generator=gen, device=dev) * 1.2 - 0.1)
     past = locs[:, ::89, :, :, 0]
     past.copy_(torch.tensor([-0.05, 1.05], device=dev)[
         torch.randint(0, 2, past.shape, generator=gen, device=dev)])
-    attn = torch.rand(1, num_queries, h_, l_, p_, generator=gen, device=dev)
+    attn = torch.rand(batch, num_queries, h_, l_, p_, generator=gen, device=dev)
     attn = attn / attn.sum(dim=(-2, -1), keepdim=True)
     return value, locs.contiguous(), attn.contiguous()
 
@@ -310,11 +366,11 @@ def on_pixel_centres(torch, gen, locs, levels):
             locs[..., lvl, axis] = (idx + 0.5) / size + off.float() / size
 
 
-def relation_inputs(torch, gen, n, dev):
+def relation_inputs(torch, gen, n, dev, batch=1):
     """Boxes with w/h from 10**-4.5 to 1 (angles up to ~1e3 rad), one NaN
     centre (the ratio clamp makes its bias finite) and one Inf centre."""
-    centres = torch.rand(1, n, 2, generator=gen, device=dev)
-    wh = 10 ** (torch.rand(1, n, 2, generator=gen, device=dev) * 4.5 - 4.5)
+    centres = torch.rand(batch, n, 2, generator=gen, device=dev)
+    wh = 10 ** (torch.rand(batch, n, 2, generator=gen, device=dev) * 4.5 - 4.5)
     boxes = torch.cat([centres, wh], -1)
     boxes[0, 3, :2] = float("nan")
     boxes[0, 17, 0] = float("inf")
@@ -339,7 +395,7 @@ def check_msda_kernels(torch, rows):
     total = sum(h * w for h, w in LEVELS)
     found = {"fwd": {}, "bwd": {}}
     errs = {"fwd": [], "bwd": []}
-    device = {}  # phase 7: kernel-only device time per shape and set
+    device = {}  # phase 8: kernel-only device time per shape and set
     for nq in (total, 900, 1100, 1500):
         for set_name, make in MSDA_SETS:
             value, locs, attn = make(torch, gen, nq, dev)
@@ -412,7 +468,7 @@ def check_msda_kernels(torch, rows):
 
 
 def msda_calls(torch, msda, value, locs, attn, grad_out):
-    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 7
+    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 8
     profiles them: each kernel's device time without the host's gaps)."""
     with torch.no_grad():
         for _ in range(20):
@@ -449,7 +505,7 @@ def check_kernels(torch):
     phase(3, f"relation_bias_v4_fwd B=1 N1=N2=900 H=8: max_abs_err {err:.3e}, "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {v4_bound[0]:.4f} ms "
              f"({v4_bound[1]})")
-    device = {}  # phase 7: the kernel's device time per launch at N = 900 and 1100
+    device = {}  # phase 8: the kernel's device time per launch at N = 900 and 1100
     PROFILES.append(("relation_bias_v4_fwd x20, B=1 N1=N2=900 H=8",
                      lambda args=(src, tgt, kernel, bias): relation_calls(torch, *args),
                      ("relation_bias_v4_kernel",), device, "N=900"))
@@ -474,7 +530,7 @@ def relation_v4_bound(src, tgt, kernel, bias, out):
 
 
 def relation_calls(torch, src, tgt, kernel, bias):
-    """relation_bias_v4 20 times (phase 7 profiles its kernel)."""
+    """relation_bias_v4 20 times (phase 8 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import relation_bias
 
     with torch.no_grad():
@@ -622,7 +678,7 @@ def edge_entries(torch, m, wt, rows):
 
 
 def tiled_core_calls(torch, m, wt, patch, dims):
-    """tiled_matmul_core 20 times (phase 7 profiles its kernel)."""
+    """tiled_matmul_core 20 times (phase 8 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import msda_tiled
 
     with torch.no_grad():
@@ -631,7 +687,7 @@ def tiled_core_calls(torch, m, wt, patch, dims):
 
 
 def relation_rel_calls(torch, rel, kernel, bias):
-    """fused_relation_bias 20 times (phase 7 profiles its kernel)."""
+    """fused_relation_bias 20 times (phase 8 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import relation_bias
 
     with torch.no_grad():
@@ -669,7 +725,7 @@ def check_tiled_kernels(torch, rows):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     found = {k: dict(errs=[], times=[]) for k in ("fwd", "bwd", "sep")}
-    fwd_device = {}  # phase 7: tiled_core_fwd's device time per (B, level)
+    fwd_device = {}  # phase 8: tiled_core_fwd's device time per (B, level)
     for bs, lvls in ((1, range(4)), (2, range(1))):
         value, locs, attn = tiled_inputs(torch, gen, bs, dev)
         with torch.no_grad():
@@ -722,7 +778,7 @@ def check_tiled_kernels(torch, rows):
                 found["fwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_fwd))
                 phase(3, f"tiled_core_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
                          f"plain {plain_ms:.4f} ms, bound {b_fwd[0]:.4f} ms ({b_fwd[1]})")
-                # phase 7: device time per launch, the operands kept on the host
+                # phase 8: device time per launch, the operands kept on the host
                 # meanwhile (the flagship phases' peak memory stays as it was)
                 PROFILES.append((f"tiled_core_fwd x20, {shape}",
                                  lambda args=(m.cpu(), wt.cpu(), patch.cpu()), dims=dims:
@@ -815,7 +871,7 @@ def check_tiled_kernels(torch, rows):
                                   device_ms=fwd_device)
 
     errs, times = [], []
-    rel_device = {}  # phase 7: the kernel's device time per launch at N = 900 and 1100
+    rel_device = {}  # phase 8: the kernel's device time per launch at N = 900 and 1100
     for n in (900, 1100):
         src, tgt, kernel, bias = relation_inputs(torch, gen, n, dev)
         rel = box_rel_encoding(src, tgt)
@@ -1403,13 +1459,67 @@ def check_relation_calls(torch, model, kernels):
     launches, device = five_calls()
     if not device:  # a session now and then sees no device activity at all
         launches, device = five_calls()
-    phase(7, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
+    phase(8, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
              f"relation_bias_v4_fwd launches, device work {device}")
     kernels["relation"]["device_work_5_calls"] = device
     if launches != 5 or not device or any("relation_bias_v4_kernel" not in k for k in device):
         raise AssertionError(f"relation bias: expected one relation_bias_v4_fwd launch per "
                              f"call and no other device work, got {launches} launches and "
                              f"{device}")
+
+
+def check_eval_forward_busy(torch, model):
+    """Phase 8: the split's first B=2 batch (decoded on the card) through
+    ``make_detections_fn`` on phase 5's flagship model: the forward's span
+    on the stream (CUDA events, as the eval CLI's "forward" stage; median
+    of 5 after one), its device-busy time in one call (torch.profiler: every
+    kernel, copy and fill) and the share of the span the card idles."""
+    import statistics as stats_
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from relation_detr_tpu_torch.data.coco import CocoDetection
+    from relation_detr_tpu_torch.data.loader import DataLoader
+    from relation_detr_tpu_torch.data.transforms import EvalPreset
+    from relation_detr_tpu_torch.utils.evaluation import make_detections_fn, upload
+
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    dataset = CocoDetection(os.path.join(coco, "val2017"),
+                            os.path.join(coco, "annotations", "instances_val2017.json"),
+                            EvalPreset(800, 1333, normalize_host=False), device="cuda")
+    batches = iter(DataLoader(dataset, batch_size=EVAL_BATCH))
+    batch = next(batches)
+    batches.close()
+    det_fn = make_detections_fn(model, 300)
+    inputs = upload(batch, torch.device("cuda"))
+    spans = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        det_fn(*inputs)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    span = stats_.median(spans[1:])
+
+    def busy_ms():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            det_fn(*inputs)
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key) / 1e3
+
+    busy = busy_ms() or busy_ms()  # a session now and then sees no device time
+    canvas = tuple(batch["images"].shape[1:3])
+    idle = 1 - busy / span if busy else None
+    phase(8, f"flagship eval forward B={EVAL_BATCH} on {canvas} (make_detections_fn): span on "
+             f"the stream {span:.3f} ms (CUDA events, median of 5), device busy {busy:.3f} ms "
+             f"(torch.profiler), idle share of the span "
+             f"{'not measured' if idle is None else f'{idle:.4f}'}")
+    return dict(canvas=canvas, span_ms=span, busy_ms=busy, idle_share=idle)
 
 
 def jpeg_decoders():
@@ -1555,6 +1665,431 @@ def run_flagship_variants(torch, model, raw, request, kernels):
         found[k]["launches"]["relation_bias_rel_fwd"] for k in ("relation v1", "relation v2"))
 
 
+def canvas_levels(canvas):
+    """The 4 feature levels of a canvas: strides 8, 16, 32 and 64, each
+    level ceil(half) of the one before (the backbone's and the neck's
+    stride-2 convolutions)."""
+    h, w = -(-canvas[0] // 8), -(-canvas[1] // 8)
+    levels = [(h, w)]
+    for _ in range(3):
+        h, w = -(-h // 2), -(-w // 2)
+        levels.append((h, w))
+    return tuple(levels)
+
+
+def eval_canvases():
+    """The canvases phase 7's eval CLI batches the committed split into:
+    its loader's batches (B=EVAL_BATCH, in order), each image at the
+    flagship eval preset's size from its annotated one, the batch's canvas
+    by the loader's ``pick_canvas``; with PORTRAIT_CANVAS. Sorted."""
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.data.coco import CocoDetection
+    from relation_detr_tpu_torch.data.loader import DataLoader, pick_canvas
+    from relation_detr_tpu_torch.data.transforms import shortest_side_size
+    from relation_detr_tpu_torch.utils.config import Config
+
+    cfg = Config(eval_cli.DEFAULT_CONFIG)
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    dataset = CocoDetection(os.path.join(coco, "val2017"),
+                            os.path.join(coco, "annotations", "instances_val2017.json"))
+    loader = DataLoader(dataset, batch_size=EVAL_BATCH, shuffle=False)
+    canvases = {PORTRAIT_CANVAS}
+    for indices in loader._batches():
+        sizes = [shortest_side_size(dataset.images[dataset.ids[i]]["height"],
+                                    dataset.images[dataset.ids[i]]["width"],
+                                    cfg.get("min_size", 800), cfg.get("max_size", 1333))
+                 for i in indices]
+        canvases.add(pick_canvas(max(h for h, _ in sizes), max(w for _, w in sizes),
+                                 loader.buckets))
+    return sorted(canvases)
+
+
+def check_eval_shapes(torch, rows):
+    """msda_fwd at B=2 on the levels of every canvas of ``eval_canvases``
+    (the encoder, Q = S, and the decoder, Q = 900, encoder-like set) and
+    relation_bias_v4_fwd at B=2, N = 900: the shapes of the evaluation
+    path's batches, against the plain versions and timed in turns with
+    them. Stores the canvases at rows["msda"]["eval_canvases"]."""
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    canvases = eval_canvases()
+    rows["msda"]["eval_canvases"] = canvases
+    for canvas in canvases:
+        levels = canvas_levels(canvas)
+        total = sum(h * w for h, w in levels)
+        for nq in (total, 900):
+            value, locs, attn = msda_encoder_inputs(torch, gen, nq, dev, levels, EVAL_BATCH)
+            with torch.no_grad():
+                got = msda.multi_scale_deformable_attention(value, levels, locs, attn)
+                want = msda.msda_reference(value, levels, locs, attn)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                shape = f"B={EVAL_BATCH} Q={nq} levels {levels}"
+                if not (err <= TOL_KERNEL):
+                    raise AssertionError(f"msda_fwd {shape}: max abs err {err} > {TOL_KERNEL}")
+                ms, plain_ms = in_turns(
+                    lambda: msda.msda_reference(value, levels, locs, attn),
+                    lambda: msda.multi_scale_deformable_attention(value, levels, locs, attn),
+                    5, 20)
+            fb = bound(size(value, locs, attn, got), 10 * got.numel() * 16)
+            rows["msda"]["shapes_ms"][f"B={EVAL_BATCH} Q={nq} {canvas} encoder-like"] = \
+                [ms, plain_ms, fb[0]]
+            rows["msda"]["max_abs_err"] = max(rows["msda"]["max_abs_err"], err)
+            phase(3, f"msda_fwd {shape}, encoder-like: max_abs_err {err:.3e}, kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]})")
+            del value, locs, attn, got, want
+
+    src, tgt, kernel, bias = relation_inputs(torch, gen, 900, dev, EVAL_BATCH)
+    with torch.no_grad():
+        got = relation_bias.relation_bias_v4(src, tgt, kernel, bias)
+        want = relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or not bool(torch.isfinite(want).all()):
+            raise AssertionError("relation bias B=2: the clamped NaN/Inf boxes must give "
+                                 "finite biases in kernel and plain version")
+        err = (got - want).abs().max().item()
+        if not (err <= TOL_KERNEL):
+            raise AssertionError(f"relation bias B=2: max abs err {err} > {TOL_KERNEL}")
+        ms, plain_ms = in_turns(
+            lambda: relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias),
+            lambda: relation_bias.relation_bias_v4(src, tgt, kernel, bias), 10, 50)
+    v4_bound = relation_v4_bound(src, tgt, kernel, bias, got)
+    rows["relation"]["b2_ms"] = [ms, plain_ms, v4_bound[0]]
+    rows["relation"]["max_abs_err"] = max(rows["relation"]["max_abs_err"], err)
+    phase(3, f"relation_bias_v4_fwd B={EVAL_BATCH} N1=N2=900 H=8: max_abs_err {err:.3e}, "
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {v4_bound[0]:.4f} ms "
+             f"({v4_bound[1]})")
+
+
+def check_ycc_kernel(torch, rows):
+    """ycc_to_rgb (the decoder's chroma upsampling and colour conversion)
+    against its plain version on nvJPEG's planes of the split's largest
+    JPEG (4:2:0), bit for bit, timed in turns; and the whole decode of that
+    file (host clock)."""
+    import numpy as np
+
+    from relation_detr_tpu_torch.data import image_io
+
+    folder = os.path.join(ROOT, EVAL_DATA, "synth_coco", "val2017")
+    path = max((os.path.join(folder, f) for f in os.listdir(folder)), key=os.path.getsize)
+    data = np.fromfile(path, np.uint8)
+    decoder = image_io.nvjpeg_decoder(0)
+    *planes, factors = decoder.planes(data, path)
+    y, cb = planes[:2]
+    got = image_io.ycc_to_rgb(*planes, *factors)
+    want = image_io.ycc_to_rgb_reference(*planes, *factors)
+    torch.cuda.synchronize()
+    err = (got.int() - want.int()).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"ycc_to_rgb: max abs err {err} levels, expected bit-identical")
+    ms, plain_ms = in_turns(lambda: image_io.ycc_to_rgb_reference(*planes, *factors),
+                            lambda: image_io.ycc_to_rgb(*planes, *factors), 10, 50)
+    fb = bound(size(*planes, got), 0)  # a few integer operations a byte
+    decoder.decode(data, path)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        decoder.decode(data, path)
+    decode_ms = (time.perf_counter() - t0) / 20 * 1e3
+    shape = f"{y.shape[0]}x{y.shape[1]}, chroma {cb.shape[0]}x{cb.shape[1]} ({factors})"
+    phase(3, f"ycc_to_rgb {shape}: bit-identical to its plain version, kernel {ms:.4f} ms, "
+             f"plain {plain_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}); the whole nvJPEG "
+             f"decode of {os.path.basename(path)} {decode_ms:.3f} ms (host clock, one thread)")
+    rows["ycc_to_rgb"] = dict(
+        name="ycc_to_rgb", route="cuda", source="relation_detr_tpu_torch/csrc/jpeg_decode.cu",
+        replaces="relation_detr_tpu/data/coco.py:134", max_abs_err=float(err), ms=ms,
+        plain_ms=plain_ms, bound_ms=fb[0], bound_by=fb[1], library_ms=None,
+        library="none: no one call upsamples chroma as libjpeg does", shape=shape,
+        decode_ms=decode_ms,
+        note="the decoder's chroma upsampling and colour conversion (cv2.imdecode's in the "
+             "JAX package; not a TPU kernel)")
+
+
+def check_decode():
+    """Phase 7 (a): nvJPEG on the card against cv2's decode of each fixture
+    (shapes exact, mean |difference| within TOL_DECODE_MEAN), and the
+    split's JPEGs at their annotated sizes. Returns {fixture: [max, mean,
+    share more than 8 levels off]}."""
+    import numpy as np
+
+    from relation_detr_tpu_torch.data import image_io
+
+    folder = os.path.join(ROOT, EVAL_DATA)
+    found = {}
+    tol = TOL_DECODE_MEAN
+    for name in DECODE_FIXTURES:
+        got = image_io.read_image(os.path.join(folder, name + ".jpg"))
+        want = np.load(os.path.join(folder, name + ".npy"))
+        if got.shape != want.shape or got.dtype != np.uint8:
+            raise AssertionError(f"decode {name}: {got.shape} {got.dtype}, cv2 {want.shape}")
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        found[name] = [int(diff.max()), float(diff.mean()), float((diff > 8).mean())]
+        phase(7, f"decode {name}.jpg {got.shape}: |nvJPEG - cv2| max {diff.max()}, mean "
+                 f"{diff.mean():.4f} (tolerance {tol}), share > 8 levels off "
+                 f"{(diff > 8).mean():.4f}")
+        if not (diff.mean() <= tol):
+            raise AssertionError(f"decode {name}: mean |diff| {diff.mean()} > {tol}")
+    with open(os.path.join(folder, "synth_coco", "annotations", "instances_val2017.json")) as f:
+        images = json.load(f)["images"]
+    for info in images:
+        got = image_io.read_image(os.path.join(folder, "synth_coco", "val2017",
+                                               info["file_name"]))
+        if got.shape != (info["height"], info["width"], 3):
+            raise AssertionError(f"decode {info['file_name']}: {got.shape}, annotated "
+                                 f"{info['height']}x{info['width']}")
+    phase(7, f"decoded the split's {len(images)} JPEGs at their annotated sizes")
+    return found
+
+
+def run_eval_cli(torch, kernels):
+    """Phase 7 (b): ``relation_detr_tpu_torch.test`` on the flagship config
+    (seeded weights) at B=2 over the split, twice (the first meets every
+    canvas anew): launches of the path's two kernels, finite detections,
+    stats equal to the --eval-json re-score of its own results JSON;
+    canvases, the 12 stats, images/s and ms per image by stage."""
+    import tempfile
+
+    import numpy as np
+
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.data import image_io
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.json")
+        args = ["--coco-path", coco, "--batch-size", str(EVAL_BATCH), "--device", "cuda"]
+        for run in range(2):
+            msda.multi_scale_deformable_attention.launches = 0
+            relation_bias.relation_bias_v4.launches = 0
+            image_io.ycc_to_rgb.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            got = eval_cli.main(args + ["--result-json", out])
+            torch.cuda.synchronize()
+            launches = (msda.multi_scale_deformable_attention.launches,
+                        relation_bias.relation_bias_v4.launches, image_io.ycc_to_rgb.launches)
+            batches = -(-got["images"] // EVAL_BATCH)
+            unchecked = set(map(tuple, got["canvases"])) - set(kernels["msda"]["eval_canvases"])
+            if unchecked:
+                raise AssertionError(f"eval CLI batched canvases {sorted(unchecked)} that phase 3 "
+                                     "did not hold msda_fwd on")
+            if launches != (12 * batches, 5 * batches, got["images"]):
+                raise AssertionError(f"eval CLI: {launches} msda_fwd / relation_bias_v4_fwd / "
+                                     f"ycc_to_rgb launches over {batches} batches, expected "
+                                     "12 / 5 a batch and one ycc_to_rgb an image")
+            with open(out) as f:
+                predictions = json.load(f)
+            if len(predictions) != 300 * got["images"] or not all(
+                    np.isfinite(p["bbox"]).all() and np.isfinite(p["score"])
+                    for p in predictions):
+                raise AssertionError("eval CLI: expected 300 finite detections per image")
+            rescored = eval_cli.main(["--coco-path", coco, "--eval-json", out])["stats"]
+            if rescored != got["stats"]:
+                raise AssertionError(f"eval CLI stats {got['stats']} differ from the "
+                                     f"--eval-json re-score {rescored}")
+            peak = torch.cuda.max_memory_allocated()
+            ms = got["ms_per_image"]
+            phase(7, f"eval CLI run {run} (flagship, seeded weights, B={EVAL_BATCH}): "
+                     f"{got['images']} images in {got['seconds']:.3f} s, "
+                     f"{got['images_per_s']:.3f} images/s; canvases {got['canvases']}; "
+                     f"{launches[0]} msda_fwd + {launches[1]} relation_bias_v4_fwd + "
+                     f"{launches[2]} ycc_to_rgb launches; "
+                     "ms per image: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) +
+                     f"; peak memory {peak / 2**30:.3f} GiB; stats equal the --eval-json "
+                     "re-score: " + ", ".join(f"{k} {got['stats'][k]:.4f}" for k in STATS))
+            runs.append(dict(images=got["images"], canvases=got["canvases"],
+                             seconds=got["seconds"], images_per_s=got["images_per_s"],
+                             ms_per_image=ms, launches=launches, peak_gib=peak / 2**30,
+                             stats=got["stats"]))
+    kernels["msda"]["eval_cli_launches"] = runs[-1]["launches"][0]
+    kernels["relation"]["eval_cli_launches"] = runs[-1]["launches"][1]
+    kernels["ycc_to_rgb"]["launches"] = runs[-1]["launches"][2]
+    return runs
+
+
+def cycled_split(folder, cycles):
+    """The committed split ``cycles`` times over in ``folder``: an
+    annotations file whose images and annotations repeat with new ids (the
+    same file names), and ``val2017`` a link to the committed images."""
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    with open(os.path.join(coco, "annotations", "instances_val2017.json")) as f:
+        split = json.load(f)
+    step = 1 + max(max(i["id"] for i in split["images"]),
+                   max(a["id"] for a in split["annotations"]))
+    split["images"] = [dict(i, id=i["id"] + step * r)
+                       for r in range(cycles) for i in split["images"]]
+    split["annotations"] = [dict(a, id=a["id"] + step * r, image_id=a["image_id"] + step * r)
+                            for r in range(cycles) for a in split["annotations"]]
+    os.makedirs(os.path.join(folder, "annotations"))
+    with open(os.path.join(folder, "annotations", "instances_val2017.json"), "w") as f:
+        json.dump(split, f)
+    os.symlink(os.path.join(coco, "val2017"), os.path.join(folder, "val2017"))
+    return folder
+
+
+def run_eval_throughput(torch, kernels):
+    """Phase 7 (c): the eval CLI over EVAL_CYCLES repeats of the split (new
+    image ids, so the evaluator scores every image): images/s and ms per
+    image by stage over hundreds of images, launches 12 / 5 a batch."""
+    import tempfile
+
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+
+    with tempfile.TemporaryDirectory() as tmp:
+        coco = cycled_split(tmp, EVAL_CYCLES)
+        msda.multi_scale_deformable_attention.launches = 0
+        relation_bias.relation_bias_v4.launches = 0
+        got = eval_cli.main(["--coco-path", coco, "--batch-size", str(EVAL_BATCH),
+                             "--device", "cuda"])
+    launches = (msda.multi_scale_deformable_attention.launches,
+                relation_bias.relation_bias_v4.launches)
+    batches = -(-got["images"] // EVAL_BATCH)
+    if got["images"] != 8 * EVAL_CYCLES or launches != (12 * batches, 5 * batches):
+        raise AssertionError(f"eval CLI over the cycled split: {got['images']} images, "
+                             f"{launches} msda_fwd / relation_bias_v4_fwd launches over "
+                             f"{batches} batches")
+    ms = got["ms_per_image"]
+    phase(7, f"eval CLI over the split {EVAL_CYCLES} times (flagship, seeded weights, "
+             f"B={EVAL_BATCH}): {got['images']} images in {got['seconds']:.3f} s, "
+             f"{got['images_per_s']:.3f} images/s; canvases {got['canvases']}; ms per image "
+             "(decode, transform: host time summed over the loader's threads; pin, "
+             "evaluator: host; copy, forward: spans on the card's stream): " +
+             ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return dict(images=got["images"], seconds=got["seconds"],
+                images_per_s=got["images_per_s"], ms_per_image=ms, launches=launches)
+
+
+def ground_truth_det_fn(torch, loader, ann_file, seed):
+    """A detections function that answers each image of ``loader``'s
+    batches (in its order) with its ground-truth boxes, xyxy in the
+    original image's pixels, every coordinate moved by a seeded offset in
+    [-2, 2] px, scores 0.9 down by 0.01, labels the category ids; then one
+    row of score 0 (a 1x1 box at the origin) an image."""
+    from collections import defaultdict
+
+    import numpy as np
+
+    with open(ann_file) as f:
+        coco = json.load(f)
+    boxes = defaultdict(list)
+    for a in coco["annotations"]:
+        x, y, w, h = a["bbox"]
+        boxes[a["image_id"]].append([x, y, x + w, y + h, a["category_id"]])
+    rng = np.random.RandomState(seed)
+    batches = iter(loader._batches())
+    first = coco["categories"][0]["id"]
+
+    def det_fn(images, mask, orig_sizes):
+        ids = [loader.dataset.ids[i] for i in next(batches)]
+        rows = np.zeros((images.shape[0], 1 + max(len(boxes[i]) for i in ids), 6), np.float32)
+        rows[..., 2:4], rows[..., 5] = 1.0, first
+        for b, image_id in enumerate(ids):
+            for k, (*xyxy, cat) in enumerate(boxes[image_id]):
+                rows[b, k] = [*(np.asarray(xyxy) + rng.uniform(-2, 2, 4)), 0.9 - 0.01 * k, cat]
+        return torch.from_numpy(rows).to(images.device)
+
+    return det_fn
+
+
+def check_ground_truth_control(torch):
+    """Phase 7 (d): a control with nonzero AP. The split's jittered ground
+    truth as the detections (``ground_truth_det_fn``) through the CLI's
+    ``evaluate`` (nvJPEG decode, the flagship eval preset, B=2,
+    ``detection_stream``, ``accumulate_batch``, ``--result-json``): AP50 1,
+    AP above 0.5, the stats equal to the --eval-json re-score."""
+    import tempfile
+
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.data.coco import CocoDetection
+    from relation_detr_tpu_torch.data.loader import DataLoader
+    from relation_detr_tpu_torch.data.transforms import EvalPreset
+
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    ann = os.path.join(coco, "annotations", "instances_val2017.json")
+    dataset = CocoDetection(os.path.join(coco, "val2017"), ann,
+                            EvalPreset(800, 1333, normalize_host=False), device="cuda")
+    loader = DataLoader(dataset, batch_size=EVAL_BATCH, shuffle=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.json")
+        got = eval_cli.evaluate(ground_truth_det_fn(torch, loader, ann, seed=3), loader, ann,
+                                "cuda", result_json=out)
+        rescored = eval_cli.main(["--coco-path", coco, "--eval-json", out])["stats"]
+    stats = got["stats"]
+    if not (stats["AP50"] == 1.0 and 0.5 < stats["AP"] < 1.0) or rescored != stats:
+        raise AssertionError(f"ground-truth control: stats {stats}, --eval-json re-score "
+                             f"{rescored}; expected AP50 1, AP in (0.5, 1) and equal stats")
+    phase(7, f"ground-truth control over the split's {got['images']} images (jittered boxes "
+             "through the CLI's evaluate, --result-json and --eval-json): stats equal the "
+             "re-score: " + ", ".join(f"{k} {stats[k]:.4f}" for k in STATS))
+    return stats
+
+
+def check_tiny_eval(torch):
+    """Phase 7 (e): the tiny-test config over the split's batches (decoded
+    on the card, its own eval preset) through ``make_detections_fn`` on the
+    card (kernels) and on the CPU (plain versions), same weights: the
+    normalised canvases bit-identical and the pre-top-k heads at
+    TOL_MODEL."""
+    from relation_detr_tpu_torch.data.coco import CocoDetection
+    from relation_detr_tpu_torch.data.loader import DataLoader
+    from relation_detr_tpu_torch.data.transforms import EvalPreset
+    from relation_detr_tpu_torch.utils.evaluation import make_detections_fn, upload
+
+    cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
+    cpu_model = cfg.build_model(device="cpu", seed=1)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    seen = {}
+    hooks = []
+    for key, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        hooks.append(model.register_forward_pre_hook(
+            lambda m, args, key=key: seen.__setitem__(key, {"images": args[0].cpu()})))
+        hooks.append(model.register_forward_hook(
+            lambda m, args, out, key=key: seen[key].update(
+                {k: out[k].cpu() for k in ("pred_logits", "pred_boxes")})))
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    dataset = CocoDetection(os.path.join(coco, "val2017"),
+                            os.path.join(coco, "annotations", "instances_val2017.json"),
+                            EvalPreset(cfg.min_size, cfg.max_size, normalize_host=False),
+                            device="cuda")
+    fns = {key: make_detections_fn(m, cfg.select_box_nums_for_evaluation)
+           for key, m in (("cpu", cpu_model), ("cuda", gpu_model))}
+    errs = {"images": 0.0, "pred_logits": 0.0, "pred_boxes": 0.0}
+    try:
+        for batch in DataLoader(dataset, batch_size=EVAL_BATCH):
+            for key, fn in fns.items():
+                fn(*upload(batch, torch.device(key)))
+            for name in errs:
+                got, want = seen["cuda"][name], seen["cpu"][name]
+                if name != "images":
+                    torch.testing.assert_close(got, want, rtol=TOL_MODEL, atol=TOL_MODEL)
+                errs[name] = max(errs[name], (got - want).abs().max().item())
+    finally:
+        for h in hooks:
+            h.remove()
+    if errs["images"] != 0:
+        raise AssertionError(f"the card's normalisation differs from the CPU's by "
+                             f"{errs['images']}")
+    phase(7, f"tiny-test config over the split's {len(dataset)} images, B={EVAL_BATCH}, GPU "
+             f"(kernels) vs CPU (plain): normalised canvases max abs diff "
+             f"{errs['images']:.3e}, pred_logits {errs['pred_logits']:.3e}, pred_boxes "
+             f"{errs['pred_boxes']:.3e} (tolerance {TOL_MODEL})")
+    return errs
+
+
+def run_evaluation(torch, kernels):
+    """Phase 7: the COCO evaluation path (decode, CLI, tiny parity)."""
+    decode = check_decode()
+    runs = run_eval_cli(torch, kernels)
+    throughput = run_eval_throughput(torch, kernels)
+    control = check_ground_truth_control(torch)
+    tiny = check_tiny_eval(torch)
+    return dict(decode=decode, cli_runs=runs, throughput=throughput,
+                ground_truth_control=control, tiny_max_abs=tiny)
+
+
 def main() -> int:
     import torch
 
@@ -1578,11 +2113,14 @@ def main() -> int:
              f"CUDA {torch.version.cuda}; nvcc {nvcc_version}")
     phase(1, f"JPEG decoders (informational): {jpeg_decoders()}")
 
-    fresh = not _build.library_path().is_file()
+    fresh = not (_build.library_path().is_file() and _build.jpeg_library_path().is_file())
     t0 = time.perf_counter()
+    _build.build_all()
     _build.load_library()
+    _build.load_jpeg_library()
     phase(2, f"{'built' if fresh else 'reused'} "
-             f"{os.path.relpath(_build.library_path(), ROOT)} and loaded it in "
+             f"{os.path.relpath(_build.library_path(), ROOT)} and "
+             f"{os.path.relpath(_build.jpeg_library_path(), ROOT)} and loaded them in "
              f"{time.perf_counter() - t0:.2f} s")
 
     seconds = {}
@@ -1594,6 +2132,8 @@ def main() -> int:
         return out
 
     kernels = timed(3, check_kernels, torch)
+    timed(3, check_eval_shapes, torch, kernels)
+    timed(3, check_ycc_kernel, torch, kernels)
     timed(3, check_backward_kernels, torch, kernels)
     timed(3, check_tiled_kernels, torch, kernels)
     for label, settings, version in TINY_VARIANTS:
@@ -1601,11 +2141,13 @@ def main() -> int:
         timed(4, check_tiny_train, torch, label, settings, version)
     model = timed(5, run_flagship, torch, kernels)
     timed(6, run_flagship_train, torch, model, kernels)
-    timed(7, run_profiles, torch)
-    timed(7, check_relation_calls, torch, model, kernels)
-    phase(7, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
+    evaluation = timed(7, run_evaluation, torch, kernels)
+    timed(8, run_profiles, torch)
+    evaluation["forward_busy"] = timed(8, check_eval_forward_busy, torch, model)
+    timed(8, check_relation_calls, torch, model, kernels)
+    phase(8, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
-    leaked = [m for m in ("jax", "flax", "cv2", "relation_detr_tpu") if m in sys.modules]
+    leaked = [m for m in ("jax", "flax", "cv2", "PIL", "relation_detr_tpu") if m in sys.modules]
     if leaked:
         raise AssertionError(f"the port's path imported {leaked}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -1615,6 +2157,7 @@ def main() -> int:
         if missing or not row["launches"]:
             raise AssertionError(f"kernel row {row['name']}: missing {missing}, launches "
                                  f"{row.get('launches')}")
+    print(json.dumps({"evaluation": evaluation}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,13 @@
 The port's own copy of the eval half of
 ``relation_detr_tpu/data/transforms.py`` (``_bilinear_taps``,
 ``resize_bilinear``, the antialiased branch of ``resize_shortest``,
-``normalize`` and ``EvalPreset``): torch's antialiased bilinear resize
-(``align_corners=False``), which the reference applies at eval time, then
-ImageNet normalisation. No cv2.
+``normalize`` and ``EvalPreset`` with ``normalize_host``): torch's
+antialiased bilinear resize (``align_corners=False``), which the reference
+applies at eval time, then ImageNet normalisation. No cv2.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -59,14 +59,20 @@ def resize_bilinear(image: np.ndarray, out_h: int, out_w: int,
     return x.astype(in_dtype, copy=False)
 
 
+def shortest_side_size(h: int, w: int, size: int, max_size: int = 1333) -> Tuple[int, int]:
+    """(h, w) with the shorter side scaled to ``size``, the longer one
+    capped at ``max_size``: what ``resize_shortest`` resizes to."""
+    r = size / min(h, w)
+    if max_size is not None:
+        r = min(r, max_size / max(h, w))
+    return int(round(h * r)), int(round(w * r))
+
+
 def resize_shortest(sample: Dict, size: int, max_size: int = 1333) -> Dict:
     """Antialiased resize of the shorter side to ``size``, the longer one
     capped at ``max_size``; boxes scale with the image."""
     h, w = sample["image"].shape[:2]
-    r = size / min(h, w)
-    if max_size is not None:
-        r = min(r, max_size / max(h, w))
-    new_h, new_w = int(round(h * r)), int(round(w * r))
+    new_h, new_w = shortest_side_size(h, w, size, max_size)
     image = resize_bilinear(sample["image"], new_h, new_w, antialias=True)
     boxes = sample["boxes"] * np.asarray(
         [new_w / w, new_h / h, new_w / w, new_h / h], np.float32
@@ -82,11 +88,18 @@ def normalize(sample: Dict) -> Dict:
 
 class EvalPreset:
     """Eval resize + normalise on the host, as the reference's in-model
-    transform."""
+    transform.
 
-    def __init__(self, min_size: int = 800, max_size: int = 1333):
+    ``normalize_host=False`` keeps uint8 pixels; the detections function
+    normalises on the card (``utils/evaluation.py::make_detections_fn``),
+    with the same math, and the host-to-card copy is 4x smaller."""
+
+    def __init__(self, min_size: int = 800, max_size: int = 1333,
+                 normalize_host: bool = True):
         self.min_size = min_size
         self.max_size = max_size
+        self.normalize_host = normalize_host
 
     def __call__(self, sample: Dict) -> Dict:
-        return normalize(resize_shortest(sample, self.min_size, self.max_size))
+        sample = resize_shortest(sample, self.min_size, self.max_size)
+        return normalize(sample) if self.normalize_host else sample

@@ -6,9 +6,11 @@ Port of the root ``inference.py``:
         [--model-config relation_detr_tpu_torch/configs/relation_detr/...py] \\
         [--checkpoint weights.npz] [--device cuda]
 
-Images are decoded with cv2 (imported inside ``main``; nothing else of the
-port needs it) and resized on the host by the port's ``data.transforms.EvalPreset``
-onto the fixed 800x1344 canvas. ``--checkpoint`` takes the JAX package's
+Images decode with nvJPEG on the card (``data/image_io.py``: EXIF
+orientation applied; a file that is not a JPEG raises with its name) and
+resize on the host by the port's ``data.transforms.EvalPreset`` onto the
+fixed 800x1344 canvas. ``--device cpu`` has no JPEG decoder: a caller of
+``main`` passes ``decode=``. ``--checkpoint`` takes the JAX package's
 ``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays),
 loaded leniently as the root CLI loads them (``utils.weights.load_weights``:
 missing and shape-mismatched tensors keep their values and are reported).
@@ -17,11 +19,12 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from relation_detr_tpu_torch.data.image_io import Decode, read_image
 from relation_detr_tpu_torch.data.transforms import EvalPreset
 from relation_detr_tpu_torch.models.post_process import post_process
 from relation_detr_tpu_torch.utils.config import Config
@@ -62,9 +65,7 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    import cv2
-
+def main(argv=None, decode: Optional[Decode] = None):
     args = parse_args(argv)
     cfg = Config(args.model_config)
     model = cfg.build_model(device=args.device)
@@ -73,8 +74,7 @@ def main(argv=None):
     preset = EvalPreset(cfg.get("min_size", 800), cfg.get("max_size", 1333))
     files = sorted(f for f in os.listdir(args.image_dir) if f.lower().endswith(IMAGE_EXTS))
     for fname in files:
-        raw = cv2.imread(os.path.join(args.image_dir, fname))
-        rgb = cv2.cvtColor(raw, cv2.COLOR_BGR2RGB)
+        rgb = read_image(os.path.join(args.image_dir, fname), args.device, decode)
         sample = preset({
             "image": rgb,
             "boxes": np.zeros((0, 4), np.float32),

@@ -1,7 +1,7 @@
-"""The port (eval forward and train step, gather and tiled MSDA) runs
-without jax, flax, cv2 or the JAX package, and its kernel wrappers launch
-nothing on CPU tensors and raise (never fall back) on CUDA tensors they
-cannot serve. This file imports no jax so that
+"""The port (eval forward and train step, gather and tiled MSDA, the
+evaluation path) runs without jax, flax, cv2, PIL or the JAX package, and
+its kernel wrappers launch nothing on CPU tensors and raise (never fall
+back) on CUDA tensors they cannot serve. This file imports no jax so that
 it also runs on a machine with a card and no jax (the conftest imports jax,
 so skip it there):
 ``python -m pytest --noconftest tests/test_torch_no_jax.py``."""
@@ -61,14 +61,65 @@ def eval_and_train_step():
     assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
 
 
+def evaluation_stream():
+    # collate, the eval stream and the evaluator on numpy images (uint8,
+    # EvalPreset(normalize_host=False)) with a tiny annotations JSON
+    import json
+    import tempfile
+
+    from relation_detr_tpu_torch import test as port_test  # noqa: F401
+    from relation_detr_tpu_torch.data import coco, image_io, loader
+    from relation_detr_tpu_torch.data.transforms import EvalPreset
+    from relation_detr_tpu_torch.utils import evaluation, logging
+    from relation_detr_tpu_torch.utils.coco_eval import CocoEvaluator
+
+    sizes = [(60, 90), (80, 70), (50, 50)]
+    preset = EvalPreset(64, 96, normalize_host=False)
+    samples = [preset({"image": rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+                       "boxes": np.array([[5, 5, 30, 40]], np.float32),
+                       "labels": np.array([1 + i % 2]), "image_id": i + 1,
+                       "orig_size": np.asarray([h, w])}) for i, (h, w) in enumerate(sizes)]
+    batch = loader.collate(samples[:2], buckets=((96, 96), (128, 128)))
+    assert batch["images"].dtype == np.uint8 and batch["images"].shape == (2, 96, 96, 3)
+    ann = {"images": [{"id": i + 1, "height": h, "width": w, "file_name": f"{i}.jpg"}
+                      for i, (h, w) in enumerate(sizes)],
+           "annotations": [{"id": i + 1, "image_id": i + 1, "category_id": 1 + i % 2,
+                            "bbox": [5, 5, 25, 35], "area": 875, "iscrowd": 0}
+                           for i in range(len(sizes))],
+           "categories": [{"id": 1, "name": "a"}, {"id": 2, "name": "b"}]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann_file = tmp + "/instances.json"
+        with open(ann_file, "w") as f:
+            json.dump(ann, f)
+        with open(tmp + "/0.jpg", "wb") as f:
+            f.write(b"\xff\xd8\xff\xd9")
+        try:
+            coco.CocoDetection(tmp, ann_file, device="cpu")[0]
+            raise AssertionError("CocoDetection decoded on the CPU without decode=")
+        except RuntimeError as exc:
+            assert "no JPEG decoder" in str(exc), exc
+        dl = loader.DataLoader(samples, batch_size=2, buckets=((96, 96), (128, 128)))
+        det_fn = evaluation.make_detections_fn(cfgs[1].build_model(device="cpu"), 30)
+        evaluator = CocoEvaluator(ann_file)
+        metric = logging.MetricLogger(print_freq=1)
+        for b, det in evaluation.detection_stream(det_fn, dl, "cpu",
+                                                  progress=lambda it: metric.log_every(it)):
+            assert det.shape == (2, 30, 6) and np.isfinite(det).all()
+            evaluation.accumulate_batch(evaluator, b, det)
+        stats = evaluator.accumulate_and_summarize(verbose=False)
+    assert len(stats) == 12 and all(np.isfinite(v) for v in stats.values()), stats
+    assert image_io.exif_orientation(np.zeros(4, np.uint8)) == 1
+
+
 eval_and_train_step()
+evaluation_stream()
 relation_bias.set_fused_relation(version=1)
 with msda.msda_defaults(impl="tiled"):
     eval_and_train_step()
 launches = [fn.launches for fn in counters]
 assert launches == [0] * len(counters), f"CPU run launched a kernel: {launches}"
-loaded = [m for m in sys.modules if m in ("jax", "flax", "cv2") or m == "relation_detr_tpu"
-          or m.startswith(("jax.", "flax.", "relation_detr_tpu."))]
+loaded = [m for m in sys.modules if m in ("jax", "flax", "cv2", "PIL") or m == "relation_detr_tpu"
+          or m.startswith(("jax.", "flax.", "PIL.", "relation_detr_tpu."))]
 assert not loaded, loaded
 print("ok")
 """
@@ -76,8 +127,10 @@ print("ok")
 
 def test_port_imports_and_runs_without_jax_flax_cv2():
     """The tiny config's eval and train step on CPU, as they are and under
-    impl="tiled" with relation version 1: no kernel launch, and nothing of
-    jax, flax, cv2 or relation_detr_tpu imported."""
+    impl="tiled" with relation version 1, and the evaluation path (collate,
+    the loader, the detections function and stream, the evaluator, the CLI
+    module): no kernel launch, and nothing of jax, flax, cv2, PIL or
+    relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -509,3 +562,58 @@ def test_relation_bias_rel_kernel_edge_shapes_on_card(batch, n1, n2, heads):
     with pytest.raises(ValueError, match="16-byte aligned"):
         relation_bias.fused_relation_bias(_misaligned(arrays[0]), kernel, bias)
     assert relation_bias.fused_relation_bias.launches == launches + 1
+
+
+# the decode fixtures (tests/data/torch_port/make_fixtures.py) and the mean
+# |nvJPEG - cv2| in levels each may have, at most. With libjpeg-turbo's
+# chroma upsampling and colour conversion (ycc_to_rgb) only the inverse DCT's
+# rounding differs: 0.02-0.05 measured on the H100 (4.78 at 4:2:0 with
+# nvJPEG's own RGB output).
+DECODE_FIXTURES = ("decode_444", "decode_gray", "decode_420", "decode_exif6")
+DECODE_TOL_MEAN = 0.25
+
+
+@pytest.mark.cuda
+def test_nvjpeg_decode_matches_cv2_on_card():
+    """nvJPEG on the card against cv2's decode of each fixture: the shape
+    exact (EXIF Orientation 6 turned upright, grayscale as 3 channels), the
+    mean |difference| within DECODE_TOL_MEAN; the chroma upsampling and
+    colour conversion kernel equal to its plain version on nvJPEG's planes,
+    inside the decoder and through its wrapper, one launch counted per
+    YCbCr decode; four threads decoding at once give the single thread's
+    arrays; a file that is not a JPEG raises with its name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from relation_detr_tpu_torch.data import image_io
+
+    folder = os.path.join(REPO, "tests", "data", "torch_port")
+    paths = [os.path.join(folder, name + ".jpg") for name in DECODE_FIXTURES]
+    single = [image_io.read_image(p) for p in paths]
+    for name, got in zip(DECODE_FIXTURES, single):
+        want = np.load(os.path.join(folder, name + ".npy"))
+        assert got.shape == want.shape and got.dtype == np.uint8, (name, got.shape)
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert diff.mean() <= DECODE_TOL_MEAN, (name, diff.mean())
+    assert (single[1][..., 0] == single[1][..., 2]).all()  # grayscale
+    decoder = image_io.nvjpeg_decoder(0)
+    for path in paths[:1] + paths[2:]:  # YCbCr: the conversion kernel against its plain version
+        data = np.fromfile(path, np.uint8)
+        *planes, factors = decoder.planes(data, path)
+        want = image_io.ycc_to_rgb_reference(*[p.cpu() for p in planes], *factors).numpy()
+        launches = image_io.ycc_to_rgb.launches
+        np.testing.assert_array_equal(decoder.decode(data, path), want)
+        assert image_io.ycc_to_rgb.launches == launches + 1
+        got = image_io.ycc_to_rgb(*planes, *factors)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    with ThreadPoolExecutor(4) as pool:
+        threaded = list(pool.map(image_io.read_image, paths * 4))
+    for k, got in enumerate(threaded):
+        np.testing.assert_array_equal(got, single[k % len(paths)])
+    with pytest.raises(ValueError, match="x.png: not a JPEG"):
+        image_io.decode_image(np.frombuffer(b"\x89PNG\r\n", np.uint8), "x.png")
+    with pytest.raises(RuntimeError, match="broken.jpg"):
+        image_io.decode_image(np.frombuffer(b"\xff\xd8\xff\xe0" + bytes(40), np.uint8),
+                              "broken.jpg")
+    assert image_io.ycc_to_rgb.launches == launches + 2 + 4 * 3  # none for a failed decode
