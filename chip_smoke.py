@@ -79,7 +79,24 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      batches through ``make_detections_fn`` on the GPU (kernels) and the
      CPU (plain versions): normalised canvases bit-identical, pre-top-k
      heads at TOL_MODEL;
-  8. torch.profiler, after every timed phase (so that no profiler session
+  8. the train CLI (``relation_detr_tpu_torch.train``): (a) the flagship
+     config at full width, seeded weights, over the committed synthetic
+     train split (16 JPEGs, nvJPEG, the detr preset) at B=2 on the
+     800x1344 canvas, 2 micro-steps an update, EMA 0.9998, 2 epochs (16
+     steps, 8 updates) with an evaluation each over the val split: 18
+     msda_fwd, 18 msda_bwd and 5 relation_bias_v4_fwd launches a step (12
+     and 5 an evaluated image) and one ycc_to_rgb an image read, every loss
+     finite, each update's lr the schedule's, checkpoints of epochs 0 and 1
+     beside latest.npz, latest_ema.npz and best_ap.npz, latest.npz loading
+     into a fresh model with nothing missing or mismatched and equal to the
+     checkpoint, the EMA neither the initial nor the latest weights; (b) the
+     CLI's restore into a fresh model, AdamW, train step and EMA,
+     bit-identical to the checkpoint, then --resume trains epoch 2 only; (c)
+     the tiny config overfits 4 images on the card (loss at most 0.55x, AP50
+     at least 0.5); (d) run (a)'s step p50 and range, images/s, the main
+     thread's wait for the next batch, the pinning and upload spans, peak
+     memory and the host's load average, past its first 2 steps;
+  9. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's and
      relation_bias_rel_fwd's at N=900 and 1100, tiled_core_fwd's at the four
@@ -92,7 +109,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      calls of the flagship decoder's relation module, whose only device
      work must be one relation_bias_v4_fwd launch a call; one B=2 eval
      forward's span on the stream against its device-busy time (the idle
-     share of phase 7's "forward" stage); then a JSON
+     share of phase 7's "forward" stage); one train CLI step's (the CLI's
+     --profile-steps) device-busy time against its span; then a JSON
      kernel table, one row per kernel (launches: from the run of the
      path that takes it, each counter set to 0 just before that run:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
@@ -100,8 +118,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      step, sep_contract_fwd from the sep-kernel eval, relation_bias_rel_fwd
      from the version-1 and version-2 evals; ycc_to_rgb, and
      eval_cli_launches of msda_fwd and relation_bias_v4_fwd, from phase
-     7 (b)'s second CLI run), after a JSON
-     line of phase 7's results, then the last line
+     7 (b)'s second CLI run; train_cli_launches of msda_fwd, msda_bwd,
+     relation_bias_v4_fwd and ycc_to_rgb from phase 8 (a)), after JSON
+     lines of phase 7's and phase 8's results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: bytes are each input read once and each output written once;
@@ -274,7 +293,7 @@ def profile_kernels(torch, fn, names):
 
 
 # (label, fn, kernel names, row, key): torch.profiler runs of fn, made in
-# phase 8 after every timed phase, so that no profiler session precedes a
+# phase 9 after every timed phase, so that no profiler session precedes a
 # p50; each stores {kernel: [ms, launches]} (or None) at row[key]
 PROFILES = []
 
@@ -287,9 +306,9 @@ def run_profiles(torch):
         found = profile_kernels(torch, fn, names) or profile_kernels(torch, fn, names)
         row[key] = found
         if found is None:
-            phase(8, f"{label}: torch.profiler saw no device time")
+            phase(9, f"{label}: torch.profiler saw no device time")
             continue
-        phase(8, f"{label}: device time (torch.profiler key_averages()): " +
+        phase(9, f"{label}: device time (torch.profiler key_averages()): " +
               "; ".join(f"{k} {v[0]:.4f} ms over {v[1]} launches" for k, v in found.items()))
 
 
@@ -395,7 +414,7 @@ def check_msda_kernels(torch, rows):
     total = sum(h * w for h, w in LEVELS)
     found = {"fwd": {}, "bwd": {}}
     errs = {"fwd": [], "bwd": []}
-    device = {}  # phase 8: kernel-only device time per shape and set
+    device = {}  # phase 9: kernel-only device time per shape and set
     for nq in (total, 900, 1100, 1500):
         for set_name, make in MSDA_SETS:
             value, locs, attn = make(torch, gen, nq, dev)
@@ -468,7 +487,7 @@ def check_msda_kernels(torch, rows):
 
 
 def msda_calls(torch, msda, value, locs, attn, grad_out):
-    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 8
+    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 9
     profiles them: each kernel's device time without the host's gaps)."""
     with torch.no_grad():
         for _ in range(20):
@@ -505,7 +524,7 @@ def check_kernels(torch):
     phase(3, f"relation_bias_v4_fwd B=1 N1=N2=900 H=8: max_abs_err {err:.3e}, "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {v4_bound[0]:.4f} ms "
              f"({v4_bound[1]})")
-    device = {}  # phase 8: the kernel's device time per launch at N = 900 and 1100
+    device = {}  # phase 9: the kernel's device time per launch at N = 900 and 1100
     PROFILES.append(("relation_bias_v4_fwd x20, B=1 N1=N2=900 H=8",
                      lambda args=(src, tgt, kernel, bias): relation_calls(torch, *args),
                      ("relation_bias_v4_kernel",), device, "N=900"))
@@ -530,7 +549,7 @@ def relation_v4_bound(src, tgt, kernel, bias, out):
 
 
 def relation_calls(torch, src, tgt, kernel, bias):
-    """relation_bias_v4 20 times (phase 8 profiles its kernel)."""
+    """relation_bias_v4 20 times (phase 9 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import relation_bias
 
     with torch.no_grad():
@@ -678,7 +697,7 @@ def edge_entries(torch, m, wt, rows):
 
 
 def tiled_core_calls(torch, m, wt, patch, dims):
-    """tiled_matmul_core 20 times (phase 8 profiles its kernel)."""
+    """tiled_matmul_core 20 times (phase 9 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import msda_tiled
 
     with torch.no_grad():
@@ -687,7 +706,7 @@ def tiled_core_calls(torch, m, wt, patch, dims):
 
 
 def relation_rel_calls(torch, rel, kernel, bias):
-    """fused_relation_bias 20 times (phase 8 profiles its kernel)."""
+    """fused_relation_bias 20 times (phase 9 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import relation_bias
 
     with torch.no_grad():
@@ -725,7 +744,7 @@ def check_tiled_kernels(torch, rows):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     found = {k: dict(errs=[], times=[]) for k in ("fwd", "bwd", "sep")}
-    fwd_device = {}  # phase 8: tiled_core_fwd's device time per (B, level)
+    fwd_device = {}  # phase 9: tiled_core_fwd's device time per (B, level)
     for bs, lvls in ((1, range(4)), (2, range(1))):
         value, locs, attn = tiled_inputs(torch, gen, bs, dev)
         with torch.no_grad():
@@ -778,7 +797,7 @@ def check_tiled_kernels(torch, rows):
                 found["fwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_fwd))
                 phase(3, f"tiled_core_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
                          f"plain {plain_ms:.4f} ms, bound {b_fwd[0]:.4f} ms ({b_fwd[1]})")
-                # phase 8: device time per launch, the operands kept on the host
+                # phase 9: device time per launch, the operands kept on the host
                 # meanwhile (the flagship phases' peak memory stays as it was)
                 PROFILES.append((f"tiled_core_fwd x20, {shape}",
                                  lambda args=(m.cpu(), wt.cpu(), patch.cpu()), dims=dims:
@@ -871,7 +890,7 @@ def check_tiled_kernels(torch, rows):
                                   device_ms=fwd_device)
 
     errs, times = [], []
-    rel_device = {}  # phase 8: the kernel's device time per launch at N = 900 and 1100
+    rel_device = {}  # phase 9: the kernel's device time per launch at N = 900 and 1100
     for n in (900, 1100):
         src, tgt, kernel, bias = relation_inputs(torch, gen, n, dev)
         rel = box_rel_encoding(src, tgt)
@@ -1459,7 +1478,7 @@ def check_relation_calls(torch, model, kernels):
     launches, device = five_calls()
     if not device:  # a session now and then sees no device activity at all
         launches, device = five_calls()
-    phase(8, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
+    phase(9, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
              f"relation_bias_v4_fwd launches, device work {device}")
     kernels["relation"]["device_work_5_calls"] = device
     if launches != 5 or not device or any("relation_bias_v4_kernel" not in k for k in device):
@@ -1469,7 +1488,7 @@ def check_relation_calls(torch, model, kernels):
 
 
 def check_eval_forward_busy(torch, model):
-    """Phase 8: the split's first B=2 batch (decoded on the card) through
+    """Phase 9: the split's first B=2 batch (decoded on the card) through
     ``make_detections_fn`` on phase 5's flagship model: the forward's span
     on the stream (CUDA events, as the eval CLI's "forward" stage; median
     of 5 after one), its device-busy time in one call (torch.profiler: every
@@ -1515,7 +1534,7 @@ def check_eval_forward_busy(torch, model):
     busy = busy_ms() or busy_ms()  # a session now and then sees no device time
     canvas = tuple(batch["images"].shape[1:3])
     idle = 1 - busy / span if busy else None
-    phase(8, f"flagship eval forward B={EVAL_BATCH} on {canvas} (make_detections_fn): span on "
+    phase(9, f"flagship eval forward B={EVAL_BATCH} on {canvas} (make_detections_fn): span on "
              f"the stream {span:.3f} ms (CUDA events, median of 5), device busy {busy:.3f} ms "
              f"(torch.profiler), idle share of the span "
              f"{'not measured' if idle is None else f'{idle:.4f}'}")
@@ -2090,6 +2109,286 @@ def run_evaluation(torch, kernels):
                 ground_truth_control=control, tiny_max_abs=tiny)
 
 
+# phase 8, the train CLI: the committed synthetic train split (16 JPEGs of
+# tests/make_synth_coco.py) through relation_detr_tpu_torch.train on the
+# flagship config: B=2 on the 800x1344 canvas, 2 micro-steps an update, an
+# EMA, 2 epochs (16 steps, 8 updates), an evaluation each epoch over the val
+# split; then a resume for a third epoch
+TRAIN_BATCH = 2
+TRAIN_IMAGES = 16
+TRAIN_EPOCHS = 2
+TRAIN_ACCUMULATE = 2
+TRAIN_EMA = 0.9998
+TRAIN_SKIP = 2  # steps of run (a) left out of its numbers (model and loader warm-up)
+def train_cli_args(out, epochs, *extra):
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    return ["--coco-path", coco, "--output-dir", out, "--num-epochs", str(epochs),
+            "--batch-size", str(TRAIN_BATCH), "--canvas", f"{CANVAS[0]},{CANVAS[1]}",
+            "--accumulate-steps", str(TRAIN_ACCUMULATE), "--ema-decay", str(TRAIN_EMA),
+            "--eval-every-epochs", "1", "--seed", "0", "--device", "cuda", *extra]
+
+
+def train_cli_counters():
+    from relation_detr_tpu_torch.data import image_io
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+
+    return {"msda_fwd": msda.multi_scale_deformable_attention, "msda_bwd": msda.msda_backward,
+            "relation_bias_v4_fwd": relation_bias.relation_bias_v4,
+            "ycc_to_rgb": image_io.ycc_to_rgb}
+
+
+def run_train_cli_checked(torch, args, epochs, label):
+    """One train CLI run with every counter set to 0 just before it: the
+    launches must be 18 msda_fwd, 18 msda_bwd and 5 relation_bias_v4_fwd a
+    step, 12 msda_fwd and 5 relation_bias_v4_fwd an evaluated image (B=1),
+    and one ycc_to_rgb an image read; every step's loss finite, no skipped
+    step. Returns (the CLI's result, launches, peak GiB, load averages)."""
+    from relation_detr_tpu_torch import train
+
+    counters = train_cli_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    load = os.getloadavg()
+    torch.cuda.reset_peak_memory_stats()
+    got = train.main(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    load = (load, os.getloadavg())
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps, evals = len(got["steps"]), 8 * len(got["evals"])
+    want = {"msda_fwd": 18 * steps + 12 * evals, "msda_bwd": 18 * steps,
+            "relation_bias_v4_fwd": 5 * steps + 5 * evals,
+            "ycc_to_rgb": TRAIN_IMAGES * epochs + evals}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} over {steps} steps and {evals} "
+                             f"evaluated images, expected {want}")
+    losses = [s["total_loss"] for s in got["steps"]]
+    if not all(math.isfinite(v) for v in losses) or got["metrics"]["nonfinite_count"] or \
+            not all(math.isfinite(v) for k, v in got["metrics"].items() if k.startswith("loss")):
+        raise AssertionError(f"{label}: non-finite losses {losses}, metrics {got['metrics']}")
+    return got, launches, peak, load
+
+
+def train_cli_numbers(got, peak, load):
+    """Phase 8 (d): run (a)'s numbers past its first TRAIN_SKIP steps."""
+    steps = got["steps"][TRAIN_SKIP:]
+    times = [s["step"] for s in steps]
+    waits = [s["wait"] for s in steps]
+    periods = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])
+               if a["epoch"] == b["epoch"]]  # not across an epoch's end (evaluation)
+    return dict(steps=len(steps), step_ms_p50=statistics.median(times),
+                step_ms_range=[min(times), max(times)],
+                images_per_s=TRAIN_BATCH * len(periods) / sum(periods),
+                wait_ms_p50=statistics.median(waits), wait_ms_max=max(waits),
+                pin_ms_p50=statistics.median(s["pin"] for s in steps),
+                upload_ms_per_step=got["upload_ms"] / len(got["steps"]),
+                peak_gib=peak, loadavg_before=list(load[0]), loadavg_after=list(load[1]))
+
+
+def check_train_outputs(torch, out, got):
+    """Phase 8 (a): each update's lr is the schedule's at its count; the
+    checkpoints hold epochs 0 and 1 beside latest.npz, latest_ema.npz and
+    best_ap.npz; latest.npz loads into a fresh model with nothing missing or
+    mismatched and equals the last checkpoint's model; the EMA is neither
+    the initial nor the latest weights. Returns counts for the record."""
+    from relation_detr_tpu_torch.configs import train_config
+    from relation_detr_tpu_torch.utils.checkpoint import CheckpointManager
+    from relation_detr_tpu_torch.utils.param_groups import warmup_multistep_schedule
+    from relation_detr_tpu_torch.utils.weights import load_weights
+
+    steps_per_epoch = TRAIN_IMAGES // TRAIN_BATCH
+    schedule = warmup_multistep_schedule(train_config.learning_rate, steps_per_epoch,
+                                         milestones_epochs=train_config.lr_milestones,
+                                         gamma=train_config.lr_gamma)
+    want = [schedule(i) for i in range(len(got["lrs"]))]
+    if len(got["lrs"]) != TRAIN_EPOCHS * steps_per_epoch // TRAIN_ACCUMULATE or got["lrs"] != want:
+        raise AssertionError(f"update lrs {got['lrs']}, expected the schedule's {want}")
+    manager = CheckpointManager(os.path.join(out, "checkpoints"))
+    files = [f for f in ("latest.npz", "latest_ema.npz", "best_ap.npz")
+             if os.path.isfile(os.path.join(out, f))]
+    if manager.epochs() != [0, 1] or len(files) != 3:
+        raise AssertionError(f"checkpoints {manager.epochs()}, weight files {files}")
+    saved = manager.restore(map_location="cpu")
+    cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_800_1333")
+    fresh = cfg.build_model(device="cpu", seed=0)  # the run's initial weights
+    initial = {n: p.detach().clone() for n, p in fresh.named_parameters()}
+    report = load_weights(fresh, os.path.join(out, "latest.npz"))
+    if report["missing"] or report["mismatched"]:
+        raise AssertionError(f"latest.npz: {len(report['missing'])} missing, "
+                             f"{len(report['mismatched'])} mismatched")
+    for k, v in fresh.state_dict().items():
+        if not torch.equal(v, saved["model"][k]):
+            raise AssertionError(f"latest.npz's {k} differs from the checkpoint's")
+    trainable = [n for n, p in fresh.named_parameters() if p.requires_grad]
+    moved = [n for n in trainable if not torch.equal(saved["model"][n], initial[n])]
+    ema_vs_latest = sum(not torch.equal(saved["ema"][n], saved["model"][n]) for n in moved)
+    ema_vs_initial = sum(not torch.equal(saved["ema"][n], initial[n]) for n in moved)
+    if ema_vs_latest != len(moved) or ema_vs_initial < len(moved) // 2:
+        raise AssertionError(f"EMA: {ema_vs_latest} of {len(moved)} moved tensors differ from "
+                             f"the latest weights, {ema_vs_initial} from the initial ones")
+    return dict(tensors=len(report["loaded"]), trainable=len(trainable), moved=len(moved),
+                ema_differs_from_latest=ema_vs_latest, ema_differs_from_initial=ema_vs_initial)
+
+
+def check_restore(torch, out):
+    """Phase 8 (b): the train CLI's ``restore_training`` into a fresh model
+    (other weights), AdamW, train step and EMA: every tensor and count
+    bit-identical to the last checkpoint's."""
+    from relation_detr_tpu_torch.configs import train_config
+    from relation_detr_tpu_torch.parallel.train_step import make_train_step
+    from relation_detr_tpu_torch.train import restore_training
+    from relation_detr_tpu_torch.utils.checkpoint import CheckpointManager
+    from relation_detr_tpu_torch.utils.ema import ema_init
+    from relation_detr_tpu_torch.utils.param_groups import build_optimizer
+
+    cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_800_1333")
+    model = cfg.build_model(device="cuda", seed=11).train()
+    optimizer = build_optimizer(model, train_config.learning_rate,
+                                accumulate_steps=TRAIN_ACCUMULATE)
+    step = make_train_step(model, cfg.build_criterion(), optimizer, cfg.hybrid_assign)
+    ema = ema_init(dict(model.named_parameters()))
+    manager = CheckpointManager(os.path.join(out, "checkpoints"))
+    restore_training(manager, model, optimizer, step, ema, "cuda")
+    saved = torch.load(manager.path(manager.latest_epoch()), map_location="cuda",
+                       weights_only=True)
+    checked = 0
+    for k, v in model.state_dict().items():
+        checked += torch.equal(v, saved["model"][k]) or _differs(f"model {k}")
+    opt = optimizer.state_dict()
+    for i, s in saved["optimizer"]["state"].items():
+        for k, v in s.items():
+            checked += torch.equal(opt["state"][i][k], v) or _differs(f"AdamW {i} {k}")
+    mine = step.state_dict()
+    if mine["state"] != saved["train_step"]["state"]:
+        _differs(f"train step state {mine['state']} vs {saved['train_step']['state']}")
+    for k, v in saved["train_step"]["accumulator"].items():
+        checked += torch.equal(mine["accumulator"][k], v) or _differs(f"accumulator {k}")
+    for k, v in saved["ema"].items():
+        checked += torch.equal(ema[k], v) or _differs(f"EMA {k}")
+    state = saved["train_step"]["state"]
+    del model, optimizer, step, ema, saved
+    torch.cuda.empty_cache()
+    return dict(tensors=checked, **state)
+
+
+def _differs(what):
+    raise AssertionError(f"restored {what} differs from the checkpoint")
+
+
+def check_overfit_on_card(torch):
+    """Phase 8 (c): the tiny config learns on the card: the case of
+    ``relation_detr_tpu_torch/utils/overfit.py`` (tests/test_overfit_learns.py's
+    4 images, steps, lr and thresholds), as tests/test_torch_overfit_learns.py
+    runs it on the CPU."""
+    import tempfile
+
+    from relation_detr_tpu_torch.utils import overfit
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result = overfit.run("cuda", os.path.join(tmp, "overfit.json"))
+    first, last, stats = result["first_loss"], result["last_loss"], result["stats"]
+    if not result["ok"]:
+        raise AssertionError(f"tiny overfit on the card: loss {first:.4f} -> {last:.4f} "
+                             f"(at most {overfit.LOSS_RATIO}x), AP50 {stats['AP50']:.4f} "
+                             f"(at least {overfit.MIN_AP50})")
+    phase(8, f"tiny config overfit on the card ({overfit.STEPS} steps, {overfit.B} images "
+             f"{overfit.H}x{overfit.W}): loss {first:.4f} -> {last:.4f} ({last / first:.4f}x, "
+             f"at most {overfit.LOSS_RATIO}), AP {stats['AP']:.4f}, AP50 {stats['AP50']:.4f} "
+             f"(at least {overfit.MIN_AP50})")
+    return dict(first_loss=first, last_loss=last, AP=stats["AP"], AP50=stats["AP50"])
+
+
+def run_train(torch, kernels):
+    """Phase 8: the train CLI. (a) the flagship config at full width over the
+    committed train split, 2 epochs with accumulation, an EMA and an
+    evaluation each epoch; (b) a resume of it for a third epoch; (c) the
+    tiny config's overfit on the card; (d) run (a)'s numbers."""
+    import tempfile
+
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    with tempfile.TemporaryDirectory() as tmp:
+        first, resumed = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        got, launches, peak, load = run_train_cli_checked(
+            torch, train_cli_args(first, TRAIN_EPOCHS), TRAIN_EPOCHS, "train CLI (a)")
+        for key, row in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
+                         ("relation_bias_v4_fwd", "relation"), ("ycc_to_rgb", "ycc_to_rgb")):
+            kernels[row]["train_cli_launches"] = launches[key]
+        outputs = check_train_outputs(torch, first, got)
+        numbers = train_cli_numbers(got, peak, load)
+        phase(8, f"train CLI (a): flagship B={TRAIN_BATCH} {CANVAS[0]}x{CANVAS[1]} fp32, "
+                 f"{len(got['steps'])} steps ({TRAIN_ACCUMULATE} a update, {len(got['lrs'])} "
+                 f"updates at the schedule's lrs), EMA {TRAIN_EMA}, {TRAIN_EPOCHS} epochs over "
+                 f"{TRAIN_IMAGES} JPEGs (nvJPEG, detr preset) and an evaluation each "
+                 f"(AP50 {[round(e['stats']['AP50'], 4) for e in got['evals']]}); launches "
+                 f"{launches}; losses finite, none skipped; checkpoints of epochs 0 and 1, "
+                 f"latest.npz ({outputs['tensors']} tensors, none missing or mismatched, equal to "
+                 f"the checkpoint), latest_ema.npz, best_ap.npz; the EMA differs from the "
+                 f"latest weights in {outputs['ema_differs_from_latest']} and from the initial "
+                 f"ones in {outputs['ema_differs_from_initial']} of the {outputs['moved']} "
+                 f"trained tensors that moved")
+        phase(8, f"train CLI (d) [{smi}], steps {TRAIN_SKIP}-{len(got['steps']) - 1}: step "
+                 f"p50 {numbers['step_ms_p50']:.3f} ms (range {numbers['step_ms_range'][0]:.3f}"
+                 f"-{numbers['step_ms_range'][1]:.3f}); {numbers['images_per_s']:.3f} images/s "
+                 f"(within epochs); main thread's wait for the next batch p50 "
+                 f"{numbers['wait_ms_p50']:.3f} ms (max {numbers['wait_ms_max']:.3f}); pinning "
+                 f"p50 {numbers['pin_ms_p50']:.3f} ms; upload span (side stream, copies and "
+                 f"normalisation) {numbers['upload_ms_per_step']:.3f} ms a step; peak memory "
+                 f"{numbers['peak_gib']:.3f} GiB; load average {numbers['loadavg_before']} "
+                 f"before, {numbers['loadavg_after']} after")
+        restored = check_restore(torch, first)
+        again, launches_b, _, _ = run_train_cli_checked(
+            torch, train_cli_args(resumed, TRAIN_EPOCHS + 1, "--resume", first), 1,
+            "train CLI (b)")
+        from relation_detr_tpu_torch.configs import train_config
+        from relation_detr_tpu_torch.utils.checkpoint import CheckpointManager
+        from relation_detr_tpu_torch.utils.param_groups import warmup_multistep_schedule
+
+        schedule = warmup_multistep_schedule(train_config.learning_rate,
+                                             TRAIN_IMAGES // TRAIN_BATCH)
+        updates = restored["updates"]
+        want_lrs = [schedule(updates + i) for i in range(len(again["lrs"]))]
+        epochs = {s["epoch"] for s in again["steps"]}
+        saved = CheckpointManager(os.path.join(resumed, "checkpoints")).epochs()
+        if epochs != {TRAIN_EPOCHS} or len(again["steps"]) != TRAIN_IMAGES // TRAIN_BATCH or \
+                again["lrs"] != want_lrs or saved != [TRAIN_EPOCHS] or \
+                [e["epoch"] for e in again["evals"]] != [TRAIN_EPOCHS]:
+            raise AssertionError(f"resume: epochs {epochs}, {len(again['steps'])} steps, lrs "
+                                 f"{again['lrs']} (want {want_lrs}), checkpoints {saved}")
+        phase(8, f"train CLI (b): restore_training into a fresh model, AdamW, train step and "
+                 f"EMA: {restored['tensors']} tensors and the counts (step {restored['step']}, "
+                 f"updates {updates}, micro-steps {restored['micro_steps']}) bit-identical to "
+                 f"the checkpoint; --resume trained epoch {TRAIN_EPOCHS} only "
+                 f"({len(again['steps'])} steps, updates {updates}-"
+                 f"{updates + len(again['lrs']) - 1} at the schedule's lrs, launches "
+                 f"{launches_b}), evaluated it and saved its checkpoint")
+    overfit = check_overfit_on_card(torch)
+    return dict(device=smi, numbers=numbers, outputs=outputs, restored=restored,
+                launches=launches, evals=[e["stats"]["AP50"] for e in got["evals"]],
+                overfit=overfit)
+
+
+def check_train_cli_busy(torch):
+    """Phase 9: one train CLI step (the 4th of a run; flagship, B=2) traced
+    with the CLI's --profile-steps: device-busy time against its span."""
+    import tempfile
+
+    from relation_detr_tpu_torch import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        got = train.main(train_cli_args(tmp, 1, "--max-steps", "4", "--profile-steps", "3,4",
+                                        "--eval-every-epochs", "0"))
+    prof = got["profile"]
+    if prof is None or not prof["device_busy_ms"]:
+        phase(9, "train CLI step: torch.profiler saw no device time (not measured)")
+        return None
+    prof = {k: v for k, v in prof.items() if k != "trace"}
+    phase(9, f"train CLI step (flagship B={TRAIN_BATCH}, --profile-steps 3,4): span "
+             f"{prof['span_ms']:.3f} ms (host clock, synchronised), device busy "
+             f"{prof['device_busy_ms']:.3f} ms (torch.profiler), idle share "
+             f"{prof['idle_share']:.4f}")
+    return prof
+
+
 def main() -> int:
     import torch
 
@@ -2142,10 +2441,12 @@ def main() -> int:
     model = timed(5, run_flagship, torch, kernels)
     timed(6, run_flagship_train, torch, model, kernels)
     evaluation = timed(7, run_evaluation, torch, kernels)
-    timed(8, run_profiles, torch)
-    evaluation["forward_busy"] = timed(8, check_eval_forward_busy, torch, model)
-    timed(8, check_relation_calls, torch, model, kernels)
-    phase(8, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
+    training = timed(8, run_train, torch, kernels)
+    timed(9, run_profiles, torch)
+    evaluation["forward_busy"] = timed(9, check_eval_forward_busy, torch, model)
+    training["cli_step_busy"] = timed(9, check_train_cli_busy, torch)
+    timed(9, check_relation_calls, torch, model, kernels)
+    phase(9, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     leaked = [m for m in ("jax", "flax", "cv2", "PIL", "relation_detr_tpu") if m in sys.modules]
     if leaked:
@@ -2158,6 +2459,7 @@ def main() -> int:
             raise AssertionError(f"kernel row {row['name']}: missing {missing}, launches "
                                  f"{row.get('launches')}")
     print(json.dumps({"evaluation": evaluation}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,17 +7,21 @@ dropped); ``class_agnostic`` (every category becomes 1); the train filter
 (images without a valid box dropped); ``get_raw`` and ``__getitem__``.
 Images decode through ``data/image_io.py``: nvJPEG on ``device`` (EXIF
 orientation applied, as cv2 applies it), or the caller's ``decode`` (the CPU
-has no decoder).
+has no decoder). ``read(index, rng)`` is ``__getitem__`` with the
+transform's random draws taken from ``rng`` (``data/loader.py`` passes each
+sample its own generator).
 
-Not ported: ``return_masks`` (``_rasterize_segmentation``, which needs
-``cv2.fillPoly``; train only) raises, and ``Object365Detection`` waits for
-the training slice.
+Not ported (ROADMAP Queue 1 item 3): ``return_masks``
+(``_rasterize_segmentation``, which needs ``cv2.fillPoly``; train only)
+raises; ``Object365Detection`` and the multi-image transforms'
+``update_dataset`` hook.
 """
 from __future__ import annotations
 
 import json
 import os
 import threading
+import random
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -107,6 +111,11 @@ class CocoDetection:
             self.seconds[key] += seconds
 
     def __getitem__(self, index: int):
+        return self.read(index)
+
+    def read(self, index: int, rng: Optional[random.Random] = None):
+        """Sample ``index``; a transform that draws at random draws from
+        ``rng`` (its own generator when None)."""
         img_id = self.ids[index]
         info = self.images[img_id]
         path = os.path.join(self.img_folder, info["file_name"])
@@ -123,6 +132,6 @@ class CocoDetection:
         }
         if self.transforms is not None:
             t0 = time.perf_counter()
-            sample = self.transforms(sample)
+            sample = self.transforms(sample) if rng is None else self.transforms(sample, rng)
             self._add_seconds("transform", time.perf_counter() - t0)
         return sample

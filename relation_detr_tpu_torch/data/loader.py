@@ -1,34 +1,43 @@
 """Batching into static canvases, with a threaded prefetch.
 
-The port's copy of ``relation_detr_tpu/data/loader.py``, numpy only:
+The port's copy of ``relation_detr_tpu/data/loader.py``:
 ``DEFAULT_BUCKETS``, ``MAX_GT`` and ``GT_BUCKETS``, ``aspect_ratio_group_ids``,
-``pick_canvas``, ``collate`` and ``DataLoader``. Every batch is padded to a
-canvas from a small bucket set and its ground truth to a fixed capacity
-with a validity mask; one thread builds batches ahead of the consumer while
-``num_workers`` threads read (decode, transform) the samples in order, a
-few ahead, across batch boundaries. The
-batch order (seeded shuffle, aspect grouping, ``drop_last``, the
-process-stride shards and the tail padding with ``image_id = -1``) is the
-JAX loader's, held equal by ``tests/test_torch_data.py``.
+``pick_canvas``, ``collate``, ``DataLoader`` and ``device_prefetch``. Every
+batch is padded to a canvas from a small bucket set and its ground truth to
+a fixed capacity with a validity mask; one thread builds batches ahead of
+the consumer while ``num_workers`` threads read (decode, transform) the
+samples in order, a few ahead, across batch boundaries. The batch order
+(seeded shuffle, aspect grouping, ``drop_last``, the process-stride shards
+and the tail padding with ``image_id = -1``) is the JAX loader's, held equal
+by ``tests/test_torch_data.py``.
 
-Differences: the process index and count default to an initialised
+Differences: a dataset with a ``read(index, rng)`` method (``CocoDetection``)
+gets for each sample its own ``random.Random``, seeded from the loader's
+seed, the epoch and the dataset index only (``sample_rng``), so its
+augmentations do not depend on how the reader threads interleave, and a run
+and its resume draw the same ones; the JAX preset shares one generator
+across the threads. The process index and count default to an initialised
 ``torch.distributed``'s rank and world size (else 0 and 1); ``collate``'s
 oversize branch resizes with ``data/transforms.py::resize_bilinear`` (no
-antialias; within one level of cv2's INTER_LINEAR on uint8); and
-``device_prefetch`` (a JAX mesh) is not ported: the eval stream of
-``utils/evaluation.py`` uploads batches ahead itself.
+antialias; within one level of cv2's INTER_LINEAR on uint8).
+``device_prefetch`` takes a device instead of a JAX mesh (one process, one
+device), copies from pinned buffers it reuses on a side stream, and
+normalises uint8 canvases on the device.
 """
 from __future__ import annotations
 
 import collections
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from relation_detr_tpu_torch.data.transforms import resize_bilinear
+from relation_detr_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, resize_bilinear
 
 
 def process_index_count() -> Tuple[int, int]:
@@ -160,8 +169,18 @@ def collate(
     }
 
 
+def sample_rng(seed: int, epoch: int, index: int) -> random.Random:
+    """The generator of dataset sample ``index`` in ``epoch``: a function of
+    (seed, epoch, index) only (a string seed is hashed with SHA-512, the
+    same in every process)."""
+    return random.Random(f"{seed}:{epoch}:{index}")
+
+
 class DataLoader:
-    """Multi-threaded map + prefetch loader over an indexable dataset."""
+    """Multi-threaded map + prefetch loader over an indexable dataset.
+
+    ``epoch`` numbers the next pass (its shuffle and its samples'
+    generators) and counts up after each; a resumed run sets it."""
 
     def __init__(
         self,
@@ -276,6 +295,14 @@ class DataLoader:
                     continue
             return False
 
+        epoch = self.epoch
+        read = getattr(self.dataset, "read", None)
+
+        def read_sample(index):
+            if read is None:
+                return self.dataset[index]
+            return read(index, sample_rng(self.seed, epoch, index))
+
         def produce(pool, reads) -> None:
             # samples are read (decoded, transformed) in num_workers threads,
             # in order, up to `lookahead` ahead of the batch being collated,
@@ -285,7 +312,7 @@ class DataLoader:
 
             def next_sample():
                 for index in order:
-                    reads.append(pool.submit(self.dataset.__getitem__, index))
+                    reads.append(pool.submit(read_sample, index))
                     if len(reads) >= lookahead:
                         break
                 return reads.popleft().result()
@@ -338,3 +365,103 @@ class DataLoader:
                 pass
             thread.join(timeout=5.0)
         self.epoch += 1
+
+
+class Normalizer:
+    """``(x / 255 - mean) / std`` of a uint8 (B, H, W, 3) canvas in float32
+    on ``device``, its padding (``mask`` True) an exact 0: the host's
+    ``transforms.normalize`` followed by ``collate``'s zero padding. 255 is
+    a tensor: a Python scalar divisor makes the card multiply by its
+    reciprocal, which rounds differently from the host's division."""
+
+    def __init__(self, device):
+        self.scale = torch.full((1,), 255.0, device=device)
+        self.mean = torch.as_tensor(IMAGENET_MEAN, device=device)
+        self.std = torch.as_tensor(IMAGENET_STD, device=device)
+
+    def __call__(self, images: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = (images.to(torch.float32) / self.scale - self.mean) / self.std
+        return torch.where(mask[..., None], 0.0, x)
+
+
+def device_prefetch(iterator, device, keys: Sequence[str] = None, depth: int = 2,
+                    times=None):
+    """Yields ``iterator``'s batches with ``keys`` (every key when None) as
+    tensors on ``device``, ``depth`` batches ahead of the consumer (the
+    reference's DataPrefetcher, its util/collate_fn.py:17-49).
+
+    On a card each batch is copied into pinned host buffers, reused from
+    batch to batch (``depth`` + 1 sets per shape, a set written again only
+    once its copies are done), then to the card on a side stream, where a
+    uint8 ``images`` canvas is also normalised (``Normalizer``); the
+    consumer's stream waits for that work before it uses the tensors. So
+    batch k+1's upload runs while step k computes. On the CPU the arrays
+    are wrapped as they are, and a uint8 canvas is normalised there.
+
+    ``times`` (optional, a ``utils.evaluation.StageTimes``) gathers
+    "wait" (host clock in the iterator: the consumer waiting for the
+    loader), "pin" (host clock, the copy into pinned memory) and "upload"
+    (the side stream's span of the copies and the normalisation)."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    normalize = Normalizer(device)
+    stream = torch.cuda.Stream(device) if cuda else None
+    pinned = collections.defaultdict(collections.deque)  # (key, shape, dtype) -> buffers
+    span = (lambda name, on_card=True: times.span(name, on_card)) if times is not None \
+        else (lambda name, on_card=True: nullcontext())
+    queue_ = collections.deque()
+
+    def host_tensor(key, array):
+        """(ring key, host tensor holding ``array``)."""
+        ring_key = (key, array.shape, array.dtype.str)
+        if not cuda:
+            return ring_key, torch.from_numpy(array)
+        ring = pinned[ring_key]
+        if len(ring) > depth:  # the oldest buffer's copy was queued depth+1 batches ago
+            buf, done = ring.popleft()
+            done.synchronize()
+        else:
+            buf = torch.empty(array.shape, dtype=torch.from_numpy(array[:0]).dtype,
+                              pin_memory=True)
+        buf.numpy()[...] = array
+        return ring_key, buf
+
+    def put(batch):
+        names = keys if keys is not None else list(batch)
+        with span("pin", on_card=False):
+            host = {k: host_tensor(k, np.ascontiguousarray(batch[k])) for k in names}
+        done = None
+        with torch.cuda.stream(stream) if cuda else nullcontext():
+            with span("upload"):
+                out = {k: t.to(device, non_blocking=True) for k, (_, t) in host.items()}
+                if "images" in out and out["images"].dtype == torch.uint8:
+                    out["images"] = normalize(out["images"], out["mask"])
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(stream)
+                for ring_key, t in host.values():
+                    pinned[ring_key].append((t, done))
+        queue_.append((out, done))
+
+    def pull():
+        with span("wait", on_card=False):
+            return next(it)
+
+    it = iter(iterator)
+    try:
+        for _ in range(depth):
+            put(pull())
+    except StopIteration:
+        pass
+    while queue_:
+        out, done = queue_.popleft()
+        try:
+            put(pull())
+        except StopIteration:
+            pass
+        if done is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(done)
+            for t in out.values():
+                t.record_stream(current)  # allocated on the side stream
+        yield out

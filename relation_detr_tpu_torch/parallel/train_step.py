@@ -9,6 +9,14 @@ non-finite skip: a step whose loss or gradient norm is not finite changes
 neither the parameters nor the optimizer state, and is counted, as the JAX
 step does in-graph (``train_step.py:134-155``).
 
+With ``optimizer.accumulate_steps`` k > 1 a step is a micro-step, as under
+the JAX chain's ``optax.MultiSteps``: its gradients are summed into an
+accumulator, and every k-th accepted micro-step the mean is clipped to
+``max_norm`` (the norm of the mean), AdamW steps at the lr of the update
+count, and the accumulator is reset. A non-finite micro-step moves neither
+the accumulator nor the micro-step count (the JAX step keeps MultiSteps'
+whole state). ``grad_norm`` stays the micro-gradient's norm.
+
 Single device; data parallelism is not ported yet (ROADMAP).
 """
 from __future__ import annotations
@@ -29,6 +37,7 @@ BATCH_KEYS = ("images", "mask", "gt_labels", "gt_boxes", "gt_valid")
 class TrainState:
     step: int = 0  # steps taken, skipped ones included
     updates: int = 0  # updates applied (the lr schedule's count, as optax's)
+    micro_steps: int = 0  # accepted micro-steps in the accumulator (MultiSteps' mini_step)
     nonfinite_count: int = 0
     first_nonfinite_step: int = -1
 
@@ -53,6 +62,30 @@ def apply_update(optimizer: torch.optim.Optimizer, params, grad_norm: torch.Tens
     optimizer.step()
 
 
+@torch.no_grad()
+def accumulate(optimizer: torch.optim.Optimizer, params, accumulator, state: TrainState) -> None:
+    """One accepted micro-step of ``optax.MultiSteps``: adds the gradients of
+    ``params`` (those that have one) to ``accumulator`` (a tensor per
+    parameter) and counts it; on the ``optimizer.accumulate_steps``-th,
+    applies ``apply_update`` to the mean (clipped by its own norm) at the lr
+    of update ``state.updates``, counts the update, and zeroes the
+    accumulator and the count. Leaves every ``.grad`` None."""
+    got = [(a, p.grad) for a, p in zip(accumulator, params) if p.grad is not None]
+    torch._foreach_add_([a for a, _ in got], [g for _, g in got])
+    state.micro_steps += 1
+    if state.micro_steps == optimizer.accumulate_steps:
+        torch._foreach_div_(accumulator, float(optimizer.accumulate_steps))
+        for p, a in zip(params, accumulator):
+            p.grad = a
+        norm = global_norm(accumulator)
+        apply_update(optimizer, params, norm, norm.item(), state.updates)
+        state.updates += 1
+        state.micro_steps = 0
+        torch._foreach_zero_(accumulator)
+    for p in params:
+        p.grad = None
+
+
 def make_train_step(
     model: torch.nn.Module,
     criterion_cfg: CriterionConfig,
@@ -67,14 +100,19 @@ def make_train_step(
     device (the loader's layout). metrics: ``total_loss``, every loss term,
     ``grad_norm`` (over the trainable parameters, before the clip),
     ``nonfinite_count`` and ``first_nonfinite_step``, as floats/ints.
-    ``step.state`` is the ``TrainState``. The CDN draws come from a
+    ``step.state`` is the ``TrainState``; ``step.state_dict()`` /
+    ``step.load_state_dict(d)`` give and take it with the accumulator (None
+    without accumulation), by parameter name. The CDN draws come from a
     generator re-seeded from (seed, step) each step, the analogue of the
     JAX step's ``fold_in(rng, step)``.
     """
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
     device = params[0].device
     generator = torch.Generator(device=device)
     state = TrainState()
+    accumulator = ([torch.zeros_like(p) for p in params]
+                   if getattr(optimizer, "accumulate_steps", 1) > 1 else None)
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         optimizer.zero_grad(set_to_none=True)
@@ -90,18 +128,37 @@ def make_train_step(
         values = torch.stack([total.detach(), grad_norm,
                               *(v.detach() for v in losses.values())]).cpu().tolist()
         metrics = dict(zip(names, values))
-        if math.isfinite(values[0]) and math.isfinite(values[1]):
-            apply_update(optimizer, params, grad_norm, values[1], state.updates)
-            state.updates += 1
-        else:
+        if not (math.isfinite(values[0]) and math.isfinite(values[1])):
             state.nonfinite_count += 1
             if state.first_nonfinite_step < 0:
                 state.first_nonfinite_step = state.step
+        elif accumulator is not None:
+            accumulate(optimizer, params, accumulator, state)
+        else:
+            apply_update(optimizer, params, grad_norm, values[1], state.updates)
+            state.updates += 1
         optimizer.zero_grad(set_to_none=True)
         state.step += 1
         metrics["nonfinite_count"] = state.nonfinite_count
         metrics["first_nonfinite_step"] = state.first_nonfinite_step
         return metrics
 
+    def state_dict() -> Dict:
+        return {"state": dataclasses.asdict(state),
+                "accumulator": None if accumulator is None else
+                {n: a for (n, _), a in zip(named, accumulator)}}
+
+    def load_state_dict(saved: Dict) -> None:
+        for key, value in saved["state"].items():
+            setattr(state, key, value)
+        if (saved["accumulator"] is None) != (accumulator is None):
+            raise ValueError("the saved train step and this one differ in accumulation")
+        if accumulator is not None:
+            with torch.no_grad():
+                for (n, _), a in zip(named, accumulator):
+                    a.copy_(saved["accumulator"][n])
+
     step.state = state
+    step.state_dict = state_dict
+    step.load_state_dict = load_state_dict
     return step

@@ -91,14 +91,15 @@ def parse_args(argv=None):
 
 
 def apply_msda_flags(args) -> None:
-    """The MSDA flags onto the port's defaults; the TPU-only ones raise."""
-    if args.show_dir is not None or args.show_conf is not None:
+    """The MSDA flags onto the port's defaults; the TPU-only ones raise.
+    Also takes the train CLI's arguments, which lack the eval-only flags."""
+    if getattr(args, "show_dir", None) is not None or getattr(args, "show_conf", None) is not None:
         raise NotImplementedError("--show-dir / --show-conf are not ported "
                                   "(ROADMAP Queue 1 item 3)")
     if args.clamp_check == "on":
         raise NotImplementedError("--clamp-check on is not ported (no clamp gate: the "
                                   "port's tiled MSDA keeps the exact auto halos)")
-    if args.msda_profile == "fast":
+    if getattr(args, "msda_profile", "auto") == "fast":
         raise NotImplementedError("--msda-profile fast is not ported (reduced halos)")
     if args.msda_impl:
         set_msda_defaults(impl=args.msda_impl)
@@ -108,7 +109,7 @@ def apply_msda_flags(args) -> None:
     if args.msda_dtype:
         set_msda_defaults(tiled_dtype={"auto": "auto", "fp32": torch.float32,
                                        "bf16": torch.bfloat16}[args.msda_dtype])
-    if args.msda_int8_slab:
+    if getattr(args, "msda_int8_slab", False):
         set_msda_defaults(tiled_int8_slab=True)
 
 

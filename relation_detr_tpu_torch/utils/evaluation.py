@@ -22,8 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from relation_detr_tpu_torch.data.loader import DataLoader
-from relation_detr_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from relation_detr_tpu_torch.data.loader import DataLoader, Normalizer
 from relation_detr_tpu_torch.models.post_process import post_process
 from relation_detr_tpu_torch.utils.coco_eval import CocoEvaluator
 
@@ -37,21 +36,15 @@ def make_detections_fn(model: torch.nn.Module, topk: int):
     [x0 y0 x1 y1 score label] on the model's device.
 
     A uint8 canvas (``EvalPreset(normalize_host=False)``) is normalised here
-    with the host's math, ``(x / 255 - mean) / std`` in float32, and its
-    padding set to an exact 0, as the host path pads after normalising. 255
-    is a tensor: a Python scalar divisor makes the card multiply by its
-    reciprocal, which rounds differently from the host's division.
+    with the host's math (``data/loader.py::Normalizer``), its padding an
+    exact 0, as the host path pads after normalising.
     Boxes are in pixels of ``orig_sizes`` (B, 2) (h, w)."""
-    device = model_device(model)
-    scale = torch.full((1,), 255.0, device=device)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=device)
-    std = torch.as_tensor(IMAGENET_STD, device=device)
+    normalize = Normalizer(model_device(model))
 
     def det_fn(images: torch.Tensor, mask: torch.Tensor, orig_sizes: torch.Tensor):
         with torch.inference_mode():
             if images.dtype == torch.uint8:
-                x = (images.to(torch.float32) / scale - mean) / std
-                images = torch.where(mask[..., None], 0.0, x)
+                images = normalize(images, mask)
             out = model(images, mask)
             det = post_process(out["pred_logits"], out["pred_boxes"], orig_sizes, topk)
             return torch.cat([det["boxes"], det["scores"][..., None],

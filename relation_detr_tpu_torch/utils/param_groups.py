@@ -7,6 +7,10 @@ decoupled weight decay 1e-4), no weight decay on biases and norm weights,
 lr x0.1 for the backbone and the ``sampling_offsets``/``reference_points``
 projections, and a global-norm clip of 0.1 over the trainable parameters
 (applied by the train step, which reads ``optimizer.max_norm``).
+``accumulate_steps`` > 1 is ``optax.MultiSteps`` around that whole chain
+(``param_groups.py:96-97``): the train step accumulates the micro-batch
+gradients and applies the chain to their mean every ``accumulate_steps``
+accepted micro-steps (``optimizer.accumulate_steps``).
 
 Frozen parameters (the ResNet stem and ``layer1``, ``requires_grad=False``)
 are left out of the optimizer, as the reference leaves them. The JAX chain
@@ -56,12 +60,10 @@ def build_optimizer(
     """AdamW over the trainable parameters in (lr factor, weight decay)
     groups. Each group's ``lr_factor`` scales the schedule's lr; the train
     step sets the groups' lr before each update and clips to
-    ``optimizer.max_norm`` first."""
-    if accumulate_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation is not ported yet (ROADMAP Queue 1 item 8: "
-            "grad accumulation, EMA and checkpoints)"
-        )
+    ``optimizer.max_norm`` first, and updates once every
+    ``optimizer.accumulate_steps`` micro-steps."""
+    if accumulate_steps < 1:
+        raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
     no_wd = no_weight_decay_names(model)
     groups = {}
     for name, param in model.named_parameters():
@@ -79,6 +81,7 @@ def build_optimizer(
     )
     optimizer.lr_schedule = learning_rate_schedule
     optimizer.max_norm = max_norm
+    optimizer.accumulate_steps = accumulate_steps
     return optimizer
 
 

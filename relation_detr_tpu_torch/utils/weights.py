@@ -9,10 +9,18 @@ kernels, q/k/v projections merged back into ``in_proj_weight``/``in_proj_bias``
 and the flax module names mapped onto the reference's. ``load_weights``
 reads the JAX package's ``.npz`` weight files into a model leniently, as
 ``relation_detr_tpu/utils/checkpoint.py::load_weights`` does.
+
+``jax_weights`` is the inverse map: a port ``state_dict`` to the JAX
+layout (``params/...`` and ``batch_stats/...``, merged ``in_proj`` tensors
+split into the q, k and v keys), the same arrays as
+``tools/convert_torch_weights.py::convert_state_dict``. ``save_weights``
+writes it as the JAX package's ``save_weights`` does, so a weight file
+crosses both ways.
 """
 from __future__ import annotations
 
 import logging
+import os
 import re
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -170,3 +178,98 @@ def load_weights(model: torch.nn.Module, path: str, strict: bool = False) -> Dic
     total = len(report["loaded"]) + len(report["mismatched"]) + len(report["missing"])
     logger.info(f"loaded {len(report['loaded'])}/{total} tensors from {path}")
     return report
+
+
+# the inverse of _RENAMES: (module, index) segment pairs of the port
+_PAIRS = {tuple(v.split(".")): k for k, v in _RENAMES.items() if "." in v}
+_INDEXED_NAMES = ("layers", "convs", "class_head", "bbox_head")
+_INV_BARE = {v: k for k, v in _BARE.items()}
+
+
+def _jax_path(module_path: str) -> str:
+    """The flax path ('/'-joined) of a port module path ('.'-joined): the
+    inverse of ``_module_path``."""
+    parts, out, i = module_path.split("."), [], 0
+    while i < len(parts):
+        seg, nxt = parts[i], parts[i + 1] if i + 1 < len(parts) else None
+        if (seg, nxt) in _PAIRS:
+            out.append(_PAIRS[(seg, nxt)])
+            i += 2
+        elif nxt is not None and nxt.isdigit() and (
+                seg in _INDEXED_NAMES or re.fullmatch(r"layer\d+", seg)):
+            out.append(f"{seg}_{nxt}")
+            i += 2
+        elif parts[0] == "neck" and seg in ("0", "1"):
+            out.append({"0": "conv", "1": "norm"}[seg])
+            i += 1
+        else:
+            out.append(seg)
+            i += 1
+    return "/".join(out)
+
+
+def jax_weights(model: torch.nn.Module,
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+    """``state_dict`` (the model's own when None) in the JAX package's weight
+    layout: '/'-keyed ``params/...`` (conv kernels HWIO, linear kernels (in,
+    out), the relation's 1x1 ``pos_proj`` conv as a Dense kernel, LayerNorm
+    and GroupNorm weights as ``scale``, embeddings as ``embedding``, merged
+    ``in_proj`` tensors as q/k/v kernels and biases) and ``batch_stats/...``
+    (the FrozenBN buffers). Each key is checked to map back to its tensor
+    through ``state_dict_from_jax``'s names; one that does not raises."""
+    state_dict = model.state_dict() if state_dict is None else state_dict
+    buffers = {name for name, _ in model.named_buffers()}
+    out: Dict[str, np.ndarray] = {}
+    for name, tensor in state_dict.items():
+        value = tensor.detach().cpu().numpy()
+        module_path, _, leaf = name.rpartition(".")
+        if name in buffers:
+            key = f"{_jax_path(module_path)}/{leaf}"
+            if _torch_name(key) != name:
+                raise ValueError(f"{name}: no JAX key maps back to it (got {key})")
+            out[f"batch_stats/{key}"] = value
+            continue
+        module = model.get_submodule(module_path)
+        path = _jax_path(module_path)
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            for part, (proj, chunk) in enumerate(zip(_QKV, np.split(value, len(_QKV)))):
+                key = f"{path}/{proj}/{'kernel' if leaf == 'in_proj_weight' else 'bias'}"
+                out[key] = chunk.T if leaf == "in_proj_weight" else chunk
+                if _param_slot(key) != (name, part):
+                    raise ValueError(f"{name}: no JAX key maps back to it (got {key})")
+            continue
+        if name in _INV_BARE:
+            key = _INV_BARE[name]
+        elif leaf == "weight" and isinstance(module, torch.nn.Conv2d):
+            key = f"{path}/kernel"
+            if path.split("/")[-1] == "pos_proj":  # a Dense kernel in the JAX model
+                value = value[:, :, 0, 0].T
+            else:
+                value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif leaf == "weight" and isinstance(module, torch.nn.Linear):
+            key, value = f"{path}/kernel", value.T
+        elif leaf == "weight" and isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            key = f"{path}/scale"
+        elif leaf == "weight" and isinstance(module, torch.nn.Embedding):
+            key = f"{path}/embedding"
+        elif leaf == "bias":
+            key = f"{path}/bias"
+        else:  # a bare parameter, e.g. level_embeds
+            key = _jax_path(name)
+        if _param_slot(key) != (name, None):
+            raise ValueError(f"{name}: no JAX key maps back to it (got {key})")
+        out[key] = np.ascontiguousarray(value)
+    return {(k if k.startswith("batch_stats/") else f"params/{k}"): v for k, v in out.items()}
+
+
+def save_weights(path: str, model: torch.nn.Module,
+                 extra: Optional[Mapping[str, np.ndarray]] = None,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+    """Writes ``jax_weights(model, state_dict)`` and ``extra`` (e.g.
+    ``_classes_``) as an ``.npz`` file, as the JAX package's
+    ``utils/checkpoint.py::save_weights`` writes its weights: the JAX
+    package's ``load_weights`` and the port's read it."""
+    arrays = jax_weights(model, state_dict)
+    arrays.update(extra or {})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **arrays)

@@ -8,8 +8,9 @@
 - ``decode_gray.jpg``: one channel;
 - ``decode_exif6.jpg``: 4:2:0 with EXIF Orientation 6 (decodes as 128x96);
 - ``<name>.npy``: cv2's ``IMREAD_COLOR`` decode of each, as RGB;
-- ``synth_coco/``: the val2017 split of ``tests/make_synth_coco.py`` (its
-  8 JPEGs and ``annotations/instances_val2017.json``).
+- ``synth_coco/``: the train2017 and val2017 splits of
+  ``tests/make_synth_coco.py`` (16 and 8 JPEGs, and
+  ``annotations/instances_train2017.json`` and ``instances_val2017.json``).
 """
 import os
 import shutil
@@ -61,10 +62,11 @@ def main():
                        check=True, capture_output=True)
         out = os.path.join(HERE, "synth_coco")
         shutil.rmtree(out, ignore_errors=True)
-        shutil.copytree(os.path.join(tmp, "val2017"), os.path.join(out, "val2017"))
         os.makedirs(os.path.join(out, "annotations"))
-        shutil.copy(os.path.join(tmp, "annotations", "instances_val2017.json"),
-                    os.path.join(out, "annotations"))
+        for split in ("train2017", "val2017"):
+            shutil.copytree(os.path.join(tmp, split), os.path.join(out, split))
+            shutil.copy(os.path.join(tmp, "annotations", f"instances_{split}.json"),
+                        os.path.join(out, "annotations"))
 
 
 if __name__ == "__main__":

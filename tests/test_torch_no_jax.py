@@ -1,7 +1,7 @@
 """The port (eval forward and train step, gather and tiled MSDA, the
-evaluation path) runs without jax, flax, cv2, PIL or the JAX package, and
-its kernel wrappers launch nothing on CPU tensors and raise (never fall
-back) on CUDA tensors they cannot serve. This file imports no jax so that
+evaluation path, the train CLI) runs without jax, flax, cv2, PIL or the JAX
+package, and its kernel wrappers launch nothing on CPU tensors and raise
+(never fall back) on CUDA tensors they cannot serve. This file imports no jax so that
 it also runs on a machine with a card and no jax (the conftest imports jax,
 so skip it there):
 ``python -m pytest --noconftest tests/test_torch_no_jax.py``."""
@@ -125,6 +125,77 @@ print("ok")
 """
 
 
+TRAIN_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from relation_detr_tpu_torch.ops import msda, relation_bias
+
+torch.set_num_threads(1)  # beside other test processes, one thread is the quickest
+rng = np.random.RandomState(0)
+
+
+def train_cli():
+    # the train CLI on the CPU over 3 images stored as .npy bytes (no JPEG
+    # decoder without cv2), with accumulation, an EMA, an evaluation, a
+    # checkpoint, a resume and the weight files' class names
+    import io
+    import json
+    import os
+    import tempfile
+
+    from relation_detr_tpu_torch import train
+    from relation_detr_tpu_torch.utils import overfit  # noqa: F401 (chip_smoke's overfit case)
+    from relation_detr_tpu_torch.utils.class_names import load_class_names
+
+    def decode(data):
+        return np.load(io.BytesIO(data.tobytes()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(tmp + "/coco/annotations")
+        images, anns = [], []
+        for i, (h, w) in enumerate([(90, 120), (100, 80), (70, 110)]):
+            os.makedirs(tmp + "/coco/train2017", exist_ok=True)
+            with open(tmp + f"/coco/train2017/{i}.jpg", "wb") as f:
+                np.save(f, rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+            images.append({"id": i + 1, "height": h, "width": w, "file_name": f"{i}.jpg"})
+            anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1 + i % 3,
+                         "bbox": [10, 10, 40, 30], "area": 1200, "iscrowd": 0})
+        split = {"images": images, "annotations": anns,
+                 "categories": [{"id": c, "name": f"c{c}"} for c in (1, 2, 3)]}
+        for name in ("train2017", "val2017"):
+            with open(tmp + f"/coco/annotations/instances_{name}.json", "w") as f:
+                json.dump(split, f)
+        os.symlink(tmp + "/coco/train2017", tmp + "/coco/val2017")
+        with open(tmp + "/cfg.py", "w") as f:
+            f.write("from relation_detr_tpu_torch.configs.train_config import *\n"
+                    "class_names = ('a', 'b', 'c')\n"
+                    "eval_buckets = ((224, 320), (320, 224), (320, 320))\n")
+        args = ["--config-file", tmp + "/cfg.py",
+                "--model-config", "relation_detr_tpu_torch/configs/relation_detr/"
+                "relation_detr_resnet50_tiny_test.py", "--coco-path", tmp + "/coco",
+                "--batch-size", "1", "--canvas", "128,160", "--accumulate-steps", "2",
+                "--ema-decay", "0.9", "--eval-every-epochs", "1", "--device", "cpu"]
+        first = train.main(args + ["--num-epochs", "1", "--output-dir", tmp + "/a"], decode=decode)
+        assert len(first["steps"]) == 3 and len(first["lrs"]) == 1, first
+        again = train.main(args + ["--num-epochs", "2", "--output-dir", tmp + "/b",
+                                   "--resume", tmp + "/a"], decode=decode)
+        assert len(again["steps"]) == 3 and len(again["evals"]) == 1
+        assert np.isfinite(again["metrics"]["total_loss"])
+        assert load_class_names(again["paths"]["latest_ema"]) == ("a", "b", "c")
+
+
+train_cli()
+launches = [fn.launches for fn in (msda.multi_scale_deformable_attention, msda.msda_backward,
+                                   relation_bias.relation_bias_v4)]
+assert launches == [0, 0, 0], f"CPU run launched a kernel: {launches}"
+loaded = [m for m in sys.modules if m in ("jax", "flax", "cv2", "PIL") or m == "relation_detr_tpu"
+          or m.startswith(("jax.", "flax.", "PIL.", "relation_detr_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+
+
 def test_port_imports_and_runs_without_jax_flax_cv2():
     """The tiny config's eval and train step on CPU, as they are and under
     impl="tiled" with relation version 1, and the evaluation path (collate,
@@ -132,6 +203,18 @@ def test_port_imports_and_runs_without_jax_flax_cv2():
     module): no kernel launch, and nothing of jax, flax, cv2, PIL or
     relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_train_cli_runs_without_jax_flax_cv2():
+    """The train CLI on the CPU (the detr preset, the loader's per-sample
+    generators, device_prefetch, accumulation, the EMA, an evaluation,
+    checkpoints, a resume, the weight files with class names) over 3
+    images stored as .npy: no kernel launch, and nothing of jax, flax, cv2,
+    PIL or relation_detr_tpu imported."""
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("ok")

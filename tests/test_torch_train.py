@@ -537,7 +537,7 @@ def test_train_step_skips_nonfinite_update():
 def test_optimizer_groups_follow_the_jax_masks():
     """Each trainable parameter's (lr factor, weight decay) group agrees with
     the JAX masks on the same leaf; frozen leaves are in no group; the
-    accumulation option names its ROADMAP item."""
+    accumulation count rides on the optimizer (the train step reads it)."""
     model = TINY.build_model(device="cpu")
     params, _, _ = convert_state_dict(dict(model.state_dict()))
     optimizer = tpg.build_optimizer(model, 1e-4)
@@ -559,5 +559,7 @@ def test_optimizer_groups_follow_the_jax_masks():
         g = group_of[id(q)]
         assert g["lr_factor"] == (0.1 if jpg.is_low_lr(jnames) else 1.0), tname
         assert (g["weight_decay"] == 0.0) == jpg.is_no_weight_decay(jnames), tname
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpg.build_optimizer(model, 1e-4, accumulate_steps=2)
+    assert optimizer.accumulate_steps == 1
+    assert tpg.build_optimizer(model, 1e-4, accumulate_steps=2).accumulate_steps == 2
+    with pytest.raises(ValueError, match="accumulate_steps"):
+        tpg.build_optimizer(model, 1e-4, accumulate_steps=0)
