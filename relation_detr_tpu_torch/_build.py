@@ -169,6 +169,15 @@ def load_library() -> ctypes.CDLL:
     lib.msda_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P]
     lib.msda_bwd.restype = ctypes.c_int
+    # the bf16-value forms: value, out and grad_out bf16; msda_bwd_bf16 takes
+    # an fp32 accumulator (grad_acc) before the bf16 grad_value
+    lib.msda_fwd_bf16.argtypes = lib.msda_fwd.argtypes
+    lib.msda_fwd_bf16.restype = ctypes.c_int
+    # int msda_bwd_bf16(value, level_hw, loc, attn, grad_out, grad_acc,
+    #                   grad_value, grad_loc, grad_attn, B, S, Q, H, D, L, P, stream)
+    lib.msda_bwd_bf16.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.msda_bwd_bf16.restype = ctypes.c_int
     # int window_accumulate(g, offsets (device int32 [positions + 1]),
     #                       rows (device int32 [nt * ph * pw]), out, positions, C, stream)
     lib.window_accumulate.argtypes = [_P, _P, _P, _P, _I, _I, _P]

@@ -27,9 +27,14 @@ def build_criterion():
     return CriterionConfig(**criterion_args)
 
 
-def build_model(device="cuda", seed=0):
-    """The model with weights drawn from ``seed``, in eval mode on ``device``."""
-    model = RelationDETR(**model_args, generator=torch.Generator().manual_seed(seed))
+def build_model(device="cuda", seed=0, backbone_dtype=None, compute_dtype=None,
+                remat_policy=None):
+    """The model with weights drawn from ``seed``, in eval mode on ``device``;
+    ``backbone_dtype`` / ``compute_dtype`` ("bfloat16": the bf16 policy) and
+    ``remat_policy`` as ``RelationDETR`` takes them."""
+    model = RelationDETR(**model_args, backbone_dtype=backbone_dtype,
+                         compute_dtype=compute_dtype, remat_policy=remat_policy,
+                         generator=torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 
 

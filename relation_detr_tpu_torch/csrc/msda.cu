@@ -63,7 +63,29 @@
 //   initialisation's identical offsets).
 // - The backward is not deterministic: float atomics add in a different
 //   order from run to run. grad_value must be zeroed by the caller.
+//
+// bf16-value forms (msda_fwd_bf16, msda_bwd_bf16): the same kernels,
+// templated on the value's element type, for the bf16 policy, where JAX's
+// gather computes value.astype(float32), samples in fp32 and casts the
+// output back (ops/msda.py:440-441, :488). The forward reads bf16 corners
+// (kV = 8 channels a lane, one 16-byte load: 4 lanes an item at D = 32,
+// so the 16 samples come in two chunks), accumulates in fp32 and writes
+// the output as bf16, rounded to nearest even. The backward reads the
+// bf16 value and the bf16 output gradient 4 channels a lane (8-byte
+// loads, the fp32 form's 8 lanes an item), keeps the location and weight
+// gradients fp32, adds the value gradient with the fp32 form's float4
+// atomics into an fp32 scratch tensor, and a second kernel writes it as
+// bf16 (the cotangent of JAX's astype). Every sum is the fp32 form's: the
+// only roundings the bf16 forms add are the output's and grad_value's.
+// Bytes per call fall to about half (the value, the output and their
+// gradients are 2 bytes an element). With 8 channels a lane the backward
+// took 1.02 ms at the encoder shape against the fp32 form's 0.57 on an
+// NVIDIA H100 80GB HBM3 at 700 W (80 registers, two float4 atomics a
+// corner and lane, two location chunks), hence 4.
+#include <cuda_bf16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,8 +103,9 @@ struct Levels {
   int64_t start[kMaxLevels];
 };
 
+template <typename T>
 struct Problem {
-  const float* value;  // (B, S, H, D)
+  const T* value;      // (B, S, H, D)
   const float* loc;    // (B, Q, H, L, P, 2)
   const float* attn;   // (B, Q, H, L, P)
   int64_t S, Q;
@@ -166,6 +189,41 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[kV]) {
   }
 }
 
+// kV bf16 channels in one load of 2 kV bytes, widened to fp32 (exact).
+template <int kV>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[kV]) {
+  if constexpr (kV == 1) {
+    v[0] = __bfloat162float(*p);
+  } else {
+    using Word = typename std::conditional<kV == 8, uint4,
+                 typename std::conditional<kV == 4, uint2, unsigned>::type>::type;
+    const Word t = __ldg(reinterpret_cast<const Word*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < kV / 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+}
+
+// kV fp32 values rounded to bf16 (nearest even) in one store of 2 kV bytes.
+template <int kV>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[kV]) {
+  if constexpr (kV == 1) {
+    *p = __float2bfloat16_rn(v[0]);
+  } else {
+    using Word = typename std::conditional<kV == 8, uint4,
+                 typename std::conditional<kV == 4, uint2, unsigned>::type>::type;
+    Word t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < kV / 2; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<Word*>(p) = t;
+  }
+}
+
 // One vector atomic add to global memory (sm_90's float2 / float4 atomicAdd).
 template <int kV>
 __device__ __forceinline__ void red_vec(float* p, const float (&v)[kV]) {
@@ -179,17 +237,17 @@ __device__ __forceinline__ void red_vec(float* p, const float (&v)[kV]) {
 }
 
 // s += v[row] * wgt over this lane's kV channels.
-template <int kV>
-__device__ __forceinline__ void add_corner(float (&s)[kV], const float* p, float wgt) {
+template <typename T, int kV>
+__device__ __forceinline__ void add_corner(float (&s)[kV], const T* p, float wgt) {
   float v[kV];
   load_vec<kV>(p, v);
 #pragma unroll
   for (int k = 0; k < kV; ++k) s[k] += v[k] * wgt;
 }
 
-template <int kV>
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
-    msda_fwd_kernel(Problem pb, Levels lv, float* __restrict__ out) {
+    msda_fwd_kernel(Problem<T> pb, Levels lv, T* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int G = pb.G, j = lane & (G - 1), gbase = lane & ~(G - 1);
   int64_t i = static_cast<int64_t>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
@@ -202,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* loc_i = pb.loc + i * n * 2;
   const float* attn_i = pb.attn + i * n;
   const int64_t row = static_cast<int64_t>(pb.H) * pb.D;  // stride of one token
-  const float* value_bh = pb.value + b * pb.S * row + static_cast<int64_t>(h) * pb.D;
+  const T* value_bh = pb.value + b * pb.S * row + static_cast<int64_t>(h) * pb.D;
 
   const bool one_chunk = n <= 2 * G;
   Chunk ch = load_chunk(loc_i, attn_i, 0, n, j, valid);
@@ -213,7 +271,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int l = 0; l < pb.L; ++l) {
       const int hl = lv.h[l];
       const int wl = lv.w[l];
-      const float* vl = value_bh + lv.start[l] * row + c0;
+      const T* vl = value_bh + lv.start[l] * row + c0;
       // unrolled so that the next point's corner loads start before this
       // point's sums are done
 #pragma unroll 4
@@ -239,17 +297,17 @@ __global__ void __launch_bounds__(kThreads)
         const float fy = y - y0f;
         const int x0 = static_cast<int>(x0f);
         const int y0 = static_cast<int>(y0f);
-        const float* v00 = vl + (static_cast<int64_t>(y0) * wl + x0) * row;
+        const T* v00 = vl + (static_cast<int64_t>(y0) * wl + x0) * row;
         // corners in the plain version's order: (0,0), (0,1), (1,0), (1,1)
         float s[kV] = {};
         if (y0 >= 0) {
-          if (x0 >= 0) add_corner<kV>(s, v00, (1.f - fx) * (1.f - fy));
-          if (x0 + 1 < wl) add_corner<kV>(s, v00 + row, fx * (1.f - fy));
+          if (x0 >= 0) add_corner<T, kV>(s, v00, (1.f - fx) * (1.f - fy));
+          if (x0 + 1 < wl) add_corner<T, kV>(s, v00 + row, fx * (1.f - fy));
         }
         if (y0 + 1 < hl) {
-          const float* v10 = v00 + static_cast<int64_t>(wl) * row;
-          if (x0 >= 0) add_corner<kV>(s, v10, (1.f - fx) * fy);
-          if (x0 + 1 < wl) add_corner<kV>(s, v10 + row, fx * fy);
+          const T* v10 = v00 + static_cast<int64_t>(wl) * row;
+          if (x0 >= 0) add_corner<T, kV>(s, v10, (1.f - fx) * fy);
+          if (x0 + 1 < wl) add_corner<T, kV>(s, v10 + row, fx * fy);
         }
 #pragma unroll
         for (int k = 0; k < kV; ++k) acc[k] += s[k] * sm.a;
@@ -300,10 +358,10 @@ __device__ __forceinline__ void store_sample_grads(float ga, float gx, float gy,
 }
 
 // Item = (b, q, head) in memory order; G * kV == D here (D a power of two
-// <= 32).
-template <int kV>
+// <= 32). grad_value is fp32 for either value type.
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
-    msda_bwd_kernel(Problem pb, Levels lv, const float* __restrict__ grad_out,
+    msda_bwd_kernel(Problem<T> pb, Levels lv, const T* __restrict__ grad_out,
                     float* __restrict__ grad_value, float* __restrict__ grad_loc,
                     float* __restrict__ grad_attn) {
   const int lane = threadIdx.x & 31;
@@ -320,7 +378,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* attn_i = pb.attn + i * n;
   const int64_t row = static_cast<int64_t>(pb.H) * pb.D;
   const int64_t off_bh = b * pb.S * row + static_cast<int64_t>(h) * pb.D + c0;
-  const float* value_bh = pb.value + off_bh;
+  const T* value_bh = pb.value + off_bh;
   float* gvalue_bh = grad_value + off_bh;
   float g[kV] = {};
   if (valid) load_vec<kV>(grad_out + i * pb.D + c0, g);
@@ -330,7 +388,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int l = 0; l < pb.L; ++l) {
     const int hl = lv.h[l];
     const int wl = lv.w[l];
-    const float* vl = value_bh + lv.start[l] * row;
+    const T* vl = value_bh + lv.start[l] * row;
     float* gvl = gvalue_bh + lv.start[l] * row;
     for (int p = 0; p < pb.P; ++p) {
       const int si = l * pb.P + p;
@@ -360,7 +418,7 @@ __global__ void __launch_bounds__(kThreads)
         const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
         const int64_t o00 = (static_cast<int64_t>(y0) * wl + x0) * row;
         const int64_t o10 = o00 + static_cast<int64_t>(wl) * row;
-        const float *p00 = vl + o00, *p10 = vl + o10;
+        const T *p00 = vl + o00, *p10 = vl + o10;
         float *q00 = gvl + o00, *q10 = gvl + o10;
         float v00[kV] = {}, v01[kV] = {}, v10[kV] = {}, v11[kV] = {};
         if (in_y0 && in_x0) load_vec<kV>(p00, v00);
@@ -412,11 +470,12 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// Channels per lane: 4 (16-byte accesses) where D and every channel
-// pointer allow it, else 2, else 1.
+// Channels per lane: as many as one 16-byte access holds (4 fp32, 8 bf16)
+// where D and every channel pointer allow it, else halved down to 1.
+template <typename T>
 int vec_width(int64_t D, const void* a, const void* b, const void* c = nullptr) {
-  for (int v = 4; v > 1; v /= 2) {
-    const int bytes = 4 * v;
+  for (int v = 16 / static_cast<int>(sizeof(T)); v > 1; v /= 2) {
+    const int bytes = static_cast<int>(sizeof(T)) * v;
     if (D % v == 0 && aligned(a, bytes) && aligned(b, bytes) && (!c || aligned(c, bytes)))
       return v;
   }
@@ -429,9 +488,10 @@ int pow2_at_least(int64_t x) {
   return p;
 }
 
-bool make_problem(const float* value, const int64_t* level_hw, const float* loc,
+template <typename T>
+bool make_problem(const T* value, const int64_t* level_hw, const float* loc,
                   const float* attn, int64_t S, int64_t Q, int64_t H, int64_t D, int64_t L,
-                  int64_t P, int G, Problem* pb, Levels* lv) {
+                  int64_t P, int G, Problem<T>* pb, Levels* lv) {
   pb->value = value;
   pb->loc = loc;
   pb->attn = attn;
@@ -450,18 +510,14 @@ int64_t grid(int64_t items, int G) {
   return (items + per_block - 1) / per_block;
 }
 
-}  // namespace
-
-// level_hw: host array of 2*L int64 (h0, w0, h1, w1, ...). All device
-// tensors fp32 and contiguous; stream is a cudaStream_t.
-extern "C" int msda_fwd(const float* value, const int64_t* level_hw,
-                        const float* loc, const float* attn, float* out,
-                        int64_t B, int64_t S, int64_t Q, int64_t H, int64_t D,
-                        int64_t L, int64_t P, void* stream) {
+template <typename T>
+int launch_fwd(const T* value, const int64_t* level_hw, const float* loc, const float* attn,
+               T* out, int64_t B, int64_t S, int64_t Q, int64_t H, int64_t D, int64_t L,
+               int64_t P, void* stream) {
   if (B < 0 || Q < 0 || H < 1 || D < 1 || P < 1) return RDETR_INVALID;
-  const int kv = vec_width(D, value, out);
+  const int kv = vec_width<T>(D, value, out);
   const int G = pow2_at_least((D + kv - 1) / kv);
-  Problem pb;
+  Problem<T> pb;
   Levels lv;
   if (!make_problem(value, level_hw, loc, attn, S, Q, H, D, L, P, G, &pb, &lv))
     return RDETR_INVALID;
@@ -471,10 +527,80 @@ extern "C" int msda_fwd(const float* value, const int64_t* level_hw,
   if (grid(pb.items, G) > 2147483647) return RDETR_INVALID;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>(grid(pb.items, G));
-  if (kv == 4) msda_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(pb, lv, out);
-  else if (kv == 2) msda_fwd_kernel<2><<<blocks, kThreads, 0, s>>>(pb, lv, out);
-  else msda_fwd_kernel<1><<<blocks, kThreads, 0, s>>>(pb, lv, out);
+  if constexpr (sizeof(T) == 2) {
+    if (kv == 8) {
+      msda_fwd_kernel<T, 8><<<blocks, kThreads, 0, s>>>(pb, lv, out);
+      RDETR_RETURN_LAUNCH_STATUS();
+    }
+  }
+  if (kv == 4) msda_fwd_kernel<T, 4><<<blocks, kThreads, 0, s>>>(pb, lv, out);
+  else if (kv == 2) msda_fwd_kernel<T, 2><<<blocks, kThreads, 0, s>>>(pb, lv, out);
+  else msda_fwd_kernel<T, 1><<<blocks, kThreads, 0, s>>>(pb, lv, out);
   RDETR_RETURN_LAUNCH_STATUS();
+}
+
+template <typename T>
+int launch_bwd(const T* value, const int64_t* level_hw, const float* loc, const float* attn,
+               const T* grad_out, float* grad_value, float* grad_loc, float* grad_attn,
+               int64_t B, int64_t S, int64_t Q, int64_t H, int64_t D, int64_t L, int64_t P,
+               void* stream) {
+  if (B < 0 || Q < 0 || H < 1 || P < 1 || D < 1 || D > 32 || (D & (D - 1)) != 0)
+    return RDETR_INVALID;
+  // at most 4 channels a lane (one float4 atomic a corner); the fp32
+  // accumulator's alignment is checked at its own width
+  int kv = vec_width<T>(D, value, grad_out);
+  if (kv > 4) kv = 4;
+  while (kv > 1 && !aligned(grad_value, 4 * kv)) kv /= 2;
+  Problem<T> pb;
+  Levels lv;
+  if (!make_problem(value, level_hw, loc, attn, S, Q, H, D, L, P, static_cast<int>(D / kv),
+                    &pb, &lv))
+    return RDETR_INVALID;
+  pb.ncb = 1;
+  pb.items = B * Q * H;
+  if (pb.items == 0) return 0;
+  if (grid(pb.items, pb.G) > 2147483647) return RDETR_INVALID;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(grid(pb.items, pb.G));
+  if (kv == 4)
+    msda_bwd_kernel<T, 4><<<blocks, kThreads, 0, s>>>(pb, lv, grad_out, grad_value, grad_loc,
+                                                      grad_attn);
+  else if (kv == 2)
+    msda_bwd_kernel<T, 2><<<blocks, kThreads, 0, s>>>(pb, lv, grad_out, grad_value, grad_loc,
+                                                      grad_attn);
+  else
+    msda_bwd_kernel<T, 1><<<blocks, kThreads, 0, s>>>(pb, lv, grad_out, grad_value, grad_loc,
+                                                      grad_attn);
+  RDETR_RETURN_LAUNCH_STATUS();
+}
+
+// out[i] = bf16(in[i]), rounded to nearest even; four a thread where the
+// pointers allow 16-byte / 8-byte accesses.
+__global__ void __launch_bounds__(256)
+    to_bf16_kernel(const float* __restrict__ in, __nv_bfloat16* __restrict__ out, int64_t n,
+                   bool vec4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec4) {
+    for (; 4 * t + 3 < n; t += stride) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(in) + t);
+      const float f[4] = {v.x, v.y, v.z, v.w};
+      store_vec<4>(out + 4 * t, f);
+    }
+    t = (n / 4) * 4 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  }
+  for (; t < n; t += stride) out[t] = __float2bfloat16_rn(in[t]);
+}
+
+}  // namespace
+
+// level_hw: host array of 2*L int64 (h0, w0, h1, w1, ...). All device
+// tensors fp32 and contiguous; stream is a cudaStream_t.
+extern "C" int msda_fwd(const float* value, const int64_t* level_hw,
+                        const float* loc, const float* attn, float* out,
+                        int64_t B, int64_t S, int64_t Q, int64_t H, int64_t D,
+                        int64_t L, int64_t P, void* stream) {
+  return launch_fwd<float>(value, level_hw, loc, attn, out, B, S, Q, H, D, L, P, stream);
 }
 
 // Gradients of msda_fwd. grad_out is (B, Q, H*D); grad_value (B, S, H, D)
@@ -487,29 +613,38 @@ extern "C" int msda_bwd(const float* value, const int64_t* level_hw,
                         float* grad_loc, float* grad_attn, int64_t B,
                         int64_t S, int64_t Q, int64_t H, int64_t D, int64_t L,
                         int64_t P, void* stream) {
-  if (B < 0 || Q < 0 || H < 1 || P < 1 || D < 1 || D > 32 || (D & (D - 1)) != 0)
-    return RDETR_INVALID;
-  const int kv = vec_width(D, value, grad_out, grad_value);
-  Problem pb;
-  Levels lv;
-  if (!make_problem(value, level_hw, loc, attn, S, Q, H, D, L, P, static_cast<int>(D / kv),
-                    &pb, &lv))
-    return RDETR_INVALID;
-  pb.ncb = 1;
-  pb.items = B * Q * H;
-  if (pb.items == 0) return 0;
-  if (grid(pb.items, pb.G) > 2147483647) return RDETR_INVALID;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>(grid(pb.items, pb.G));
-  if (kv == 4)
-    msda_bwd_kernel<4><<<blocks, kThreads, 0, s>>>(pb, lv, grad_out, grad_value, grad_loc,
-                                                   grad_attn);
-  else if (kv == 2)
-    msda_bwd_kernel<2><<<blocks, kThreads, 0, s>>>(pb, lv, grad_out, grad_value, grad_loc,
-                                                   grad_attn);
-  else
-    msda_bwd_kernel<1><<<blocks, kThreads, 0, s>>>(pb, lv, grad_out, grad_value, grad_loc,
-                                                   grad_attn);
+  return launch_bwd<float>(value, level_hw, loc, attn, grad_out, grad_value, grad_loc,
+                           grad_attn, B, S, Q, H, D, L, P, stream);
+}
+
+// msda_fwd on a bf16 value: out (B, Q, H*D) is bf16; locations and weights
+// fp32.
+extern "C" int msda_fwd_bf16(const __nv_bfloat16* value, const int64_t* level_hw,
+                             const float* loc, const float* attn, __nv_bfloat16* out,
+                             int64_t B, int64_t S, int64_t Q, int64_t H, int64_t D,
+                             int64_t L, int64_t P, void* stream) {
+  return launch_fwd<__nv_bfloat16>(value, level_hw, loc, attn, out, B, S, Q, H, D, L, P,
+                                   stream);
+}
+
+// msda_bwd on a bf16 value and bf16 grad_out: grad_acc (B, S, H, D) fp32,
+// zeroed by the caller, takes the sums; grad_value (B, S, H, D) bf16 gets
+// them rounded; grad_loc and grad_attn are fp32, written whole.
+extern "C" int msda_bwd_bf16(const __nv_bfloat16* value, const int64_t* level_hw,
+                             const float* loc, const float* attn,
+                             const __nv_bfloat16* grad_out, float* grad_acc,
+                             __nv_bfloat16* grad_value, float* grad_loc, float* grad_attn,
+                             int64_t B, int64_t S, int64_t Q, int64_t H, int64_t D,
+                             int64_t L, int64_t P, void* stream) {
+  const int code = launch_bwd<__nv_bfloat16>(value, level_hw, loc, attn, grad_out, grad_acc,
+                                             grad_loc, grad_attn, B, S, Q, H, D, L, P, stream);
+  const int64_t n = B * S * H * D;
+  if (code != 0 || n == 0) return code;
+  const bool vec4 = aligned(grad_acc, 16) && aligned(grad_value, 8);
+  const int64_t work = vec4 ? (n + 3) / 4 : n;
+  const unsigned blocks = static_cast<unsigned>(work / 256 + 1 < 4096 ? work / 256 + 1 : 4096);
+  to_bf16_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(grad_acc, grad_value,
+                                                                        n, vec4);
   RDETR_RETURN_LAUNCH_STATUS();
 }
 

@@ -1,5 +1,13 @@
 """Attention modules: dense MHA with an additive logit bias, and multi-scale
 deformable attention. Counterpart of ``relation_detr_tpu/models/attention.py``.
+
+Under a compute dtype (``layers.set_compute_dtype``) the projections run in
+it and the rest keeps the JAX package's fp32 islands: the MHA logits are
+fp32 sums of the compute-dtype products, the bias and the softmax fp32, the
+probabilities cast back before the product with v; MSDA's offsets and
+weights are rounded to the compute dtype by their projections and then
+taken in fp32 (locations, softmax), and the sampling core takes the
+compute-dtype value and returns its dtype.
 """
 from __future__ import annotations
 
@@ -7,19 +15,62 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from relation_detr_tpu_torch.models.layers import xavier_
+from relation_detr_tpu_torch.models.layers import Linear, linear, xavier_
 from relation_detr_tpu_torch.ops.msda import multi_scale_deformable_attention
+
+
+class _Fp32Logits(torch.autograd.Function):
+    """(N, Q, D) x (N, D, K) compute-dtype operands -> fp32 (N, Q, K) on the
+    tensor cores (``torch.bmm``'s ``out_dtype``, which has no derivative).
+    The gradients are JAX's transpose of its einsum: the fp32 cotangent
+    times the upcast other operand, in fp32, rounded to the operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k = ctx.saved_tensors
+        grad_q = grad_k = None
+        if ctx.needs_input_grad[0]:
+            grad_q = torch.bmm(grad, k.float().transpose(1, 2)).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_k = torch.bmm(q.float().transpose(1, 2), grad).to(k.dtype)
+        return grad_q, grad_k
+
+
+def attention_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, Q, H, D) x (B, K, H, D) -> (B, H, Q, K) in fp32 (JAX's einsum with
+    ``preferred_element_type=float32``): for bf16 operands the products are
+    exact and summed in fp32. On the card the product stays on the tensor
+    cores (``_Fp32Logits``); on the CPU, which has no such kernel, the
+    operands are upcast (the same sums, and through autograd the same
+    gradients)."""
+    if q.dtype == torch.float32:
+        return torch.einsum("bqhd,bkhd->bhqk", q, k)
+    b, nq, h, d = q.shape
+    qt = q.permute(0, 2, 1, 3).reshape(b * h, nq, d)
+    kt = k.permute(0, 2, 3, 1).reshape(b * h, d, k.shape[1])
+    if q.device.type == "cpu":
+        out = torch.bmm(qt.float(), kt.float())
+    else:
+        out = _Fp32Logits.apply(qt, kt)
+    return out.reshape(b, h, nq, k.shape[1])
 
 
 class MultiheadAttention(nn.Module):
     """Dense multi-head attention with an optional additive (B, H, Q, K)
-    bias: plain matmuls and a softmax (``attention.py:61-67``; the port
-    runs in fp32 throughout).
+    bias: plain matmuls and a softmax (``attention.py:36-75``), under a
+    compute dtype with fp32 logits and softmax.
     Parameters use torch's ``nn.MultiheadAttention`` names (in_proj_weight
     holds q/k/v stacked, out_proj)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -27,7 +78,7 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
 
     def init_weights(self, generator: torch.Generator) -> None:
         # xavier over each (C, C) projection, as the JAX q/k/v Dense layers
@@ -37,17 +88,17 @@ class MultiheadAttention(nn.Module):
         xavier_(self.out_proj, generator)
 
     def forward(self, query, key, value, attn_bias: Optional[torch.Tensor] = None):
-        c, h = self.embed_dim, self.num_heads
+        c, h, dt = self.embed_dim, self.num_heads, self.compute_dtype
         w, b = self.in_proj_weight, self.in_proj_bias
-        q = F.linear(query, w[:c], b[:c])
-        k = F.linear(key, w[c:2 * c], b[c:2 * c])
-        v = F.linear(value, w[2 * c:], b[2 * c:])
+        q = linear(query, w[:c], b[:c], dt)
+        k = linear(key, w[c:2 * c], b[c:2 * c], dt)
+        v = linear(value, w[2 * c:], b[2 * c:], dt)
         q, k, v = (t.reshape(t.shape[0], t.shape[1], h, c // h) for t in (q, k, v))
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(c // h)
+        logits = attention_logits(q, k) / math.sqrt(c // h)
         if attn_bias is not None:
             logits = logits + attn_bias
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        probs = torch.softmax(logits, dim=-1)  # fp32
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
         return self.out_proj(out.reshape(out.shape[0], out.shape[1], c))
 
 
@@ -76,10 +127,10 @@ class MultiScaleDeformableAttention(nn.Module):
         self.num_levels = num_levels
         self.num_heads = num_heads
         self.num_points = num_points
-        self.sampling_offsets = nn.Linear(embed_dim, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(embed_dim, num_heads * num_levels * num_points)
-        self.value_proj = nn.Linear(embed_dim, embed_dim)
-        self.output_proj = nn.Linear(embed_dim, embed_dim)
+        self.sampling_offsets = Linear(embed_dim, num_heads * num_levels * num_points * 2)
+        self.attention_weights = Linear(embed_dim, num_heads * num_levels * num_points)
+        self.value_proj = Linear(embed_dim, embed_dim)
+        self.output_proj = Linear(embed_dim, embed_dim)
 
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.sampling_offsets.weight)
@@ -107,8 +158,10 @@ class MultiScaleDeformableAttention(nn.Module):
             value = value.masked_fill(key_padding_mask[..., None], 0.0)
         value = value.reshape(bs, value.shape[1], h, self.embed_dim // h)
 
-        offsets = self.sampling_offsets(query).reshape(bs, num_queries, h, l, p, 2)
-        weights = self.attention_weights(query).reshape(bs, num_queries, h, l * p)
+        # rounded to the compute dtype by the projections, then fp32: the
+        # rounded offsets are what the locations are made of, as in JAX
+        offsets = self.sampling_offsets(query).float().reshape(bs, num_queries, h, l, p, 2)
+        weights = self.attention_weights(query).float().reshape(bs, num_queries, h, l * p)
         weights = torch.softmax(weights, dim=-1).reshape(bs, num_queries, h, l, p)
 
         if reference_points.shape[-1] == 2:

@@ -6,15 +6,22 @@ layer{s}.{b}.conv{n}, downsample.0/1).
 The stem and ``layer1`` are frozen (``requires_grad=False``, so the
 optimizer never holds them), as the reference freezes them
 (``freeze_indices=(0,)``); this is the port's form of the JAX package's
-``utils/param_groups.py::is_frozen`` mask."""
+``utils/param_groups.py::is_frozen`` mask.
+
+``compute_dtype`` (the JAX module's ``dtype``; ``set_compute_dtype`` sets it
+on the backbone and its convolutions) runs the convolutions in that dtype:
+the input is cast before ``conv1`` and the activations after ``bn1`` and
+after every block, as the JAX module casts them (``resnet.py:140-203``);
+FrozenBatchNorm's fp32 buffers promote a bf16 conv output to fp32 in
+between, as in JAX, and each returned stage output is fp32."""
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from relation_detr_tpu_torch.models.layers import FrozenBatchNorm
+from relation_detr_tpu_torch.models.layers import Conv2d, FrozenBatchNorm
 
 # arch -> (block, stage sizes, groups, width_per_group), as the JAX table
 ARCH_SETTINGS = {
@@ -33,7 +40,7 @@ ARCH_SETTINGS = {
 
 
 def _conv(cin, cout, kernel, stride=1, groups=1):
-    return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups, bias=False)
+    return Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups, bias=False)
 
 
 def _init_convs(module: nn.Module, generator: torch.Generator) -> None:
@@ -96,7 +103,9 @@ class Bottleneck(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """ResNet feature extractor: (B, 3, H, W) -> stage outputs selected by
-    ``return_indices`` (0 = layer1 ... 3 = layer4), NCHW."""
+    ``return_indices`` (0 = layer1 ... 3 = layer4), NCHW, fp32."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, arch: str = "resnet50", return_indices: Sequence[int] = (1, 2, 3)):
         super().__init__()
@@ -131,11 +140,16 @@ class ResNetBackbone(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.kaiming_normal_(self.conv1.weight, mode="fan_out", generator=generator)
 
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        x = self._cast(self.bn1(self.conv1(self._cast(x))))
+        x = self.maxpool(torch.relu(x))
         outputs = []
         for stage_idx in range(4):
-            x = getattr(self, f"layer{stage_idx + 1}")(x)
+            for block in getattr(self, f"layer{stage_idx + 1}"):
+                x = self._cast(block(x))
             if stage_idx in self.return_indices:
-                outputs.append(x)
+                outputs.append(x.float())
         return outputs

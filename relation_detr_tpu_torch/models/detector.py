@@ -5,6 +5,14 @@ As in the JAX package, resizing, normalising and padding to the canvas happen
 on the host; the model takes a (B, H, W, 3) canvas and a (B, H, W) padding
 mask (True = padding) and returns the raw heads; ``post_process`` decodes
 them and ``losses.criterion.relation_detr_loss`` scores the train forward.
+
+The precision policy is the JAX module's two fields (``detector.py:70-80``,
+the reference's ``--mixed-precision bf16``): ``backbone_dtype`` runs the
+backbone's convolutions in that dtype, ``compute_dtype`` the encoder and
+decoder layers' projections (MHA, MSDA, FFN) and the memory fusion. The
+neck, every LayerNorm, the heads, the relation embedding, the MSDA
+sampling arithmetic and softmaxes, the CDN generator and the loss stay
+fp32; parameters are fp32 either way (the same state_dict).
 """
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ from torch import nn
 
 from relation_detr_tpu_torch.models.backbones import build_backbone
 from relation_detr_tpu_torch.models.denoising import GenerateCDNQueries
-from relation_detr_tpu_torch.models.layers import init_weights
+from relation_detr_tpu_torch.models.layers import init_weights, resolve_dtype, set_compute_dtype
 from relation_detr_tpu_torch.models.neck import ChannelMapper
 from relation_detr_tpu_torch.models.position_encoding import position_embedding_sine
 from relation_detr_tpu_torch.models.transformer import RelationTransformer
@@ -32,8 +40,10 @@ def downsample_mask(mask: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor
 
 class RelationDETR(nn.Module):
     """Backbone -> neck -> transformer. Constructor arguments are the JAX
-    module's fields; ``generator`` seeds the initialisation (the model is
-    built on CPU; move it with ``.to(device)``)."""
+    module's fields (``backbone_dtype`` / ``compute_dtype``: None or
+    "bfloat16"; ``remat_policy``: see ``transformer.resolve_remat_policy``);
+    ``generator`` seeds the initialisation (the model is built on CPU; move
+    it with ``.to(device)``)."""
 
     def __init__(
         self,
@@ -49,6 +59,9 @@ class RelationDETR(nn.Module):
         transformer_enc_layers: int = 6,
         transformer_dec_layers: int = 6,
         backbone_arch: str = "resnet50",
+        backbone_dtype: Optional[str] = None,
+        compute_dtype: Optional[str] = None,
+        remat_policy: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -68,9 +81,15 @@ class RelationDETR(nn.Module):
             num_decoder_layers=transformer_dec_layers,
             two_stage_num_proposals=num_queries,
             hybrid_num_proposals=hybrid_num_proposals,
+            remat_policy=remat_policy,
         )
         self.denoising_generator = GenerateCDNQueries(num_classes, embed_dim, denoising_nums)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
+        # the bf16 islands: the JAX modules built with dtype=compute dtype
+        set_compute_dtype(self.backbone, resolve_dtype(backbone_dtype))
+        encoder, decoder = self.transformer.encoder, self.transformer.decoder
+        for island in (encoder.layers, encoder.memory_fusion, decoder.layers):
+            set_compute_dtype(island, resolve_dtype(compute_dtype))
 
     def forward(
         self,

@@ -5,6 +5,16 @@ Initialisation follows the JAX modules (which follow the reference): every
 module of the port that owns parameters has ``init_weights(generator)``,
 and ``init_weights(model, generator)`` walks a model once. Norm epsilons are
 the JAX package's (flax LayerNorm/GroupNorm: 1e-6), not torch's 1e-5.
+
+The precision policy: ``Linear`` and ``Conv2d`` carry a ``compute_dtype``,
+the counterpart of flax's ``nn.Dense(dtype=...)`` / ``nn.Conv(dtype=...)``.
+With a dtype set the input, the fp32 weight and the bias are cast to it and
+the result comes out in it; parameters stay fp32. ``set_compute_dtype``
+sets it on every such module below a root (the detector names its bf16
+islands with it). flax rounds the product and then adds the bias in the
+compute dtype; ``F.linear`` adds the bias in the fp32 accumulator and
+rounds once, which on the card saves a launch per layer. The difference is
+one bf16 rounding of the product (tests/test_torch_bf16.py measures it).
 """
 from __future__ import annotations
 
@@ -12,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm / GroupNorm default
@@ -40,6 +51,54 @@ def prior_prob_bias(prior_prob: float = 0.01) -> float:
 
 def with_pos_embed(tensor: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
     return tensor if pos is None else tensor + pos
+
+
+def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A config's dtype string ("bfloat16", "float32", ...) or None."""
+    if name is None:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"unknown compute dtype {name!r}")
+    return dtype
+
+
+def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``F.linear`` in ``compute_dtype`` (None: as the tensors come)."""
+    return F.linear(_cast(x, compute_dtype), _cast(weight, compute_dtype),
+                    _cast(bias, compute_dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with a compute dtype (flax ``nn.Dense(dtype=...)``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype (flax ``nn.Conv(dtype=...)``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+
+
+def set_compute_dtype(root: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Set ``compute_dtype`` on ``root`` and every module below it that has
+    one (``Linear``, ``Conv2d`` and the modules that cast on their own)."""
+    for module in root.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = dtype
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -14,14 +14,32 @@ every decoder layer, and alone at layer 0), and the hybrid branch takes its
 own top-k proposals through a second decoder pass without relation bias.
 Every ``stop_gradient`` of the JAX module is a ``.detach()`` at the same
 place. The model-family switches (DINO++, Def-DETR++, DN++, DAB++) are
-ROADMAP Queue 1 item 11.
+ROADMAP Queue 1 item 9.
+
+Under a compute dtype (set on the encoder and decoder layers and the memory
+fusion, ``detector.py``) each layer's projections return it and every
+residual add promotes back to fp32 (``query + attn``: fp32 + bf16, as in
+JAX), so LayerNorms, heads, ``ref_point_head``, ``query_scale``,
+``enc_output`` and the relation embedding stay fp32.
+
+``remat_policy`` (``resolve_remat_policy``) recomputes each encoder and
+decoder layer in the backward with ``torch.utils.checkpoint``. Unset, the
+port recomputes nothing (where the JAX package's default is full
+rematerialisation, for a 16 GB chip).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from relation_detr_tpu_torch.models import base_transformer as bt
 from relation_detr_tpu_torch.models.attention import (
@@ -31,6 +49,7 @@ from relation_detr_tpu_torch.models.attention import (
 from relation_detr_tpu_torch.models.layers import (
     LN_EPS,
     MLP,
+    Linear,
     lecun_,
     prior_prob_bias,
     with_pos_embed,
@@ -39,6 +58,50 @@ from relation_detr_tpu_torch.models.layers import (
 from relation_detr_tpu_torch.models.position_encoding import get_sine_pos_embed
 from relation_detr_tpu_torch.models.relation import PositionRelationEmbedding
 from relation_detr_tpu_torch.ops.boxes import inverse_sigmoid
+
+# matmul outputs saved by a policy (JAX's dots_saveable saves every dot,
+# checkpoint_dots_with_no_batch_dims the unbatched ones)
+_SAVED_PRODUCTS = {
+    "dots": ("mm", "addmm", "bmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _call(layer: nn.Module, *args):
+    return layer(*args)
+
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(context_fn, layer: nn.Module, *args):
+    if not torch.is_grad_enabled():
+        return layer(*args)
+    return checkpoint(layer, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def resolve_remat_policy(name: Optional[str]) -> Callable:
+    """``run(layer, *args)`` under rematerialisation policy ``name`` (JAX
+    ``transformer.py:42-64``): "none" recomputes the whole layer in the
+    backward; "dots" saves the ``mm`` / ``addmm`` / ``bmm`` outputs and
+    recomputes the rest; "dots_no_batch" saves ``mm`` / ``addmm`` only;
+    "save_all" and None (the port's default) recompute nothing. The MSDA
+    kernels run in an autograd Function, no aten product: every policy
+    but save_all launches ``msda_fwd`` again in the backward, as JAX's
+    dots recomputes its gather."""
+    if name in (None, "save_all"):
+        return _call
+    if name == "none":
+        return functools.partial(_checkpointed, noop_context_fn)
+    if name not in _SAVED_PRODUCTS:
+        raise ValueError(f"unknown remat policy {name!r}; use none|dots|dots_no_batch|save_all")
+    saved = frozenset(getattr(torch.ops.aten, n) for n in _SAVED_PRODUCTS[name])
+    policy = functools.partial(_save_products, saved)
+    return functools.partial(
+        _checkpointed, functools.partial(create_selective_checkpoint_contexts, policy))
+
 
 def _init_class_head(layer: nn.Linear, generator: torch.Generator) -> None:
     lecun_(layer, generator)
@@ -52,8 +115,8 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = MultiScaleDeformableAttention(embed_dim, num_levels, num_heads, num_points)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.linear1 = nn.Linear(embed_dim, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, embed_dim)
+        self.linear1 = Linear(embed_dim, d_ffn)
+        self.linear2 = Linear(d_ffn, embed_dim)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -74,18 +137,19 @@ class RelationTransformerEncoder(nn.Module):
     """Encoder with memory fusion over all layer outputs."""
 
     def __init__(self, embed_dim=256, d_ffn=2048, num_heads=8, num_levels=4,
-                 num_points=4, num_layers=6):
+                 num_points=4, num_layers=6, remat_policy: Optional[str] = None):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, d_ffn, num_heads, num_levels, num_points)
             for _ in range(num_layers)
         )
         self.memory_fusion = nn.Sequential(
-            nn.Linear((num_layers + 1) * embed_dim, embed_dim),
+            Linear((num_layers + 1) * embed_dim, embed_dim),
             nn.ReLU(),
-            nn.Linear(embed_dim, embed_dim),
+            Linear(embed_dim, embed_dim),
             nn.LayerNorm(embed_dim, eps=LN_EPS),
         )
+        self.run_layer = resolve_remat_policy(remat_policy)
 
     def init_weights(self, generator: torch.Generator) -> None:
         lecun_(self.memory_fusion[0], generator)
@@ -94,9 +158,13 @@ class RelationTransformerEncoder(nn.Module):
     def forward(self, query, query_pos, reference_points, spatial_shapes, key_padding_mask):
         states = [query]
         for layer in self.layers:
-            query = layer(query, query_pos, reference_points, spatial_shapes, key_padding_mask)
+            query = self.run_layer(layer, query, query_pos, reference_points, spatial_shapes,
+                                   key_padding_mask)
             states.append(query)
-        return self.memory_fusion(torch.cat(states, dim=-1))
+        fc0, relu, fc1, norm = self.memory_fusion
+        # the LayerNorm takes the fusion's compute-dtype output as fp32 (flax
+        # promotes it against its fp32 parameters)
+        return norm(fc1(relu(fc0(torch.cat(states, dim=-1)))).float())
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -108,8 +176,8 @@ class TransformerDecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.cross_attn = MultiScaleDeformableAttention(embed_dim, num_levels, num_heads, num_points)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.linear1 = nn.Linear(embed_dim, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, embed_dim)
+        self.linear1 = Linear(embed_dim, d_ffn)
+        self.linear2 = Linear(d_ffn, embed_dim)
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -135,9 +203,10 @@ class RelationTransformerDecoder(nn.Module):
     position-relation bias between consecutive layers' boxes."""
 
     def __init__(self, num_classes, embed_dim=256, d_ffn=2048, num_heads=8,
-                 num_levels=4, num_points=4, num_layers=6):
+                 num_levels=4, num_points=4, num_layers=6, remat_policy: Optional[str] = None):
         super().__init__()
         self.embed_dim = embed_dim
+        self.run_layer = resolve_remat_policy(remat_policy)
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(embed_dim, d_ffn, num_heads, num_levels, num_points)
             for _ in range(num_layers)
@@ -173,8 +242,8 @@ class RelationTransformerDecoder(nn.Module):
             query_pos = self.ref_point_head(query_sine)
             if layer_idx != 0:
                 query_pos = query_pos * self.query_scale(query)
-            query = layer(query, query_pos, ref_input, value, spatial_shapes,
-                          key_padding_mask, pos_relation)
+            query = self.run_layer(layer, query, query_pos, ref_input, value, spatial_shapes,
+                                   key_padding_mask, pos_relation)
 
             normed = self.norm(query)
             bbox_head = self.bbox_head[layer_idx]
@@ -203,16 +272,17 @@ class RelationTransformer(nn.Module):
     def __init__(self, num_classes, embed_dim=256, d_ffn=2048, num_heads=8,
                  num_feature_levels=4, num_points=4, num_encoder_layers=6,
                  num_decoder_layers=6, two_stage_num_proposals=900,
-                 hybrid_num_proposals=1500):
+                 hybrid_num_proposals=1500, remat_policy: Optional[str] = None):
         super().__init__()
         self.num_classes = num_classes
         self.two_stage_num_proposals = two_stage_num_proposals
         self.encoder = RelationTransformerEncoder(
-            embed_dim, d_ffn, num_heads, num_feature_levels, num_points, num_encoder_layers
+            embed_dim, d_ffn, num_heads, num_feature_levels, num_points, num_encoder_layers,
+            remat_policy,
         )
         self.decoder = RelationTransformerDecoder(
             num_classes, embed_dim, d_ffn, num_heads, num_feature_levels, num_points,
-            num_decoder_layers,
+            num_decoder_layers, remat_policy,
         )
         self.level_embeds = nn.Parameter(torch.empty(num_feature_levels, embed_dim))
         self.enc_output = nn.Linear(embed_dim, embed_dim)

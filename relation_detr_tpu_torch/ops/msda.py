@@ -16,6 +16,12 @@ backward launches ``msda_bwd`` (grads for value, sampling locations and
 attention weights), or raises. ``msda_backward`` is the backward's wrapper
 and ``msda_backward_reference`` its plain version (autograd through
 ``msda_reference``).
+
+The value may be fp32 or, under the bf16 policy, bf16 (locations and
+weights fp32 either way), as the JAX gather takes it: sampled in fp32, the
+output and ``grad_value`` in the value's dtype. A bf16 value on the card
+goes to the kernels' bf16-value forms (``msda_fwd_bf16``,
+``msda_bwd_bf16``), which read it as it is; the plain versions upcast.
 """
 from __future__ import annotations
 
@@ -156,8 +162,10 @@ def _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weight
     tensors = (value, sampling_locations, attention_weights)
     if any(t.device != value.device for t in tensors):
         raise ValueError("MSDA: all tensors must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("MSDA kernel takes float32 tensors only")
+    if value.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != torch.float32 for t in (sampling_locations, attention_weights)):
+        raise TypeError("MSDA kernel takes a float32 or bfloat16 value and float32 "
+                        "locations and weights")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("MSDA kernel takes contiguous tensors only")
     bs, total, num_heads, head_dim = value.shape
@@ -183,19 +191,22 @@ def _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights):
     bs, total, num_heads, head_dim = value.shape
     _, num_queries, _, num_levels, num_points, _ = sampling_locations.shape
     out = torch.empty(
-        bs, num_queries, num_heads * head_dim, device=value.device, dtype=torch.float32
+        bs, num_queries, num_heads * head_dim, device=value.device, dtype=value.dtype
     )
+    bf16 = value.dtype == torch.bfloat16
+    entry = lib.msda_fwd_bf16 if bf16 else lib.msda_fwd
     level_hw = _level_hw(spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.msda_fwd(
+        code = entry(
             value.data_ptr(), ctypes.addressof(level_hw),
             sampling_locations.data_ptr(), attention_weights.data_ptr(),
             out.data_ptr(), bs, total, num_queries, num_heads, head_dim,
             num_levels, num_points, stream,
         )
-    _build.check(lib, code, "msda_fwd")
+    _build.check(lib, code, "msda_fwd_bf16" if bf16 else "msda_fwd")
     multi_scale_deformable_attention.launches += 1
+    multi_scale_deformable_attention.bf16_launches += bf16
     return out
 
 
@@ -212,9 +223,10 @@ def msda_backward_reference(value, spatial_shapes, sampling_locations,
 
 def msda_backward(value, spatial_shapes, sampling_locations, attention_weights,
                   grad_out):
-    """Launch ``csrc/msda.cu::msda_bwd`` on CUDA tensors: grad_out
-    (B, Q, H * D) -> (grad_value (B, S, H, D), grad_locations
-    (B, Q, H, L, P, 2), grad_weights (B, Q, H, L, P)), fp32. The head dim D
+    """Launch ``csrc/msda.cu::msda_bwd`` (``msda_bwd_bf16`` for a bf16
+    value) on CUDA tensors: grad_out (B, Q, H * D), taken in the value's
+    dtype -> (grad_value (B, S, H, D) in the value's dtype, grad_locations
+    (B, Q, H, L, P, 2), grad_weights (B, Q, H, L, P) fp32). The head dim D
     must be a power of two <= 32 (the channel reduction is a warp shuffle)."""
     _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
     bs, total, num_heads, head_dim = value.shape
@@ -224,32 +236,42 @@ def msda_backward(value, spatial_shapes, sampling_locations, attention_weights,
                          f"got {head_dim}")
     if grad_out.shape != (bs, num_queries, num_heads * head_dim):
         raise ValueError(f"msda_bwd: bad grad_out {tuple(grad_out.shape)}")
-    grad_out = grad_out.to(torch.float32).contiguous()
+    grad_out = grad_out.to(value.dtype).contiguous()
     lib = _build.load_library()
-    grad_value = torch.zeros_like(value)
+    bf16 = value.dtype == torch.bfloat16
+    # the kernel adds the value gradient in fp32: into grad_value itself, or
+    # for a bf16 value into an fp32 accumulator that msda_bwd_bf16 rounds
+    grad_acc = torch.zeros_like(value, dtype=torch.float32)
+    grad_value = torch.empty_like(value) if bf16 else grad_acc
     grad_loc = torch.empty_like(sampling_locations)
     grad_attn = torch.empty_like(attention_weights)
     level_hw = _level_hw(spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.msda_bwd(
-            value.data_ptr(), ctypes.addressof(level_hw),
-            sampling_locations.data_ptr(), attention_weights.data_ptr(),
-            grad_out.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
-            grad_attn.data_ptr(), bs, total, num_queries, num_heads, head_dim,
-            num_levels, num_points, stream,
-        )
-    _build.check(lib, code, "msda_bwd")
+        common = (value.data_ptr(), ctypes.addressof(level_hw),
+                  sampling_locations.data_ptr(), attention_weights.data_ptr(),
+                  grad_out.data_ptr(), grad_acc.data_ptr())
+        sizes = (bs, total, num_queries, num_heads, head_dim, num_levels, num_points, stream)
+        if bf16:
+            code = lib.msda_bwd_bf16(*common, grad_value.data_ptr(), grad_loc.data_ptr(),
+                                     grad_attn.data_ptr(), *sizes)
+        else:
+            code = lib.msda_bwd(*common, grad_loc.data_ptr(), grad_attn.data_ptr(), *sizes)
+    _build.check(lib, code, "msda_bwd_bf16" if bf16 else "msda_bwd")
     msda_backward.launches += 1
+    msda_backward.bf16_launches += bf16
     return grad_value, grad_loc, grad_attn
 
 
+# launches of either form, and of the bf16-value form alone
 msda_backward.launches = 0
+msda_backward.bf16_launches = 0
 
 
 class MSDAFunction(torch.autograd.Function):
     """The MSDA core on CUDA tensors: forward ``msda_fwd``, backward
-    ``msda_bwd``."""
+    ``msda_bwd`` (their bf16-value forms for a bf16 value); ``grad_value``
+    comes back in the value's dtype."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
@@ -296,3 +318,4 @@ def multi_scale_deformable_attention(
 
 
 multi_scale_deformable_attention.launches = 0
+multi_scale_deformable_attention.bf16_launches = 0

@@ -32,13 +32,21 @@ draws: the loader shuffles by (seed, epoch), each sample's augmentation
 draws from a generator of (seed, epoch, index), and the CDN draws from
 (seed, step).
 
+``--mixed-precision bf16`` builds the model under the bf16 policy (the
+backbone's convolutions and the transformer layers' projections in bf16,
+the JAX package's fp32 islands kept; parameters, gradients, the clip and
+AdamW fp32; no loss scaling, as in JAX). ``--remat-policy`` recomputes each
+transformer layer in the backward (``models/transformer.py::
+resolve_remat_policy``); unset, nothing is recomputed, also under bf16
+(where the JAX CLI picks "dots"). A ``--resume`` of a directory must use
+the run's ``--mixed-precision``; the checkpoint records it.
+
 ``--device cpu`` runs on the CPU (the kernels' plain versions), for tests;
 the CPU has no JPEG decoder, so a caller of ``main`` passes ``decode=``.
 
-Not ported, and raising: ``--mixed-precision bf16`` (ROADMAP Queue 1 item
-7), ``--remat-policy`` other than ``none`` (item 7), ``--tensorboard``
-without a ``tensorboard`` package, multi-process data parallelism (item 8),
-and the JAX package's TPU-only MSDA settings, as in the port's ``test.py``.
+Not ported, and raising: ``--tensorboard`` without a ``tensorboard``
+package, multi-process data parallelism (ROADMAP Queue 1 item 8), and the
+JAX package's TPU-only MSDA settings, as in the port's ``test.py``.
 """
 from __future__ import annotations
 
@@ -100,13 +108,17 @@ def parse_args(argv=None):
     p.add_argument("--profile-steps", default=None,
                    help="START,STOP step range to trace with torch.profiler")
     p.add_argument("--mixed-precision", default="no", choices=("no", "bf16"),
-                   help="bf16 is not ported yet")
+                   help="bf16: the backbone's convolutions and the transformer layers' "
+                        "projections in bf16 (parameters, LayerNorms, heads, the MSDA "
+                        "sampling arithmetic, softmaxes, loss and optimizer stay fp32)")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="keep an exponential moving average of the parameters, saved as "
                         "latest_ema.npz; 0 disables")
     p.add_argument("--remat-policy", default=None,
                    choices=(None, "none", "dots", "dots_no_batch", "save_all"),
-                   help="only none is ported")
+                   help="recompute each transformer layer in the backward: none = all of "
+                        "it, dots = all but the matmul outputs, dots_no_batch = all but "
+                        "the unbatched ones, save_all = nothing (as when unset)")
     p.add_argument("--msda-impl", default=None, choices=("gather", "tiled", "tiled_xla"),
                    help="MSDA form (default: gather)")
     p.add_argument("--msda-halos", default=None, help="only 'auto' is ported")
@@ -117,12 +129,6 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    if args.mixed_precision == "bf16":
-        raise NotImplementedError("--mixed-precision bf16 is not ported (ROADMAP Queue 1 "
-                                  "item 7: the bf16 policy)")
-    if args.remat_policy not in (None, "none"):
-        raise NotImplementedError(f"--remat-policy {args.remat_policy} is not ported "
-                                  "(ROADMAP Queue 1 item 7: torch.utils.checkpoint)")
     if args.tensorboard:
         try:
             import tensorboard  # noqa: F401
@@ -184,18 +190,24 @@ class DeviceProfile:
                            "trace": self.path}
 
 
-def training_state(model, optimizer, step, ema, epoch: int, loader_epoch: int) -> Dict:
+def training_state(model, optimizer, step, ema, epoch: int, loader_epoch: int,
+                   precision: str = "no") -> Dict:
     """What a checkpoint holds: tensors and plain values only."""
     return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
             "train_step": step.state_dict(), "ema": ema, "epoch": epoch,
-            "loader_epoch": loader_epoch}
+            "loader_epoch": loader_epoch, "mixed_precision": precision}
 
 
-def restore_training(src: CheckpointManager, model, optimizer, step, ema, device) -> Dict:
+def restore_training(src: CheckpointManager, model, optimizer, step, ema, device,
+                     precision: str = "no") -> Dict:
     """Loads ``src``'s latest checkpoint into the model, AdamW, the train step
     (``TrainState`` and accumulator) and the EMA (name -> tensor, or None);
-    returns the saved state."""
+    returns the saved state. Raises if the checkpoint's run trained under
+    another ``--mixed-precision`` than ``precision``."""
     saved = src.restore(map_location=device)
+    if saved.get("mixed_precision", "no") != precision:
+        raise ValueError(f"{src.directory}: the run trained with --mixed-precision "
+                         f"{saved.get('mixed_precision', 'no')}, not {precision}")
     model.load_state_dict(saved["model"])
     optimizer.load_state_dict(saved["optimizer"])
     step.load_state_dict(saved["train_step"])
@@ -243,7 +255,9 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
 
 def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) -> Dict:
     logger.info("environment:\n" + collect_env_info())
-    model = model_cfg.build_model(device=device, seed=args.seed)
+    dtype = "bfloat16" if args.mixed_precision == "bf16" else None
+    model = model_cfg.build_model(device=device, seed=args.seed, backbone_dtype=dtype,
+                                  compute_dtype=dtype, remat_policy=args.remat_policy)
     batch_size = args.batch_size or cfg.batch_size
     num_epochs = args.num_epochs or cfg.num_epochs
     bucketed = args.canvas == "buckets"
@@ -301,7 +315,8 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
         if isinstance(resume_from, str) and os.path.isdir(resume_from):
             cand = os.path.join(resume_from, "checkpoints")
             src = CheckpointManager(cand if os.path.isdir(cand) else resume_from)
-        saved = restore_training(src, model, optimizer, step, ema, device)
+        saved = restore_training(src, model, optimizer, step, ema, device,
+                                 args.mixed_precision)
         ckpt.best = dict(src.best)
         start_epoch = saved["epoch"] + 1
         logger.info(f"resumed from epoch {saved['epoch']} ({src.directory})")
@@ -404,7 +419,8 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
                     paths[f"best_{key}"] = os.path.join(output_dir, f"best_{key}.npz")
                     save_weights(paths[f"best_{key}"], model)
         if (epoch + 1) % args.save_every_epochs == 0 or epoch == num_epochs - 1 or stop_now:
-            ckpt.save(epoch, training_state(model, optimizer, step, ema, epoch, loader.epoch))
+            ckpt.save(epoch, training_state(model, optimizer, step, ema, epoch, loader.epoch,
+                                            args.mixed_precision))
             class_names = cfg.get("class_names")
             extra = {"_classes_": encode_labels(class_names)} if class_names else None
             paths["latest"] = os.path.join(output_dir, "latest.npz")

@@ -35,10 +35,13 @@ FLAGSHIP_TOKENS = 100 * 168 + 50 * 84 + 25 * 42 + 13 * 21  # the encoder's Q = S
 SMALL_LEVELS = ((19, 21), (10, 11), (5, 6), (3, 3))
 
 
-def _lanes(d):
+def _lanes(d, itemsize=4, backward=False):
     """(channels per lane kV, lanes per item G) as the C entries pick them
-    for 16-byte aligned tensors."""
-    kv = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    for 16-byte aligned tensors of ``itemsize``-byte values (4: fp32, 2: the
+    bf16-value forms); the backward takes at most 4 channels a lane."""
+    kv = min(16 // itemsize, 4) if backward else 16 // itemsize
+    while d % kv:
+        kv //= 2
     g = 1
     while g < -(-d // kv) and g < 32:
         g *= 2
@@ -169,12 +172,12 @@ def _sample_grads(value, levels, lvl, b, q, h, sx, sy, a, g, kv, gl_, ga_, gv, p
     return present, y0, x0, contrib, has, s
 
 
-def _emulate(value, levels, locs, attn, grad_out):
+def _emulate(value, levels, locs, attn, grad_out, itemsize=4):
     """Both kernels' schedules -> (out, grad_value, grad_loc, grad_attn),
-    float64."""
+    float64, with the lanes of ``itemsize``-byte values."""
     bs, _, heads, d = value.shape
     num_queries, num_levels, num_points = locs.shape[1], locs.shape[3], locs.shape[4]
-    kv, g = _lanes(d)
+    kv, g = _lanes(d, itemsize)
     starts = _starts(levels)
     value = value.astype(np.float64)
     gout = grad_out.astype(np.float64).reshape(bs, num_queries, heads, d)
@@ -297,3 +300,26 @@ def test_schedules_match_plain_versions_and_jax(layout, batch, heads, head_dim):
     assert np.isnan(got[3][0, 3, 0, 1, 2]) and np.isnan(got[2][0, 3, 0, 1, 2]).all()
     assert np.isnan(got[1][0, start1, 0]).all()
     assert np.isnan(want[0].numpy()[0, 3, :head_dim]).all()
+
+
+@pytest.mark.parametrize("layout,batch,heads,head_dim", [
+    ("encoder", 1, 2, 32), ("decoder", 2, 3, 16), ("decoder", 1, 2, 8)])
+def test_bf16_lane_schedules_match_plain_versions(layout, batch, heads, head_dim):
+    """The bf16-value forward's schedule: 8 channels a lane (one 16-byte
+    load of bf16), so 4 / 2 / 1 lanes an item and the 16 samples in 2 / 4 /
+    8 chunks, against the plain version within 1e-5 of the max where both
+    are finite (the schedule, in float64; the card holds the bf16
+    roundings, ``chip_smoke.py`` phase 3). The bf16 backward takes the fp32
+    form's lanes, which the tests above emulate."""
+    assert [_lanes(d, 2) for d in (32, 16, 8)] == [(8, 4), (8, 2), (8, 1)]
+    assert [_lanes(d, 2, backward=True) for d in (32, 16, 8)] == [_lanes(d) for d in (32, 16, 8)]
+    rng = np.random.RandomState(head_dim + 50)
+    total = sum(h * w for h, w in SMALL_LEVELS)
+    num_queries = total if layout == "encoder" else 41
+    value, locs, attn, grad_out = encoder_like(rng, SMALL_LEVELS, batch, num_queries, heads,
+                                                head_dim)
+    out = _emulate(value, SMALL_LEVELS, locs, attn, grad_out, itemsize=2)[0]
+    want = msda.msda_reference(torch.from_numpy(value), SMALL_LEVELS, torch.from_numpy(locs),
+                               torch.from_numpy(attn))
+    close_where_finite(out, want.numpy(), 1e-5, "out vs plain")
+    assert np.isnan(out[0, 3, :head_dim]).all()

@@ -183,6 +183,12 @@ def train_cli():
         assert len(again["steps"]) == 3 and len(again["evals"]) == 1
         assert np.isfinite(again["metrics"]["total_loss"])
         assert load_class_names(again["paths"]["latest_ema"]) == ("a", "b", "c")
+        # the bf16 policy with the dots remat policy, evaluated too
+        bf16 = train.main(args + ["--num-epochs", "1", "--output-dir", tmp + "/c",
+                                  "--mixed-precision", "bf16", "--remat-policy", "dots"],
+                          decode=decode)
+        assert len(bf16["steps"]) == 3 and len(bf16["evals"]) == 1
+        assert np.isfinite(bf16["metrics"]["total_loss"])
 
 
 train_cli()
@@ -211,9 +217,10 @@ def test_port_imports_and_runs_without_jax_flax_cv2():
 def test_train_cli_runs_without_jax_flax_cv2():
     """The train CLI on the CPU (the detr preset, the loader's per-sample
     generators, device_prefetch, accumulation, the EMA, an evaluation,
-    checkpoints, a resume, the weight files with class names) over 3
-    images stored as .npy: no kernel launch, and nothing of jax, flax, cv2,
-    PIL or relation_detr_tpu imported."""
+    checkpoints, a resume, the weight files with class names; then an epoch
+    under ``--mixed-precision bf16 --remat-policy dots``) over 3 images
+    stored as .npy: no kernel launch, and nothing of jax, flax, cv2, PIL or
+    relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -492,6 +499,80 @@ def test_msda_kernels_match_plain_versions_on_card(inputs, layout, batch, heads,
     num_queries = total if layout == "encoder" else 300
     make = encoder_like if inputs == "encoder-like" else scattered
     _msda_card_case(*make(rng, MID_LEVELS, batch, num_queries, heads, head_dim), MID_LEVELS)
+
+
+BF16_EPS = 2.0 ** -8  # bf16's unit roundoff
+
+
+def _msda_bf16_card_case(value, locs, attn, grad_out, levels):
+    """The bf16-value forms (msda_fwd_bf16, msda_bwd_bf16) on a bf16 value
+    and output gradient: the bf16 output and grad_value within one bf16
+    rounding of the plain version's fp32 sums (EPS of each element, plus
+    1e-5 / 1e-4 of the max for the fp32 sums' order), the fp32 location
+    and weight gradients within 1e-4 of their max, and the NaN sample's
+    NaNs on both; grad_value comes back bf16."""
+    from relation_detr_tpu_torch.ops import msda
+
+    dev = torch.device("cuda")
+    tv, tl, ta, tg = (t if isinstance(t, torch.Tensor) else torch.from_numpy(t).to(dev)
+                      for t in (value, locs, attn, grad_out))
+    tv, tg = tv.to(torch.bfloat16), tg.to(torch.bfloat16)
+    with torch.no_grad():
+        got = msda.multi_scale_deformable_attention(tv, levels, tl, ta)
+        want = msda.msda_reference(tv.float(), levels, tl, ta)
+    assert got.dtype == torch.bfloat16
+    assert torch.isnan(got[0, 3]).any() and torch.isnan(want[0, 3]).any()
+    g, w = got.float().cpu().numpy(), want.cpu().numpy()
+    both = np.isfinite(g) & np.isfinite(w)
+    assert (np.abs(g - w)[both] <= BF16_EPS * np.abs(w[both])
+            + 1e-5 * np.abs(w[both]).max()).all(), "out"
+    grads = msda.msda_backward(tv, levels, tl, ta, tg)
+    wants = msda.msda_backward_reference(tv.float(), levels, tl, ta, tg.float())
+    assert grads[0].dtype == torch.bfloat16 and grads[1].dtype == grads[2].dtype == torch.float32
+    gv, wv = grads[0].float().cpu().numpy(), wants[0].cpu().numpy()
+    both = np.isfinite(gv) & np.isfinite(wv)
+    assert (np.abs(gv - wv)[both] <= BF16_EPS * np.abs(wv[both])
+            + 1e-4 * np.abs(wv[both]).max()).all(), "grad_value"
+    for name, g, w in zip(("grad_loc", "grad_attn"), grads[1:], wants[1:]):
+        close_where_finite(g.cpu().numpy(), w.cpu().numpy(), 1e-4, name)
+    assert torch.isnan(grads[2][0, 3, 0, 1, 2]) and torch.isnan(wants[2][0, 3, 0, 1, 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["encoder-like", "scattered"])
+@pytest.mark.parametrize("layout,batch,heads,head_dim", [
+    ("encoder", 1, 8, 32), ("encoder", 2, 4, 16), ("decoder", 2, 8, 32), ("decoder", 1, 3, 8)])
+def test_msda_bf16_kernels_match_plain_versions_on_card(inputs, layout, batch, heads,
+                                                        head_dim):
+    """The bf16-value forms in the encoder and decoder layouts, on both
+    location sets: the forward 8 bf16 channels a lane (4 lanes an item at
+    D = 32, 2 at 16, 1 at 8), the backward 4 (8, 4, 2 lanes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    rng = np.random.RandomState(head_dim + batch + 100)
+    total = sum(h * w for h, w in MID_LEVELS)
+    num_queries = total if layout == "encoder" else 300
+    make = encoder_like if inputs == "encoder-like" else scattered
+    _msda_bf16_card_case(*make(rng, MID_LEVELS, batch, num_queries, heads, head_dim),
+                         MID_LEVELS)
+
+
+@pytest.mark.cuda
+def test_msda_bf16_kernels_take_unaligned_tensors_on_card():
+    """A bf16 value and output gradient that start 2 bytes into their
+    storage: the forms then take one channel a lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    rng = np.random.RandomState(19)
+    total = sum(h * w for h, w in SMALL_LEVELS)
+    value, locs, attn, grad_out = encoder_like(rng, SMALL_LEVELS, 1, total, 2, 32)
+    shifted = []
+    for a in (value, grad_out):
+        flat = torch.zeros(a.size + 1, device="cuda", dtype=torch.bfloat16)
+        flat[1:] = torch.from_numpy(a).reshape(-1).cuda().to(torch.bfloat16)
+        shifted.append(flat[1:].view(a.shape))
+    assert all(t.data_ptr() % 4 and t.is_contiguous() for t in shifted)
+    _msda_bf16_card_case(shifted[0], locs, attn, shifted[1], SMALL_LEVELS)
 
 
 @pytest.mark.cuda

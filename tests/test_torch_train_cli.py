@@ -13,7 +13,8 @@ algorithms: the plain MSDA's backward accumulates the value gradient with
 They run torch on one thread: beside other test processes on the same
 cores, torch's thread pool over thousands of small ops slows tenfold.
 Evaluation canvases are the tiny config's own sizes (``eval_buckets`` of
-a config file that extends the port's train config).
+a config file that extends the port's train config). The bf16 policy with
+the "dots" remat policy resumes bit-identically too.
 """
 import json
 import os
@@ -156,8 +157,62 @@ def test_latest_weights_load_into_the_jax_model(runs):
 
 
 def test_not_ported_flags_raise(coco, tmp_path):
-    for extra, item in ((["--mixed-precision", "bf16"], "item 7"),
-                        (["--remat-policy", "dots"], "item 7"),
-                        (["--clamp-check", "on"], "not ported")):
+    for extra, item in ((["--clamp-check", "on"], "not ported"),
+                        (["--msda-dtype", "bf16"], "not ported")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(_args(coco, tmp_path, 1, *extra), decode=cv2_decode)
+
+
+def _bf16_args(coco, out, epochs, *extra):
+    """B=2 over the 4 images: 2 steps an epoch, each its own update; no
+    evaluation."""
+    return ["--config-file", os.path.join(coco, "train_config.py"), "--model-config", TINY,
+            "--coco-path", coco, "--output-dir", str(out), "--num-epochs", str(epochs),
+            "--batch-size", "2", "--canvas", "160,224", "--ema-decay", "0.9",
+            "--mixed-precision", "bf16", "--remat-policy", "dots", "--seed", "5",
+            "--device", "cpu", *extra]
+
+
+def test_bf16_dots_run_resumes_bit_identically(coco, tmp_path):
+    """``--mixed-precision bf16 --remat-policy dots``: 2 epochs of 2 steps
+    straight and 1 epoch + ``--resume`` for the second write the same
+    latest.npz, latest_ema.npz and state file, bit for bit; the weights stay
+    fp32 with the fp32 model's names; the state file records bf16, and a
+    resume of it without the flag raises."""
+    straight, first, resumed = tmp_path / "straight", tmp_path / "first", tmp_path / "resumed"
+    deterministic, threads = torch.are_deterministic_algorithms_enabled(), torch.get_num_threads()
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    try:
+        a = train.main(_bf16_args(coco, straight, 2), decode=cv2_decode)
+        train.main(_bf16_args(coco, first, 1), decode=cv2_decode)
+        b = train.main(_bf16_args(coco, resumed, 2, "--resume", str(first)), decode=cv2_decode)
+        fp32_args = [x for x in _bf16_args(coco, tmp_path / "fp32", 2, "--resume", str(first))
+                     if x not in ("--mixed-precision", "bf16")]
+        with pytest.raises(ValueError, match="--mixed-precision bf16"):
+            train.main(fp32_args, decode=cv2_decode)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        torch.set_num_threads(threads)
+    assert len(a["steps"]) == 4 and len(b["steps"]) == 2 and a["lrs"][2:] == b["lrs"]
+    assert all(np.isfinite(s["total_loss"]) for s in a["steps"])
+    for name in ("latest.npz", "latest_ema.npz"):
+        want, got = _npz(straight / name), _npz(resumed / name)
+        assert sorted(want) == sorted(got)
+        for k in want:
+            assert want[k].dtype == np.float32, (name, k)
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name} {k}")
+    want = CheckpointManager(straight / "checkpoints").restore()
+    got = CheckpointManager(resumed / "checkpoints").restore()
+    assert want["mixed_precision"] == got["mixed_precision"] == "bf16"
+    assert want["train_step"]["state"] == got["train_step"]["state"]
+    fp32 = train.Config(train._repo_path(TINY)).build_model(device="cpu")
+    assert {k: v.dtype for k, v in want["model"].items()} == \
+        {k: v.dtype for k, v in fp32.state_dict().items()}
+    for key in ("model", "ema"):
+        for k, v in want[key].items():
+            assert torch.equal(got[key][k], v), (key, k)
+    for (_, s1), (_, s2) in zip(sorted(want["optimizer"]["state"].items()),
+                                sorted(got["optimizer"]["state"].items())):
+        for k in s1:
+            assert torch.equal(s1[k], s2[k]), k
