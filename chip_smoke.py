@@ -13,10 +13,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the flagship's shapes, with CUDA-event times of both (and of one
      PyTorch call computing the same function, where there is one) and the
      least time the card could take (bound): msda_fwd and msda_bwd at the
-     encoder shape (Q=S=22,323) and the decoder shapes Q=900, 1100 and
-     1500, each on the encoder-like and the scattered location sets,
-     relation_bias_v4_fwd (N=900 and 1100, with bounds) and the relation
-     bias's backward (N=1100), window_accumulate at the four levels' window
+     encoder shape (Q=S=22,323) and the decoder shapes Q=300, 500, 600
+     (the model families' 300 queries, with 200 CDN slots, with 300 DN
+     slots), 900, 1100 and 1500, each on the encoder-like and the
+     scattered location sets, relation_bias_v4_fwd (N=300, 500, 600, 900
+     and 1100, with bounds) and the relation bias's backward (N=1100),
+     window_accumulate at the four levels' window
      grids (bit-identical, one covering-window table build per level, at
      the first call), the tiled encoder MSDA's tiled_core_fwd,
      tiled_core_bwd and sep_contract_fwd on its operands at the four levels
@@ -115,10 +117,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      epoch with --mixed-precision bf16 --remat-policy dots (36 msda_fwd,
      18 msda_bwd a step, all bf16-value forms), the restore into a fresh
      bf16 model bit-identical, a --resume for a second epoch;
-  9. torch.profiler, after every timed phase (so that no profiler session
+  9. the model families (``FAMILY_CONFIGS``: DINO++, Deformable-DETR++,
+     DN-Def-DETR++, DAB-Def-DETR++) and SA-Det: (a) each family config at
+     full width (ResNet-50, its own queries, seeded weights, fp32) answers
+     4 requests on the 800x1344 canvas through ``inference.detect`` (12
+     msda_fwd and 5 relation_bias_v4_fwd launches each, the relation bias
+     at the family's N; p50, range and peak memory) and takes train steps
+     at B=1, GT capacity 100 (1 warm-up + 3 timed; 12 msda_fwd, 12
+     msda_bwd and 5 relation_bias_v4_fwd a step; every loss term and the
+     gradient norm finite; p50 and peak memory); (b) the SA-Det config
+     (2 classes) one detect and one train step with every label 1; (c)
+     each family at a tiny size (ResNet-18, 1 + 2 layers, 30 queries), GPU
+     (kernels) against CPU (plain versions): the eval heads (and the
+     encoder's top-k) at TOL_MODEL, one train forward + backward with the
+     same denoising draws as phase 4 holds it, also with ``PinnedKinks``;
+     (d) the train CLI on the DINO++ config for one epoch over the
+     committed train split at B=2 with its evaluation, and the eval CLI on
+     the DN-Def-DETR++ config (single-stage: no encoder outputs) over the
+     val split at B=2, launches counted, metrics finite;
+ 10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
-     phase-3 shape and set, relation_bias_v4_fwd's and
-     relation_bias_rel_fwd's at N=900 and 1100, tiled_core_fwd's at the four
+     phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
+     900 and 1100 and relation_bias_rel_fwd's at N=900 and 1100, tiled_core_fwd's at the four
      levels and B=2 level 0, the MSDA and relation kernels' device time in
      one default train step and one flagship detect (with its host-to-device
      copies), sep_contract_fwd's in one sep-kernel eval forward,
@@ -143,9 +163,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      eval_cli_launches of msda_fwd and relation_bias_v4_fwd, from phase
      7 (b)'s second CLI run; train_cli_launches of msda_fwd, msda_bwd,
      relation_bias_v4_fwd and ycc_to_rgb from phase 8 (a); msda_fwd_bf16
-     and msda_bwd_bf16 from the bf16 train step with remat unset), after
-     JSON lines of the precision profiles and phase 7's and phase 8's
-     results, then the last line
+     and msda_bwd_bf16 from the bf16 train step with remat unset;
+     family_launches of msda_fwd, msda_bwd and relation_bias_v4_fwd from
+     each of phase 9's paths), after JSON lines of the precision profiles
+     and phase 7's, phase 8's and phase 9's results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: bytes are each input read once and each output written once;
@@ -191,6 +212,10 @@ TOL_BWD_REL = 1e-4
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 TRAIN_RUNS = ((1, 100, 2, 15), (1, 16, 2, 5), (2, 100, 0, 3))  # B, GT cap, warm-up, timed
+# the model families' decoder widths, where phase 3 holds msda_fwd / msda_bwd
+# (Q) and relation_bias_v4_fwd (N): 300 queries, + 200 CDN slots, + 5 x 60
+# DN slots (DINO++ itself runs 900 / 1100, the flagship's)
+FAMILY_N = (300, 500, 600)
 TILED_TRAIN_RUN = (1, 100, 1, 8)
 DETECT_RUNS = 15  # timed default detects (the p50 of the eval path)
 # phase 4's forms: msda_defaults settings and relation bias version (None:
@@ -298,6 +323,32 @@ def size(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def msda_value_bytes(torch, value, levels, locs):
+    """The bytes of ``value`` (B, S, H, D) that a gather MSDA at ``locs``
+    (B, Q, H, L, P, 2) must read: each (image, token, head) row of D
+    elements that an in-range corner of a sample touches, read once. Where
+    samples overlap or the queries are few this is less than the whole
+    value (``size(value)``)."""
+    bs, total, heads, _ = value.shape
+    row_bytes = value.shape[3] * value.element_size()
+    touched = torch.zeros(bs * total * heads, dtype=torch.bool, device=value.device)
+    img = torch.arange(bs, device=value.device).view(bs, 1, 1, 1)
+    head = torch.arange(heads, device=value.device).view(1, 1, heads, 1)
+    start = 0
+    for lvl, (h, w) in enumerate(levels):
+        loc = locs[:, :, :, lvl].float()  # (B, Q, H, P, 2)
+        x0 = torch.floor(loc[..., 0] * w - 0.5)
+        y0 = torch.floor(loc[..., 1] * h - 0.5)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = x0 + dx, y0 + dy
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)  # NaN and Inf fail
+                tok = start + torch.where(ok, y * w + x, 0).long()
+                touched[((img * total + tok) * heads + head)[ok]] = True
+        start += h * w
+    return int(touched.sum().item()) * row_bytes
+
+
 def profile_kernels(torch, fn, names):
     """Device time of the kernels in one run of fn, from torch.profiler's
     key_averages(): {kernel name: [ms, launches]} for every kernel whose
@@ -319,7 +370,7 @@ def profile_kernels(torch, fn, names):
 
 
 # (label, fn, kernel names, row, key): torch.profiler runs of fn, made in
-# phase 9 after every timed phase, so that no profiler session precedes a
+# phase 10 after every timed phase, so that no profiler session precedes a
 # p50; each stores {kernel: [ms, launches]} (or None) at row[key]
 PROFILES = []
 
@@ -332,9 +383,9 @@ def run_profiles(torch):
         found = profile_kernels(torch, fn, names) or profile_kernels(torch, fn, names)
         row[key] = found
         if found is None:
-            phase(9, f"{label}: torch.profiler saw no device time")
+            phase(10, f"{label}: torch.profiler saw no device time")
             continue
-        phase(9, f"{label}: device time (torch.profiler key_averages()): " +
+        phase(10, f"{label}: device time (torch.profiler key_averages()): " +
               "; ".join(f"{k} {v[0]:.4f} ms over {v[1]} launches" for k, v in found.items()))
 
 
@@ -428,8 +479,10 @@ def relation_inputs(torch, gen, n, dev, batch=1):
 
 def check_msda_kernels(torch, rows):
     """msda_fwd and msda_bwd against their plain versions at the encoder
-    shape (Q = S) and the decoder shapes Q = 900 (eval), 1100 (train:
-    200 CDN slots + 900) and 1500 (hybrid), each on the encoder-like and
+    shape (Q = S) and the decoder shapes Q = 300 (the model families' eval,
+    and the train of those without denoising), 500 (200 CDN slots + 300),
+    600 (DN-Def-DETR++'s train: 5 groups x 60 DN slots + 300), 900 (eval),
+    1100 (train: 200 CDN slots + 900) and 1500 (hybrid), each on the encoder-like and
     the scattered set, timed in turns with them. A row's ms is the encoder
     shape on the encoder-like set; shapes_ms lists [kernel, plain, bound]
     for every shape and set."""
@@ -440,8 +493,8 @@ def check_msda_kernels(torch, rows):
     total = sum(h * w for h, w in LEVELS)
     found = {"fwd": {}, "bwd": {}}
     errs = {"fwd": [], "bwd": []}
-    device = {}  # phase 9: kernel-only device time per shape and set
-    for nq in (total, 900, 1100, 1500):
+    device = {}  # phase 10: kernel-only device time per shape and set
+    for nq in (total, *FAMILY_N, 900, 1100, 1500):
         for set_name, make in MSDA_SETS:
             value, locs, attn = make(torch, gen, nq, dev)
             label = f"Q={nq} {set_name}"
@@ -458,7 +511,8 @@ def check_msda_kernels(torch, rows):
                     lambda: msda.multi_scale_deformable_attention(value, LEVELS, locs, attn),
                     5, 20)
             # 4 corner FMAs and a weight FMA per (q, h, l, p, d)
-            fb = bound(size(value, locs, attn, got), 10 * got.numel() * 16)
+            fb = bound(msda_value_bytes(torch, value, LEVELS, locs) + size(locs, attn, got),
+                       10 * got.numel() * 16)
             errs["fwd"].append(err)
             found["fwd"][label] = [ms, plain_ms, fb[0], fb[1]]
             phase(3, f"msda_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
@@ -489,7 +543,8 @@ def check_msda_kernels(torch, rows):
                 ("msda_fwd_kernel", "msda_bwd_kernel"), device, label))
             # per (q, h, l, p, d): 4 corner atomics, 4 x 2 location FMAs, 4
             # weight FMAs and the sample FMA
-            bb = bound(size(value, locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
+            bb = bound(msda_value_bytes(torch, value, LEVELS, locs)
+                       + size(locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
             errs["bwd"].append(err)
             found["bwd"][label] = [ms, plain_ms, bb[0], bb[1]]
             phase(3, f"msda_bwd {shape}: max rel err value {rel[0]:.3e}, locations "
@@ -543,7 +598,7 @@ def check_msda_bf16_kernels(torch, rows):
     found = {"fwd": {}, "bwd": {}}
     errs = {"fwd": [], "bwd": []}
     units = {"fwd": [], "bwd": []}
-    device = {}  # phase 9: device time per launch per shape and set
+    device = {}  # phase 10: device time per launch per shape and set
     for nq in (total, 900, 1100, 1500):
         for set_name, make in MSDA_SETS:
             value, locs, attn = make(torch, gen, nq, dev)
@@ -569,7 +624,8 @@ def check_msda_bf16_kernels(torch, rows):
                     5, 20)
                 fp32_ms = cuda_ms(
                     lambda: msda.multi_scale_deformable_attention(v32, LEVELS, locs, attn), 20)
-            fb = bound(size(vb, locs, attn, got), 10 * got.numel() * 16)
+            fb = bound(msda_value_bytes(torch, vb, LEVELS, locs) + size(locs, attn, got),
+                       10 * got.numel() * 16)
             errs["fwd"].append(err)
             units["fwd"].append(u)
             found["fwd"][label] = [ms, plain_ms, fb[0], fp32_ms, fb[1]]
@@ -610,7 +666,8 @@ def check_msda_bf16_kernels(torch, rows):
                 f"msda_fwd_bf16 x20 + msda_bwd_bf16 x10, {shape}",
                 lambda args=(vb, locs, attn, grad_out): msda_calls(torch, msda, *args),
                 ("msda_fwd_kernel", "msda_bwd_kernel", "to_bf16_kernel"), device, label))
-            bb = bound(size(vb, locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
+            bb = bound(msda_value_bytes(torch, vb, LEVELS, locs)
+                       + size(locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
             errs["bwd"].append(err)
             units["bwd"].append(u)
             found["bwd"][label] = [ms, plain_ms, bb[0], fp32_ms, bb[1]]
@@ -667,7 +724,7 @@ def check_msda_bf16_nan(torch, msda, vb, locs, attn, grad_out):
 
 
 def msda_calls(torch, msda, value, locs, attn, grad_out):
-    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 9
+    """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 10
     profiles them: each kernel's device time without the host's gaps)."""
     with torch.no_grad():
         for _ in range(20):
@@ -704,7 +761,7 @@ def check_kernels(torch):
     phase(3, f"relation_bias_v4_fwd B=1 N1=N2=900 H=8: max_abs_err {err:.3e}, "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {v4_bound[0]:.4f} ms "
              f"({v4_bound[1]})")
-    device = {}  # phase 9: the kernel's device time per launch at N = 900 and 1100
+    device = {}  # phase 10: the kernel's device time per launch at each N
     PROFILES.append(("relation_bias_v4_fwd x20, B=1 N1=N2=900 H=8",
                      lambda args=(src, tgt, kernel, bias): relation_calls(torch, *args),
                      ("relation_bias_v4_kernel",), device, "N=900"))
@@ -716,7 +773,43 @@ def check_kernels(torch):
         library_ms=None, library="none: no one call builds the pair features",
         shape="B=1 N1=N2=900 H=8 E=16", device_ms=device,
     )
+    check_relation_family_shapes(torch, gen, rows["relation"])
     return rows
+
+
+def check_relation_family_shapes(torch, gen, row):
+    """relation_bias_v4_fwd against its plain version at the model
+    families' N (FAMILY_N: not multiples of the kernel's 128-column tile,
+    so its tail warps run at new offsets), timed in turns, each with its
+    bound and (phase 10) its device time per launch: row["family_shapes_ms"]
+    holds [kernel, plain, bound] per N."""
+    from relation_detr_tpu_torch.ops import relation_bias
+
+    shapes = {}
+    for n in FAMILY_N:
+        src, tgt, kernel, bias = relation_inputs(torch, gen, n, "cuda")
+        with torch.no_grad():
+            got = relation_bias.relation_bias_v4(src, tgt, kernel, bias)
+            want = relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isfinite(got), torch.isfinite(want)) or \
+                    not bool(torch.isfinite(want).all()):
+                raise AssertionError(f"relation bias N={n}: non-finite biases")
+            err = (got - want).abs().max().item()
+            if not (err <= TOL_KERNEL):
+                raise AssertionError(f"relation bias N={n}: max abs err {err} > {TOL_KERNEL}")
+            ms, plain_ms = in_turns(
+                lambda: relation_bias.relation_bias_v4_reference(src, tgt, kernel, bias),
+                lambda: relation_bias.relation_bias_v4(src, tgt, kernel, bias), 10, 50)
+        nb = relation_v4_bound(src, tgt, kernel, bias, got)
+        PROFILES.append((f"relation_bias_v4_fwd x20, B=1 N1=N2={n} H=8",
+                         lambda args=(src, tgt, kernel, bias): relation_calls(torch, *args),
+                         ("relation_bias_v4_kernel",), row["device_ms"], f"N={n}"))
+        shapes[f"N={n}"] = [ms, plain_ms, nb[0]]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        phase(3, f"relation_bias_v4_fwd B=1 N1=N2={n} H=8: max_abs_err {err:.3e}, kernel "
+                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {nb[0]:.4f} ms ({nb[1]})")
+    row["family_shapes_ms"] = shapes
 
 
 def relation_v4_bound(src, tgt, kernel, bias, out):
@@ -729,7 +822,7 @@ def relation_v4_bound(src, tgt, kernel, bias, out):
 
 
 def relation_calls(torch, src, tgt, kernel, bias):
-    """relation_bias_v4 20 times (phase 9 profiles its kernel)."""
+    """relation_bias_v4 20 times (phase 10 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import relation_bias
 
     with torch.no_grad():
@@ -877,7 +970,7 @@ def edge_entries(torch, m, wt, rows):
 
 
 def tiled_core_calls(torch, m, wt, patch, dims):
-    """tiled_matmul_core 20 times (phase 9 profiles its kernel)."""
+    """tiled_matmul_core 20 times (phase 10 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import msda_tiled
 
     with torch.no_grad():
@@ -886,7 +979,7 @@ def tiled_core_calls(torch, m, wt, patch, dims):
 
 
 def relation_rel_calls(torch, rel, kernel, bias):
-    """fused_relation_bias 20 times (phase 9 profiles its kernel)."""
+    """fused_relation_bias 20 times (phase 10 profiles its kernel)."""
     from relation_detr_tpu_torch.ops import relation_bias
 
     with torch.no_grad():
@@ -924,7 +1017,7 @@ def check_tiled_kernels(torch, rows):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     found = {k: dict(errs=[], times=[]) for k in ("fwd", "bwd", "sep")}
-    fwd_device = {}  # phase 9: tiled_core_fwd's device time per (B, level)
+    fwd_device = {}  # phase 10: tiled_core_fwd's device time per (B, level)
     for bs, lvls in ((1, range(4)), (2, range(1))):
         value, locs, attn = tiled_inputs(torch, gen, bs, dev)
         with torch.no_grad():
@@ -977,7 +1070,7 @@ def check_tiled_kernels(torch, rows):
                 found["fwd"]["times"].append((bs, lvl, ms, plain_ms, None, b_fwd))
                 phase(3, f"tiled_core_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
                          f"plain {plain_ms:.4f} ms, bound {b_fwd[0]:.4f} ms ({b_fwd[1]})")
-                # phase 9: device time per launch, the operands kept on the host
+                # phase 10: device time per launch, the operands kept on the host
                 # meanwhile (the flagship phases' peak memory stays as it was)
                 PROFILES.append((f"tiled_core_fwd x20, {shape}",
                                  lambda args=(m.cpu(), wt.cpu(), patch.cpu()), dims=dims:
@@ -1070,7 +1163,7 @@ def check_tiled_kernels(torch, rows):
                                   device_ms=fwd_device)
 
     errs, times = [], []
-    rel_device = {}  # phase 9: the kernel's device time per launch at N = 900 and 1100
+    rel_device = {}  # phase 10: the kernel's device time per launch at N = 900 and 1100
     for n in (900, 1100):
         src, tgt, kernel, bias = relation_inputs(torch, gen, n, dev)
         rel = box_rel_encoding(src, tgt)
@@ -1197,15 +1290,16 @@ class PinnedKinks:
     the inputs the record's passed, while the gradient still flows to this
     run's own tensors; ``flips`` counts the MSDA samples whose bilinear cell
     (the floor of the pixel coordinate) and the ReLU inputs whose sign
-    differed from the record's."""
+    differed from the record's. ``layers`` also pins the ReLUs of the
+    transformer's encoder and decoder layers (their FFNs)."""
 
-    def __init__(self, model, record=None):
+    def __init__(self, model, record=None, layers=False):
         import torch
         from relation_detr_tpu_torch.models import attention
 
         self.torch, self.attention, self.model = torch, attention, model
         self.msda, self.relu = attention.multi_scale_deformable_attention, torch.relu
-        self.record = record
+        self.record, self.layers = record, layers
         self.locations, self.signs = [], []
         self.flips = {"msda": 0, "relu": 0}
         self.hooks = []
@@ -1234,12 +1328,13 @@ class PinnedKinks:
     def __enter__(self):
         torch = self.torch
         self.attention.multi_scale_deformable_attention = self._msda
-        self.hooks = [
-            self.model.backbone.register_forward_pre_hook(
-                lambda *_: setattr(torch, "relu", self._relu)),
-            self.model.backbone.register_forward_hook(
-                lambda *_: setattr(torch, "relu", self.relu)),
-        ]
+        scopes = [self.model.backbone]
+        if self.layers:
+            scopes += [*self.model.transformer.encoder.layers,
+                       *self.model.transformer.decoder.layers]
+        self.hooks = [hook for scope in scopes for hook in (
+            scope.register_forward_pre_hook(lambda *_: setattr(torch, "relu", self._relu)),
+            scope.register_forward_hook(lambda *_: setattr(torch, "relu", self.relu)))]
         return self
 
     def __exit__(self, *exc):
@@ -1322,12 +1417,28 @@ def synthetic_batch(torch, gen, bs, cap, hw, dev, valid_hw=None):
             "gt_valid": valid}
 
 
-def check_tiny_train(torch, label, settings, version):
+def check_tiny_train(torch, label, settings, version, family=None, n=4):
+    """The tiny-test config (or, with ``family``, that family's tiny model,
+    ``tiny_family``) on the GPU (kernels) and the CPU (plain versions):
+    one train forward + backward with the same denoising draws, run on the
+    CPU as is and with the kinks pinned (``PinnedKinks``); phase ``n``. The
+    loss terms are held on both runs. The gradients: the tiny-test config's
+    outside the backbone on the unpinned run too; a family's on the pinned
+    run only, with its transformer layers' FFN ReLUs pinned as well (a ReLU
+    input within rounding of 0 moves a tiny family's encoder ``linear1``
+    gradient by up to 1.3e-2 of its max; measured on the H100)."""
     from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
     from relation_detr_tpu_torch.ops import msda
 
-    cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
-    cpu_model = cfg.build_model(device="cpu", seed=1).train()
+    if family is None:
+        cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
+        cpu_model = cfg.build_model(device="cpu", seed=1).train()
+        criterion, num_classes, hybrid_assign = (cfg.build_criterion(), cfg.num_classes,
+                                                 cfg.hybrid_assign)
+    else:
+        cpu_model, criterion = tiny_family(torch, family)
+        cpu_model.train()
+        num_classes, hybrid_assign = TINY_FAMILY["num_classes"], 6
     gen = torch.Generator().manual_seed(4)
     # Offsets on every non-backbone weight, as the CPU parity tests do. At
     # the initialisation itself the zero-initialised sampling offsets and
@@ -1339,22 +1450,23 @@ def check_tiny_train(torch, label, settings, version):
                 param.add_(torch.randn(param.shape, generator=gen) * 0.02)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = synthetic_batch(torch, gen, 2, 16, (256, 320), "cpu")
-    batch["gt_labels"][:, :BOXES_PER_IMAGE] %= cfg.num_classes
+    batch["gt_labels"][:, :BOXES_PER_IMAGE] %= num_classes
     batch["images"][1, 192:] = 0.0
     batch["mask"][1, 192:] = True
-    draws = cpu_model.denoising_generator.draw_noise(2, gen, "cpu")
+    generator = cpu_model.denoising_generator
+    draws = {} if generator is None else generator.draw_noise(2, gen, "cpu")
 
     def run(model, dev, record=None):
         b = {k: v.to(dev) for k, v in batch.items()}
-        with TopkRecorder() as rec, PinnedKinks(model, record) as pins, \
+        with TopkRecorder() as rec, PinnedKinks(model, record, family is not None) as pins, \
                 msda.msda_defaults(**settings), RelationVersion(version, cpu_model) as launched:
             outputs = model(b["images"], b["mask"], b["gt_labels"], b["gt_boxes"],
                             b["gt_valid"], train=True,
-                            noise_draws={k: v.to(dev) for k, v in draws.items()})
+                            noise_draws={k: v.to(dev) for k, v in draws.items()} or None)
         if dev == "cuda":
             launched.check(label)
-        total, losses = relation_detr_loss(cfg.build_criterion(), outputs, b["gt_labels"],
-                                           b["gt_boxes"], b["gt_valid"], cfg.hybrid_assign)
+        total, losses = relation_detr_loss(criterion, outputs, b["gt_labels"],
+                                           b["gt_boxes"], b["gt_valid"], hybrid_assign)
         total.backward()
         grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
         model.zero_grad(set_to_none=True)
@@ -1396,15 +1508,17 @@ def check_tiny_train(torch, label, settings, version):
 
     loss_err, ratios = compare(cpu, "CPU")
     name, err, count = worst(ratios, backbone=False)
-    if err > TOL_TRAIN_GRAD:
+    if err > TOL_TRAIN_GRAD and family is None:
         raise AssertionError(f"tiny train step: grad of {name} differs GPU vs CPU by "
                              f"{err:.3e} of its max")
     bb_name, bb_err, bb_count = worst(ratios, backbone=True)
-    phase(4, f"[{label}] tiny-test config train forward + backward (CDN + hybrid) GPU vs CPU, same "
+    what = "tiny-test config" if family is None else f"tiny {family}"
+    phase(n, f"[{label}] {what} train forward + backward GPU vs CPU, same "
              f"draws: total {gpu['total']:.6f} vs {cpu['total']:.6f}, {len(cpu['losses'])} "
              f"loss terms within {loss_err:.3e} rel; {count} grads outside the backbone within "
              f"{err:.3e} of each leaf's max ({name}); {bb_count} backbone grads within "
-             f"{bb_err:.3e} ({bb_name}), held below; top-k selections equal (indices that "
+             f"{bb_err:.3e} ({bb_name}), {'held' if family is None else 'all held'} below; "
+             f"top-k selections equal (indices that "
              f"differ inside exact ties: {', '.join(flipped)})")
     loss_err, ratios = compare(pinned, "CPU pinned")
     name, err = max(ratios.items(), key=lambda kv: kv[1])
@@ -1413,17 +1527,20 @@ def check_tiny_train(torch, label, settings, version):
                              f"kinks pinned by {err:.3e} of its max")
     _, bb_err, _ = worst(ratios, backbone=True)
     flips = pinned["pins"].flips
-    phase(4, f"[{label}] the same with the CPU's kinks pinned to the GPU's side ({flips['msda']} MSDA "
-             f"samples in another bilinear cell, {flips['relu']} backbone ReLU inputs of "
+    phase(n, f"[{label}] the same with the CPU's kinks pinned to the GPU's side ({flips['msda']} MSDA "
+             f"samples in another bilinear cell, {flips['relu']} "
+             f"{'backbone' if family is None else 'backbone and FFN'} ReLU inputs of "
              f"another sign): total {pinned['total']:.6f}, loss terms within {loss_err:.3e} rel; "
              f"all {len(ratios)} grads within {err:.3e} of each leaf's max ({name}), backbone "
              f"within {bb_err:.3e}")
 
 
-def train_steps(torch, step, batch, warmup, timed, counters, label, precision="fp32"):
-    """Runs warm-up + timed steps; checks finite losses and each counter's
-    launches per step; prints p50, peak memory and host matching time.
-    Returns (times, peak bytes)."""
+def train_steps(torch, step, batch, warmup, timed, counters, label, precision="fp32",
+                title="flagship", n=6, last=None):
+    """Runs warm-up + timed steps; checks finite losses and gradient norm
+    and each counter's launches per step; prints p50, peak memory and host
+    matching time (phase ``n``, the model named ``title``); ``last`` (a
+    dict) takes the last step's metrics. Returns (times, peak bytes)."""
     from relation_detr_tpu_torch.losses.criterion import compute_matching
 
     torch.cuda.reset_peak_memory_stats()
@@ -1439,7 +1556,8 @@ def train_steps(torch, step, batch, warmup, timed, counters, label, precision="f
         torch.cuda.synchronize()
         losses = {k: v for k, v in metrics.items() if k.startswith("loss")}
         bad = [k for k, v in losses.items() if not math.isfinite(v)]
-        if bad or not math.isfinite(metrics["total_loss"]) or metrics["nonfinite_count"]:
+        if bad or not math.isfinite(metrics["total_loss"]) or metrics["nonfinite_count"] or \
+                not math.isfinite(metrics["grad_norm"]):
             raise AssertionError(f"train step {label} #{i}: non-finite {bad}, "
                                  f"nonfinite_count {metrics['nonfinite_count']}")
         for k, (fn, expected) in counters.items():
@@ -1450,12 +1568,14 @@ def train_steps(torch, step, batch, warmup, timed, counters, label, precision="f
             times.append(start.elapsed_time(end))
             host.append(compute_matching.host_seconds - h0)
     peak = torch.cuda.max_memory_allocated()
-    phase(6, f"flagship train step {label} ({BOXES_PER_IMAGE} boxes per image) 800x1344 "
+    phase(n, f"{title} train step {label} ({BOXES_PER_IMAGE} boxes per image) 800x1344 "
              f"{precision}: p50 {statistics.median(times):.3f} ms ({len(times)} steps: "
              f"{', '.join(f'{t:.3f}' for t in times)}); peak memory {peak / 2**30:.3f} GiB; "
              f"host matching {statistics.median(host):.4f} s/step; total_loss "
              f"{metrics['total_loss']:.4f}, grad_norm {metrics['grad_norm']:.4f}, "
              f"{len(losses)} loss terms finite")
+    if last is not None:
+        last.update(metrics)
     return times, peak
 
 
@@ -1928,7 +2048,7 @@ def run_flagship_bf16(torch, model32, request, times32, peak32, kernels):
     fp32's in bf16 units; on the fp32 run's top-k (``PinnedTopk``) its heads
     in the bf16 class (``heads_class``), and on its own top-k the class's
     numbers printed; then its p50 and peak memory beside the fp32 detect's.
-    Returns the model (phase 9 profiles it)."""
+    Returns the model (phase 10 profiles it)."""
     from relation_detr_tpu_torch.inference import detect
     from relation_detr_tpu_torch.ops import msda, relation_bias
 
@@ -2026,7 +2146,7 @@ def check_relation_calls(torch, model, kernels):
     launches, device = five_calls()
     if not device:  # a session now and then sees no device activity at all
         launches, device = five_calls()
-    phase(9, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
+    phase(10, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
              f"relation_bias_v4_fwd launches, device work {device}")
     kernels["relation"]["device_work_5_calls"] = device
     if launches != 5 or not device or any("relation_bias_v4_kernel" not in k for k in device):
@@ -2082,7 +2202,7 @@ def check_eval_forward_busy(torch, model):
     busy = busy_ms() or busy_ms()  # a session now and then sees no device time
     canvas = tuple(batch["images"].shape[1:3])
     idle = 1 - busy / span if busy else None
-    phase(9, f"flagship eval forward B={EVAL_BATCH} on {canvas} (make_detections_fn): span on "
+    phase(10, f"flagship eval forward B={EVAL_BATCH} on {canvas} (make_detections_fn): span on "
              f"the stream {span:.3f} ms (CUDA events, median of 5), device busy {busy:.3f} ms "
              f"(torch.profiler), idle share of the span "
              f"{'not measured' if idle is None else f'{idle:.4f}'}")
@@ -2300,7 +2420,8 @@ def check_eval_shapes(torch, rows):
                     lambda: msda.msda_reference(value, levels, locs, attn),
                     lambda: msda.multi_scale_deformable_attention(value, levels, locs, attn),
                     5, 20)
-            fb = bound(size(value, locs, attn, got), 10 * got.numel() * 16)
+            fb = bound(msda_value_bytes(torch, value, levels, locs) + size(locs, attn, got),
+                       10 * got.numel() * 16)
             rows["msda"]["shapes_ms"][f"B={EVAL_BATCH} Q={nq} {canvas} encoder-like"] = \
                 [ms, plain_ms, fb[0]]
             rows["msda"]["max_abs_err"] = max(rows["msda"]["max_abs_err"], err)
@@ -2685,12 +2806,13 @@ def train_cli_counters():
             "ycc_to_rgb": image_io.ycc_to_rgb}
 
 
-def run_train_cli_checked(torch, args, epochs, label, bf16=False):
+def run_train_cli_checked(torch, args, epochs, label, bf16=False, per_step=18):
     """One train CLI run with every counter set to 0 just before it: the
-    launches must be 18 msda_fwd (36 with ``bf16``, whose runs recompute
-    the layers under "dots"), 18 msda_bwd and 5 relation_bias_v4_fwd a
-    step, 12 msda_fwd and 5 relation_bias_v4_fwd an evaluated image (B=1),
-    and one ycc_to_rgb an image read, and with ``bf16`` every MSDA launch of
+    launches must be ``per_step`` msda_fwd (18 with the hybrid pass, 12
+    without; twice that with ``bf16``, whose runs recompute the layers under
+    "dots"), ``per_step`` msda_bwd and 5 relation_bias_v4_fwd a step, 12
+    msda_fwd and 5 relation_bias_v4_fwd an evaluated image (B=1), and one
+    ycc_to_rgb an image read, and with ``bf16`` every MSDA launch of
     the bf16-value forms; every step's loss finite, no skipped step.
     Returns (the CLI's result, launches, peak GiB, load averages)."""
     from relation_detr_tpu_torch import train
@@ -2709,12 +2831,12 @@ def run_train_cli_checked(torch, args, epochs, label, bf16=False):
     load = (load, os.getloadavg())
     launches = {k: fn.launches for k, fn in counters.items()}
     steps, evals = len(got["steps"]), 8 * len(got["evals"])
-    fwd = (36 if bf16 else 18) * steps + 12 * evals
-    want = {"msda_fwd": fwd, "msda_bwd": 18 * steps,
+    fwd = (2 if bf16 else 1) * per_step * steps + 12 * evals
+    want = {"msda_fwd": fwd, "msda_bwd": per_step * steps,
             "relation_bias_v4_fwd": 5 * steps + 5 * evals,
             "ycc_to_rgb": TRAIN_IMAGES * epochs + evals}
     if bf16:
-        want.update(msda_fwd_bf16=fwd, msda_bwd_bf16=18 * steps)
+        want.update(msda_fwd_bf16=fwd, msda_bwd_bf16=per_step * steps)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} over {steps} steps and {evals} "
                              f"evaluated images, expected {want}")
@@ -3017,16 +3139,16 @@ def profile_precision(torch, label, fn):
         top[bucket][ev["name"][:90]] += ms
     busy = sum(buckets.values())
     if busy == 0:
-        phase(9, f"{label}: torch.profiler saw no device time (not measured)")
+        phase(10, f"{label}: torch.profiler saw no device time (not measured)")
         return None
     shares = {k: [v, v / busy] for k, v in sorted(buckets.items(), key=lambda kv: -kv[1])}
-    phase(9, f"{label}: span {span:.3f} ms (host clock, synchronised), device busy "
+    phase(10, f"{label}: span {span:.3f} ms (host clock, synchronised), device busy "
              f"{busy:.3f} ms, idle share {1 - busy / span:.4f}; by bucket (ms, share of busy): "
              + "; ".join(f"{k} {v[0]:.3f} ({v[1]:.3f})" for k, v in shares.items()))
     for bucket in ("fp32 GEMMs", "fp32 convolutions", "casts", "unattributed", "other fp32"):
         if bucket in top:
             largest = sorted(top[bucket].items(), key=lambda kv: -kv[1])[:5]
-            phase(9, f"{label}: largest {bucket}: " +
+            phase(10, f"{label}: largest {bucket}: " +
                   "; ".join(f"{n} {ms:.3f} ms" for n, ms in largest))
     return dict(span_ms=span, busy_ms=busy, idle_share=1 - busy / span, buckets=shares)
 
@@ -3065,14 +3187,364 @@ def check_train_cli_busy(torch):
                                         "--eval-every-epochs", "0"))
     prof = got["profile"]
     if prof is None or not prof["device_busy_ms"]:
-        phase(9, "train CLI step: torch.profiler saw no device time (not measured)")
+        phase(10, "train CLI step: torch.profiler saw no device time (not measured)")
         return None
     prof = {k: v for k, v in prof.items() if k != "trace"}
-    phase(9, f"train CLI step (flagship B={TRAIN_BATCH}, --profile-steps 3,4): span "
+    phase(10, f"train CLI step (flagship B={TRAIN_BATCH}, --profile-steps 3,4): span "
              f"{prof['span_ms']:.3f} ms (host clock, synchronised), device busy "
              f"{prof['device_busy_ms']:.3f} ms (torch.profiler), idle share "
              f"{prof['idle_share']:.4f}")
     return prof
+
+
+# phase 9, the model families: the port's copies of the JAX package's
+# configs/{dino_pp,deformable_detr_pp,dn_def_detr_pp,dab_def_detr_pp}, each
+# with the relation bias's N in its eval and its train forwards (DINO++: 900
+# queries, + 200 CDN slots; DN-Def-DETR++: 300, + 5 groups x 60 DN slots)
+FAMILY_CONFIGS = {
+    "dino_pp": ("dino_pp.dino_pp_resnet50_800_1333", 900, 1100),
+    "def_detr_pp": ("deformable_detr_pp.def_detr_pp_resnet50_800_1333", 300, 300),
+    "dn_def_detr_pp": ("dn_def_detr_pp.dn_def_detr_pp_resnet50_800_1333", 300, 600),
+    "dab_def_detr_pp": ("dab_def_detr_pp.dab_def_detr_pp_resnet50_800_1333", 300, 300),
+}
+FAMILY_BASE = "relation_detr_tpu_torch.configs."
+SA_DET = "relation_detr.relation_detr_resnet50_sa_det_100k"
+FAMILY_TRAIN_RUN = (1, 100, 1, 3)  # B, GT capacity, warm-up, timed
+# tests/test_model_families.py's tiny size and each family's switches
+TINY_FAMILY = dict(num_classes=10, num_queries=30, hybrid_num_proposals=40, denoising_nums=4,
+                   transformer_enc_layers=1, transformer_dec_layers=2, backbone_arch="resnet18")
+TINY_FAMILIES = {
+    "dino_pp": dict(with_hybrid=False, denoising="cdn", encoder_memory_fusion=False,
+                    query_source="tgt_embed"),
+    "def_detr_pp": dict(with_hybrid=False, denoising=None, encoder_memory_fusion=False,
+                        query_source="tgt_embed"),
+    "dn_def_detr_pp": dict(with_hybrid=False, denoising="dn", dn_groups=3,
+                           encoder_memory_fusion=False, query_source="learned_anchor"),
+    "dab_def_detr_pp": dict(with_hybrid=False, denoising=None, encoder_memory_fusion=False,
+                            query_source="memory"),
+}
+
+
+def tiny_family(torch, family):
+    """The family's tiny model on the CPU (seeded weights) and its criterion."""
+    from relation_detr_tpu_torch.losses.criterion import CriterionConfig
+    from relation_detr_tpu_torch.models.detector import RelationDETR
+
+    model = RelationDETR(**TINY_FAMILY, **TINY_FAMILIES[family],
+                         generator=torch.Generator().manual_seed(1))
+    return model.eval(), CriterionConfig(num_classes=TINY_FAMILY["num_classes"],
+                                         class_loss_type="focal",
+                                         two_stage_binary_cls=family == "def_detr_pp")
+
+
+def family_kernels():
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+
+    return {"msda_fwd": msda.multi_scale_deformable_attention, "msda_bwd": msda.msda_backward,
+            "relation_bias_v4_fwd": relation_bias.relation_bias_v4}
+
+
+def record_family_launches(kernels, path, launches):
+    """Each kernel row's ``family_launches[path]``: the launches of one of
+    phase 9's paths, its counters set to 0 just before it."""
+    for key, row in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
+                     ("relation_bias_v4_fwd", "relation")):
+        kernels[row].setdefault("family_launches", {})[path] = launches[key]
+
+
+def check_tiny_family_eval(torch, family):
+    """Phase 9 (c): the family's tiny model on the GPU (kernels) and the CPU
+    (plain versions), same weights and inputs: every decoder layer's heads
+    and, when two-stage, the encoder top-k's heads and the class logits and
+    boxes the top-k selected, at TOL_MODEL. Returns the max abs diffs."""
+    cpu_model, _ = tiny_family(torch, family)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    images = torch.randn(2, 256, 320, 3, generator=gen)
+    mask = torch.zeros(2, 256, 320, dtype=torch.bool)
+    mask[1, 192:] = True
+    mask[1, :, 240:] = True
+    images[mask] = 0.0
+    with torch.inference_mode(), TopkRecorder() as cpu_topk:
+        want = cpu_model(images, mask)
+    with torch.inference_mode(), TopkRecorder() as gpu_topk:
+        got = gpu_model(images.cuda(), mask.cuda())
+    if ("enc_outputs" in got) != (family != "dn_def_detr_pp") or set(got) != set(want):
+        raise AssertionError(f"tiny {family}: outputs {sorted(got)}, CPU {sorted(want)}")
+    pairs = [(k, got[k], want[k]) for k in ("pred_logits", "pred_boxes")]
+    pairs += [(f"{s}/{k}", got[s][k], want[s][k]) for s in ("aux_outputs", "enc_outputs")
+              if s in got for k in ("pred_logits", "pred_boxes")]
+    pairs += [(f"top-k {what}", g, c) for gsel, csel in zip(gpu_topk.indices, cpu_topk.indices)
+              for what, g, c in zip(("class logits", "boxes"), gsel[:2], csel[:2])]
+    errs = {}
+    for label, g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, rtol=TOL_MODEL, atol=TOL_MODEL, msg=lambda m:
+                                   f"tiny {family} GPU vs CPU {label}: {m}")
+        errs[label] = (g.cpu() - w).abs().max().item()
+    phase(9, f"[{family}] tiny model GPU (kernels) vs CPU (plain) eval: " +
+          ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tolerance {TOL_MODEL})")
+    return errs
+
+
+def family_request(torch, gen, h, w):
+    images = torch.zeros(1, *CANVAS, 3, device="cuda")
+    images[0, :h, :w] = torch.randn(h, w, 3, generator=gen, device="cuda")
+    mask = torch.ones(1, *CANVAS, dtype=torch.bool, device="cuda")
+    mask[0, :h, :w] = False
+    return images, mask, [[h, w]]
+
+
+def family_optimizer(model):
+    from relation_detr_tpu_torch.configs import train_config
+    from relation_detr_tpu_torch.utils.param_groups import build_optimizer
+
+    return build_optimizer(model, train_config.learning_rate,
+                           weight_decay=train_config.weight_decay, betas=train_config.betas,
+                           max_norm=train_config.max_norm)
+
+
+def run_family(torch, family, kernels):
+    """Phase 9 (a): the family config at full width. 4 requests through
+    ``inference.detect`` after one warm-up (12 msda_fwd and 5
+    relation_bias_v4_fwd launches each, the relation bias at the family's
+    eval N), then FAMILY_TRAIN_RUN's train steps (12 msda_fwd, 12 msda_bwd
+    and 5 relation_bias_v4_fwd a step, the bias at its train N; the loss
+    terms the family has, all finite)."""
+    from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.parallel.train_step import make_train_step
+
+    module, n_eval, n_train = FAMILY_CONFIGS[family]
+    cfg = importlib.import_module(FAMILY_BASE + module)
+    # what earlier phases keep on the card (the flagship models phase 10
+    # profiles): the peaks below are reported above it
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = cfg.build_model(device="cuda", seed=0)
+    build_s = time.perf_counter() - t0
+    widths, raw = [], {}  # the relation bias's (N1, N2) per call; the raw heads
+    hooks = [model.transformer.decoder.position_relation_embedding.register_forward_hook(
+                 lambda mod, args, out: widths.append(tuple(out.shape[-2:]))),
+             model.register_forward_hook(lambda mod, args, out: raw.update(out))]
+    counters = family_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    topk = cfg.select_box_nums_for_evaluation
+    detect(model, *family_request(torch, gen, *REQUESTS[0]), topk)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    widths.clear()
+    times = []
+    q = cfg.num_queries
+    for i, (h, w) in enumerate(REQUESTS):
+        before = {k: fn.launches for k, fn in counters.items()}
+        images, mask, sizes = family_request(torch, gen, h, w)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        det = detect(model, images, mask, sizes, topk)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        got = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if got != {"msda_fwd": 12, "msda_bwd": 0, "relation_bias_v4_fwd": 5}:
+            raise AssertionError(f"{family} request {i}: launches {got}, expected 12 msda_fwd "
+                                 "and 5 relation_bias_v4_fwd")
+        if raw["pred_logits"].shape != (1, q, 91) or det["boxes"].shape != (1, topk, 4) or \
+                ("enc_outputs" in raw) != (family != "dn_def_detr_pp"):
+            raise AssertionError(f"{family} request {i}: logits {raw['pred_logits'].shape}, "
+                                 f"detections {det['boxes'].shape}, outputs {sorted(raw)}")
+        for t in (raw["pred_logits"], raw["pred_boxes"], det["scores"], det["boxes"]):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{family} request {i}: non-finite outputs")
+    eval_launches = {k: fn.launches for k, fn in counters.items()}
+    if set(widths) != {(n_eval, n_eval)} or len(widths) != 5 * len(REQUESTS):
+        raise AssertionError(f"{family}: relation bias widths {sorted(set(widths))} over "
+                             f"{len(widths)} calls, expected N={n_eval}")
+    eval_peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    phase(9, f"[{family}] built in {build_s:.1f} s ({sum(p.numel() for p in model.parameters())} "
+             f"parameters, {q} queries); B=1 {CANVAS[0]}x{CANVAS[1]} detect over "
+             f"{len(REQUESTS)} requests: p50 {statistics.median(times):.3f} ms (range "
+             f"{min(times):.3f}-{max(times):.3f}), peak memory {eval_peak:.3f} GiB above the "
+             f"{resident / 2**30:.3f} GiB earlier phases hold; {topk} "
+             f"finite detections each; launches {eval_launches} (relation bias N={n_eval})")
+    record_family_launches(kernels, f"{family} eval", eval_launches)
+
+    model.train()
+    step = make_train_step(model, cfg.build_criterion(), family_optimizer(model), seed=0)
+    bs, cap, warmup, timed = FAMILY_TRAIN_RUN
+    batch = synthetic_batch(torch, gen, bs, cap, CANVAS, "cuda", REQUESTS[0])
+    per_step = {"msda_fwd": 12, "msda_bwd": 12, "relation_bias_v4_fwd": 5}
+    for fn in counters.values():
+        fn.launches = 0
+    widths.clear()
+    last = {}
+    train_times, train_peak = train_steps(
+        torch, step, batch, warmup, timed,
+        {k: (counters[k], e) for k, e in per_step.items()}, f"B={bs} GT capacity {cap}",
+        title=family, n=9, last=last)
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    for hook in hooks:
+        hook.remove()
+    if set(widths) != {(n_train, n_train)}:
+        raise AssertionError(f"{family} train: relation bias widths {sorted(set(widths))}, "
+                             f"expected N={n_train}")
+    denoised = cfg.model_args.get("denoising") is not None
+    terms = {k for k in last if k.startswith("loss")}
+    if any(k.endswith("_dn") for k in terms) != denoised or \
+            any(k.endswith("_enc") for k in terms) != (family != "dn_def_detr_pp") or \
+            any(k.endswith("_hybrid") for k in terms):
+        raise AssertionError(f"{family} train: loss terms {sorted(terms)}")
+    train_peak = (train_peak - resident) / 2**30
+    phase(9, f"[{family}] train launches {train_launches} over {warmup + timed} steps "
+             f"(relation bias N={n_train}); {len(terms)} loss terms, grad_norm "
+             f"{last['grad_norm']:.4f}; peak memory {train_peak:.3f} GiB above the resident")
+    record_family_launches(kernels, f"{family} train", train_launches)
+    return dict(queries=q, relation_n=[n_eval, n_train], detect_ms_p50=statistics.median(times),
+                detect_ms=times, detect_peak_gib=eval_peak,
+                step_ms_p50=statistics.median(train_times), step_ms=train_times,
+                step_peak_gib=train_peak, resident_gib=resident / 2**30, loss_terms=len(terms),
+                grad_norm=last["grad_norm"], eval_launches=eval_launches,
+                train_launches=train_launches)
+
+
+def run_sa_det(torch, kernels):
+    """Phase 9 (b): the SA-Det config (Relation-DETR, 2 classes) at full
+    width: one detect (12 msda_fwd, 5 relation_bias_v4_fwd) and one train
+    step with every label 1 (18 msda_fwd, 18 msda_bwd, 5
+    relation_bias_v4_fwd: the hybrid pass), all finite."""
+    from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.parallel.train_step import make_train_step
+
+    cfg = importlib.import_module(FAMILY_BASE + SA_DET)
+    resident = torch.cuda.memory_allocated()
+    model = cfg.build_model(device="cuda", seed=0)
+    counters = family_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for fn in counters.values():
+        fn.launches = 0
+    raw = {}
+    hook = model.register_forward_hook(lambda mod, args, out: raw.update(out))
+    det = detect(model, *family_request(torch, gen, *REQUESTS[0]),
+                 cfg.select_box_nums_for_evaluation)
+    torch.cuda.synchronize()
+    hook.remove()
+    eval_launches = {k: fn.launches for k, fn in counters.items()}
+    if eval_launches != {"msda_fwd": 12, "msda_bwd": 0, "relation_bias_v4_fwd": 5} or \
+            raw["pred_logits"].shape != (1, 900, 2) or \
+            not all(bool(torch.isfinite(t).all()) for t in (raw["pred_logits"], det["boxes"])):
+        raise AssertionError(f"SA-Det detect: launches {eval_launches}, logits "
+                             f"{raw['pred_logits'].shape}")
+    record_family_launches(kernels, "sa_det eval", eval_launches)
+    model.train()
+    step = make_train_step(model, cfg.build_criterion(), family_optimizer(model),
+                           cfg.hybrid_assign, seed=0)
+    batch = synthetic_batch(torch, gen, 1, 100, CANVAS, "cuda", REQUESTS[0])
+    batch["gt_labels"][batch["gt_valid"]] = 1
+    for fn in counters.values():
+        fn.launches = 0
+    last = {}
+    times, peak = train_steps(
+        torch, step, batch, 0, 1,
+        {k: (counters[k], e) for k, e in (("msda_fwd", 18), ("msda_bwd", 18),
+                                          ("relation_bias_v4_fwd", 5))},
+        "B=1 GT capacity 100, labels 1", title="SA-Det", n=9, last=last)
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    record_family_launches(kernels, "sa_det train", train_launches)
+    phase(9, f"[SA-Det] detect: logits {tuple(raw['pred_logits'].shape)}, "
+             f"{cfg.select_box_nums_for_evaluation} finite detections, launches "
+             f"{eval_launches}; train step launches {train_launches}, "
+             f"{sum(k.startswith('loss') for k in last)} loss terms finite")
+    return dict(step_ms=times[0], step_peak_gib=(peak - resident) / 2**30,
+                eval_launches=eval_launches,
+                train_launches=train_launches)
+
+
+def run_family_clis(torch, kernels):
+    """Phase 9 (d): the train CLI on the DINO++ config, one epoch over the
+    committed train split at B=2 with its evaluation (12 msda_fwd, 12
+    msda_bwd and 5 relation_bias_v4_fwd a step: no hybrid pass), and the
+    eval CLI on the DN-Def-DETR++ config over the val split at B=2 (12
+    msda_fwd and 5 relation_bias_v4_fwd a batch, 300 finite detections an
+    image); every metric finite."""
+    import tempfile
+
+    import numpy as np
+
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.data import image_io
+
+    configs = os.path.join(ROOT, "relation_detr_tpu_torch", "configs")
+    dino = os.path.join(configs, "dino_pp", "dino_pp_resnet50_800_1333.py")
+    dn = os.path.join(configs, "dn_def_detr_pp", "dn_def_detr_pp_resnet50_800_1333.py")
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    with tempfile.TemporaryDirectory() as tmp:
+        got, launches, peak, _ = run_train_cli_checked(
+            torch, train_cli_args(os.path.join(tmp, "dino"), 1, "--model-config", dino), 1,
+            "train CLI [dino_pp]", per_step=12)
+        stats = [e["stats"] for e in got["evals"]]
+        if len(stats) != 1 or not all(math.isfinite(v) for v in stats[0].values()):
+            raise AssertionError(f"train CLI [dino_pp]: evaluations {stats}")
+        step_ms = [s["step"] for s in got["steps"][TRAIN_SKIP:]]
+        record_family_launches(kernels, "dino_pp train CLI", launches)
+        phase(9, f"train CLI [dino_pp] B={TRAIN_BATCH}, 1 epoch ({len(got['steps'])} steps) "
+                 f"and its evaluation: launches {launches}; step p50 "
+                 f"{statistics.median(step_ms):.3f} ms past the first {TRAIN_SKIP}; peak "
+                 f"memory {peak:.3f} GiB; losses finite; AP50 {stats[0]['AP50']:.4f}")
+        counters = family_kernels()
+        counters["ycc_to_rgb"] = image_io.ycc_to_rgb
+        for fn in counters.values():
+            fn.launches = 0
+        out = os.path.join(tmp, "results.json")
+        evaluated = eval_cli.main(["--coco-path", coco, "--batch-size", str(EVAL_BATCH),
+                                   "--device", "cuda", "--model-config", dn,
+                                   "--result-json", out])
+        torch.cuda.synchronize()
+        eval_launches = {k: fn.launches for k, fn in counters.items()}
+        batches = -(-evaluated["images"] // EVAL_BATCH)
+        want = {"msda_fwd": 12 * batches, "msda_bwd": 0, "relation_bias_v4_fwd": 5 * batches,
+                "ycc_to_rgb": evaluated["images"]}
+        if eval_launches != want:
+            raise AssertionError(f"eval CLI [dn_def_detr_pp]: launches {eval_launches}, "
+                                 f"expected {want}")
+        with open(out) as f:
+            predictions = json.load(f)
+        if len(predictions) != 300 * evaluated["images"] or not all(
+                np.isfinite(p["bbox"]).all() and np.isfinite(p["score"]) for p in predictions):
+            raise AssertionError("eval CLI [dn_def_detr_pp]: expected 300 finite detections "
+                                 "per image")
+        if not all(math.isfinite(v) for v in evaluated["stats"].values()):
+            raise AssertionError(f"eval CLI [dn_def_detr_pp]: stats {evaluated['stats']}")
+    record_family_launches(kernels, "dn_def_detr_pp eval CLI", eval_launches)
+    phase(9, f"eval CLI [dn_def_detr_pp] B={EVAL_BATCH}: {evaluated['images']} images, "
+             f"{evaluated['images_per_s']:.3f} images/s, launches {eval_launches}, 300 finite "
+             f"detections an image, stats finite (AP {evaluated['stats']['AP']:.4f})")
+    return dict(train_cli=dict(steps=len(got["steps"]), step_ms_p50=statistics.median(step_ms),
+                               peak_gib=peak, launches=launches, stats=stats[0]),
+                eval_cli=dict(images=evaluated["images"],
+                              images_per_s=evaluated["images_per_s"],
+                              launches=eval_launches, stats=evaluated["stats"]))
+
+
+def run_families(torch, kernels):
+    """Phase 9: (a) each family at full width, (b) SA-Det, (c) each
+    family's tiny model GPU vs CPU, eval and train, (d) the two CLIs."""
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    results = {"card": smi}
+    for family in FAMILY_CONFIGS:
+        results[family] = run_family(torch, family, kernels)
+        torch.cuda.empty_cache()
+    results["sa_det"] = run_sa_det(torch, kernels)
+    torch.cuda.empty_cache()
+    for family in FAMILY_CONFIGS:
+        results[family]["tiny_eval_max_abs"] = check_tiny_family_eval(torch, family)
+        check_tiny_train(torch, "gather", {}, None, family=family, n=9)
+    results.update(run_family_clis(torch, kernels))
+    phase(9, f"[{smi}] " + "; ".join(
+        f"{f}: detect p50 {results[f]['detect_ms_p50']:.3f} ms, {results[f]['detect_peak_gib']:.3f}"
+        f" GiB, step p50 {results[f]['step_ms_p50']:.3f} ms, {results[f]['step_peak_gib']:.3f} GiB"
+        for f in FAMILY_CONFIGS))
+    return results
 
 
 def main() -> int:
@@ -3131,13 +3603,14 @@ def main() -> int:
     step16 = timed(6, run_flagship_train_bf16, torch, kernels)
     evaluation = timed(7, run_evaluation, torch, kernels)
     training = timed(8, run_train, torch, kernels)
-    timed(9, run_profiles, torch)
-    precision = timed(9, check_precision_profiles, torch, model, model16, step16)
+    families = timed(9, run_families, torch, kernels)
+    timed(10, run_profiles, torch)
+    precision = timed(10, check_precision_profiles, torch, model, model16, step16)
     del model16, step16
-    evaluation["forward_busy"] = timed(9, check_eval_forward_busy, torch, model)
-    training["cli_step_busy"] = timed(9, check_train_cli_busy, torch)
-    timed(9, check_relation_calls, torch, model, kernels)
-    phase(9, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
+    evaluation["forward_busy"] = timed(10, check_eval_forward_busy, torch, model)
+    training["cli_step_busy"] = timed(10, check_train_cli_busy, torch)
+    timed(10, check_relation_calls, torch, model, kernels)
+    phase(10, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     if FAILURES:
         raise AssertionError("; ".join(FAILURES))
@@ -3154,6 +3627,7 @@ def main() -> int:
     print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"evaluation": evaluation}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,41 @@
+"""Deformable-DETR++ ResNet-50: two-stage Deformable-DETR with the relation
+bias (no denoising, no hybrid branch, the encoder set scored
+class-agnostic, focal class loss) — PyTorch port.
+
+Same values as configs/deformable_detr_pp/def_detr_pp_resnet50_800_1333.py
+(the JAX package's); ``build_model`` builds the port's model. Read it with
+``relation_detr_tpu_torch.utils.config.Config``.
+"""
+from relation_detr_tpu_torch.configs import build_detector
+from relation_detr_tpu_torch.losses.criterion import CriterionConfig
+
+num_classes = 91
+num_queries = 300
+
+model_args = dict(
+    num_classes=num_classes,
+    num_queries=num_queries,
+    encoder_memory_fusion=False,
+    decoder_use_relation=True,
+    with_hybrid=False,
+    denoising=None,
+    backbone_arch="resnet50",
+)
+
+criterion_args = dict(num_classes=num_classes, class_loss_type="focal",
+                      two_stage_binary_cls=True)
+
+
+def build_criterion():
+    return CriterionConfig(**criterion_args)
+
+
+def build_model(device="cuda", seed=0, backbone_dtype=None, compute_dtype=None,
+                remat_policy=None):
+    """The model with weights drawn from ``seed``, in eval mode on ``device``."""
+    return build_detector(model_args, device, seed, backbone_dtype, compute_dtype, remat_policy)
+
+
+min_size = 800
+max_size = 1333
+select_box_nums_for_evaluation = 300

@@ -4,10 +4,8 @@ Same values as configs/relation_detr/relation_detr_resnet50_800_1333.py (the
 JAX package's); ``build_model`` builds the port's model. Read it with
 ``relation_detr_tpu_torch.utils.config.Config``.
 """
-import torch
-
+from relation_detr_tpu_torch.configs import build_detector
 from relation_detr_tpu_torch.losses.criterion import CriterionConfig
-from relation_detr_tpu_torch.models.detector import RelationDETR
 
 embed_dim = 256
 num_classes = 91
@@ -56,13 +54,8 @@ def build_criterion():
 
 def build_model(device="cuda", seed=0, backbone_dtype=None, compute_dtype=None,
                 remat_policy=None):
-    """The model with weights drawn from ``seed``, in eval mode on ``device``;
-    ``backbone_dtype`` / ``compute_dtype`` ("bfloat16": the bf16 policy) and
-    ``remat_policy`` as ``RelationDETR`` takes them."""
-    model = RelationDETR(**model_args, backbone_dtype=backbone_dtype,
-                         compute_dtype=compute_dtype, remat_policy=remat_policy,
-                         generator=torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    """The model with weights drawn from ``seed``, in eval mode on ``device``."""
+    return build_detector(model_args, device, seed, backbone_dtype, compute_dtype, remat_policy)
 
 
 # eval-time resize bounds (applied host-side)

@@ -1,10 +1,8 @@
 """Tiny RelationDETR for smoke tests (shallow stack, few queries) — PyTorch
 port. Same values as configs/relation_detr/relation_detr_resnet50_tiny_test.py
 (the JAX package's); ``build_model`` builds the port's model."""
-import torch
-
+from relation_detr_tpu_torch.configs import build_detector
 from relation_detr_tpu_torch.losses.criterion import CriterionConfig
-from relation_detr_tpu_torch.models.detector import RelationDETR
 
 num_classes = 4  # synthetic: ids 1..3 + 0
 hybrid_assign = 6
@@ -29,13 +27,8 @@ def build_criterion():
 
 def build_model(device="cuda", seed=0, backbone_dtype=None, compute_dtype=None,
                 remat_policy=None):
-    """The model with weights drawn from ``seed``, in eval mode on ``device``;
-    ``backbone_dtype`` / ``compute_dtype`` ("bfloat16": the bf16 policy) and
-    ``remat_policy`` as ``RelationDETR`` takes them."""
-    model = RelationDETR(**model_args, backbone_dtype=backbone_dtype,
-                         compute_dtype=compute_dtype, remat_policy=remat_policy,
-                         generator=torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    """The model with weights drawn from ``seed``, in eval mode on ``device``."""
+    return build_detector(model_args, device, seed, backbone_dtype, compute_dtype, remat_policy)
 
 
 min_size = 224

@@ -9,8 +9,10 @@ Port of the root ``inference.py``:
 Images decode with nvJPEG on the card (``data/image_io.py``: EXIF
 orientation applied; a file that is not a JPEG raises with its name) and
 resize on the host by the port's ``data.transforms.EvalPreset`` onto the
-fixed 800x1344 canvas. ``--device cpu`` has no JPEG decoder: a caller of
-``main`` passes ``decode=``. ``--checkpoint`` takes the JAX package's
+fixed 800x1344 canvas; each keeps the config's
+``select_box_nums_for_evaluation`` top-scored boxes before the
+``--score-threshold``, as ``test.py`` does. ``--device cpu`` has no JPEG
+decoder: a caller of ``main`` passes ``decode=``. ``--checkpoint`` takes the JAX package's
 ``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays),
 loaded leniently as the root CLI loads them (``utils.weights.load_weights``:
 missing and shape-mismatched tensors keep their values and are reported).
@@ -72,6 +74,7 @@ def main(argv=None, decode: Optional[Decode] = None):
     if args.checkpoint:
         load_weights(model, args.checkpoint)
     preset = EvalPreset(cfg.get("min_size", 800), cfg.get("max_size", 1333))
+    select_box_nums = cfg.get("select_box_nums_for_evaluation", 300)
     files = sorted(f for f in os.listdir(args.image_dir) if f.lower().endswith(IMAGE_EXTS))
     for fname in files:
         rgb = read_image(os.path.join(args.image_dir, fname), args.device, decode)
@@ -87,7 +90,7 @@ def main(argv=None, decode: Optional[Decode] = None):
         mask = np.ones((1, *CANVAS), bool)
         images[0, :h, :w] = sample["image"]
         mask[0, :h, :w] = False
-        det = detect(model, images, mask, [rgb.shape[:2]])
+        det = detect(model, images, mask, [rgb.shape[:2]], select_box_nums)
         keep = det["scores"][0] > args.score_threshold
         print(f"{fname}: {int(keep.sum())} detections")
         for s, l, b in zip(det["scores"][0][keep].tolist(), det["labels"][0][keep].tolist(),

@@ -8,9 +8,13 @@ output set at once and cross to the host in one copy, where
 as the reference matcher does; that copy is the train step's one host
 sync. The losses stay on the device.
 
-``CriterionConfig`` holds the fields the Relation-DETR configs set; the
-JAX config's Align-DETR ``mixed_match`` and ``two_stage_binary_cls``
-belong to other model families (ROADMAP Queue 1 item 11).
+``CriterionConfig`` holds the JAX config's fields, the model families'
+too: ``two_stage_binary_cls`` scores the encoder set class-agnostic (every
+target label 0, Deformable-DETR++), and ``mixed_match`` k > 1 is Align-DETR's
+mixed assignment (``tile_targets``: each GT matched to up to k queries).
+The JAX solver also takes the tiled copies' ``row_group`` (copies of a GT
+share a group); it only speeds its fused solver, and scipy solves tiled
+rows as any others, so the port has no counterpart.
 """
 from __future__ import annotations
 
@@ -46,7 +50,23 @@ class CriterionConfig:
     weight_bbox: float = 5.0
     weight_giou: float = 2.0
     class_loss_type: str = "vari_focal"  # "focal" | "vari_focal"
+    two_stage_binary_cls: bool = False
     aux_loss: bool = True
+    mixed_match: int = 1  # Align-DETR: each GT matched to up to this many queries
+
+
+def tile_targets(gt_labels, gt_boxes, gt_valid, copies: int, num_queries: int):
+    """Targets tiled ``copies`` times for mixed assignment; the copies past
+    min(num_queries // 2 // gt_size, copies) of an image are invalid."""
+    if copies <= 1:
+        return gt_labels, gt_boxes, gt_valid
+    tiled_valid = gt_valid.repeat(1, copies)
+    gt_size = gt_valid.sum(1, keepdim=True).clamp(min=1)
+    cap = torch.clamp((num_queries // 2) // gt_size, max=copies)  # (B, 1)
+    copy_idx = torch.arange(copies, device=gt_valid.device).repeat_interleave(
+        gt_valid.shape[1])[None]
+    return (gt_labels.repeat(1, copies), gt_boxes.repeat(1, copies, 1),
+            tiled_valid & (copy_idx < cap))
 
 
 def matching_cost(cfg: CriterionConfig, pred_logits, pred_boxes, gt_labels, gt_boxes):
@@ -69,9 +89,10 @@ def compute_matching(cfg: CriterionConfig, pred_logits, pred_boxes, gt_labels, g
                      gt_valid) -> torch.Tensor:
     """Hungarian match of (..., B, Q, K) logits and (..., B, Q, 4) boxes
     (any leading set dims) against (B, G) targets -> (..., B, G) int64 query
-    index per GT, -1 for invalid GT. Only the valid GT columns of the cost
-    cross to the host. ``compute_matching.host_seconds`` adds up the host
-    time of the solves."""
+    index per GT, -1 for invalid GT. ``gt_labels`` may carry the leading set
+    dims too, (..., B, G): a label set per output set. Only the valid GT
+    columns of the cost cross to the host. ``compute_matching.host_seconds``
+    adds up the host time of the solves."""
     device = pred_logits.device
     lead = tuple(pred_logits.shape[:-3])
     bs, num_gt = gt_valid.shape
@@ -82,7 +103,7 @@ def compute_matching(cfg: CriterionConfig, pred_logits, pred_boxes, gt_labels, g
     order = np.argsort(~valid, axis=1, kind="stable")[:, :n_max]
     idx = torch.from_numpy(order).to(device)
     with torch.no_grad():
-        labels = torch.gather(gt_labels, 1, idx)
+        labels = torch.gather(gt_labels, -1, idx.expand(*gt_labels.shape[:-2], *idx.shape))
         boxes = torch.gather(gt_boxes, 1, idx[..., None].expand(bs, n_max, 4))
         cost = matching_cost(cfg, pred_logits, pred_boxes, labels, boxes)
         cost = cost.transpose(-1, -2).cpu().numpy()  # (..., B, n_max, Q)
@@ -161,24 +182,31 @@ def calculate_loss(cfg: CriterionConfig, pred_logits, pred_boxes, gt_labels, gt_
 def criterion_forward(cfg: CriterionConfig, outputs: Dict, gt_labels, gt_boxes, gt_valid,
                       num_boxes) -> Dict[str, torch.Tensor]:
     """Losses of the last layer, every aux layer (suffix ``_{i}``) and the
-    encoder top-k (``_enc``), each matched on its own; all sets are matched
-    in one ``compute_matching`` call."""
+    encoder top-k (``_enc``, against all-zero labels under
+    ``two_stage_binary_cls``), each matched on its own; all sets are matched
+    in one ``compute_matching`` call, against the targets tiled
+    ``mixed_match`` times."""
+    gt_labels, gt_boxes, gt_valid = tile_targets(gt_labels, gt_boxes, gt_valid, cfg.mixed_match,
+                                                 outputs["pred_logits"].shape[1])
     names, logits, boxes = [""], [outputs["pred_logits"]], [outputs["pred_boxes"]]
+    labels = [gt_labels]
     if cfg.aux_loss and "aux_outputs" in outputs:
         aux = outputs["aux_outputs"]
         for i in range(aux["pred_logits"].shape[0]):
             names.append(f"_{i}")
             logits.append(aux["pred_logits"][i])
             boxes.append(aux["pred_boxes"][i])
+            labels.append(gt_labels)
     if "enc_outputs" in outputs:
         names.append("_enc")
         logits.append(outputs["enc_outputs"]["pred_logits"])
         boxes.append(outputs["enc_outputs"]["pred_boxes"])
+        labels.append(torch.zeros_like(gt_labels) if cfg.two_stage_binary_cls else gt_labels)
     match_all = compute_matching(cfg, torch.stack(logits).detach(), torch.stack(boxes).detach(),
-                                 gt_labels, gt_boxes, gt_valid)
+                                 torch.stack(labels), gt_boxes, gt_valid)
     losses: Dict[str, torch.Tensor] = {}
     for i, suffix in enumerate(names):
-        set_loss = calculate_loss(cfg, logits[i], boxes[i], gt_labels, gt_boxes, gt_valid,
+        set_loss = calculate_loss(cfg, logits[i], boxes[i], labels[i], gt_boxes, gt_valid,
                                   num_boxes, match_all[i])
         losses.update({f"{k}{suffix}": v for k, v in set_loss.items()})
     return losses

@@ -15,6 +15,10 @@ islands with it). flax rounds the product and then adds the bias in the
 compute dtype; ``F.linear`` adds the bias in the fp32 accumulator and
 rounds once, which on the card saves a launch per layer. The difference is
 one bf16 rounding of the product (tests/test_torch_bf16.py measures it).
+
+``dropout`` draws its masks from an explicit ``torch.Generator``, never the
+global one: a layer seeds its own from a host integer (``dropout_generator``),
+so a recompute under ``torch.utils.checkpoint`` draws the same masks.
 """
 from __future__ import annotations
 
@@ -51,6 +55,25 @@ def prior_prob_bias(prior_prob: float = 0.01) -> float:
 
 def with_pos_embed(tensor: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
     return tensor if pos is None else tensor + pos
+
+
+def dropout_generator(seed: Optional[int], p: float, device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed``, or None when nothing
+    is to be dropped (``p`` 0 or no seed: the eval forward)."""
+    if p <= 0.0 or seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(p)``: each element kept with probability 1 - p and
+    scaled by 1 / (1 - p), the mask drawn from ``generator``. The identity,
+    with no draw, when ``generator`` is None (``dropout_generator``'s p = 0
+    or eval)."""
+    if generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:

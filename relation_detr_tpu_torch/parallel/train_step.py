@@ -1,8 +1,9 @@
 """The train step. Counterpart of
 ``relation_detr_tpu/parallel/train_step.py::make_train_step``.
 
-One call does the train forward (CDN + hybrid branch), the loss, the
-backward, the global-norm clip and the AdamW update, on the model's device.
+One call does the train forward (the model's denoising queries and hybrid
+branch, if it has them), the loss, the backward, the global-norm clip and
+the AdamW update, on the model's device.
 The host syncs once for the matcher (by design, as the reference's scipy
 matcher does) and once to read the metrics, which also decides the
 non-finite skip: a step whose loss or gradient norm is not finite changes
@@ -102,9 +103,12 @@ def make_train_step(
     ``nonfinite_count`` and ``first_nonfinite_step``, as floats/ints.
     ``step.state`` is the ``TrainState``; ``step.state_dict()`` /
     ``step.load_state_dict(d)`` give and take it with the accumulator (None
-    without accumulation), by parameter name. The CDN draws come from a
-    generator re-seeded from (seed, step) each step, the analogue of the
-    JAX step's ``fold_in(rng, step)``.
+    without accumulation), by parameter name. The denoising draws come from
+    a generator re-seeded from (seed, step) each step, the analogue of the
+    JAX step's ``fold_in(rng, step)``; the dropout masks from a second
+    stream, the seed with the top bit set (the JAX step's split into
+    ``denoising`` and ``dropout`` keys). At dropout 0 the second stream
+    draws nothing.
     """
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
@@ -116,10 +120,11 @@ def make_train_step(
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         optimizer.zero_grad(set_to_none=True)
-        generator.manual_seed((seed << 32) + state.step)
+        step_seed = (seed << 32) + state.step
+        generator.manual_seed(step_seed)
         images, mask, gt_labels, gt_boxes, gt_valid = (batch[k] for k in BATCH_KEYS)
         outputs = model(images, mask, gt_labels, gt_boxes, gt_valid, train=True,
-                        generator=generator)
+                        generator=generator, dropout_seed=step_seed | 1 << 63)
         total, losses = relation_detr_loss(criterion_cfg, outputs, gt_labels, gt_boxes,
                                            gt_valid, hybrid_assign)
         total.backward()

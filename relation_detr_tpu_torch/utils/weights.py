@@ -41,7 +41,8 @@ _RENAMES = {
 }
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 _BARE = {"transformer/tgt_embed": "transformer.tgt_embed.weight",
-         "transformer/hybrid_tgt_embed": "transformer.hybrid_tgt_embed.weight"}
+         "transformer/hybrid_tgt_embed": "transformer.hybrid_tgt_embed.weight",
+         "transformer/refpoint_embed": "transformer.refpoint_embed.weight"}
 _QKV = ("q_proj", "k_proj", "v_proj")
 
 

@@ -251,8 +251,9 @@ def test_exif_orientation_absent_or_foreign():
 
 def test_folder_cli_decodes_through_image_io(tmp_path, capsys):
     """The folder CLI reads images through data/image_io.py: with cv2's
-    decode on the CPU it answers the EXIF fixture; without a decoder on the
-    CPU it raises rather than fall back."""
+    decode on the CPU it answers the EXIF fixture with the config's
+    ``select_box_nums_for_evaluation`` boxes (the tiny config's 30); without
+    a decoder on the CPU it raises rather than fall back."""
     from relation_detr_tpu_torch import inference
 
     fixture = os.path.join(REPO, "tests", "data", "torch_port", "decode_exif6.jpg")
@@ -262,7 +263,7 @@ def test_folder_cli_decodes_through_image_io(tmp_path, capsys):
     argv = ["--image-dir", str(tmp_path), "--model-config", cfg, "--device", "cpu",
             "--score-threshold", "0"]
     inference.main(argv, decode=cv2_decode)
-    assert "a.jpg: 100 detections" in capsys.readouterr().out
+    assert "a.jpg: 30 detections" in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="no JPEG decoder"):
         inference.main(argv)
 

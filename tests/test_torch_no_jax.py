@@ -34,6 +34,13 @@ from relation_detr_tpu_torch.utils.param_groups import build_optimizer
 
 cfgs = [Config("relation_detr_tpu_torch/configs/relation_detr/" + name) for name in
         ("relation_detr_resnet50_800_1333.py", "relation_detr_resnet50_tiny_test.py")]
+# the model families' and SA-Det's configs
+family_cfgs = [Config("relation_detr_tpu_torch/configs/" + name) for name in (
+    "dino_pp/dino_pp_resnet50_800_1333.py",
+    "deformable_detr_pp/def_detr_pp_resnet50_800_1333.py",
+    "dn_def_detr_pp/dn_def_detr_pp_resnet50_800_1333.py",
+    "dab_def_detr_pp/dab_def_detr_pp_resnet50_800_1333.py",
+    "relation_detr/relation_detr_resnet50_sa_det_100k.py")]
 rng = np.random.RandomState(0)
 images = rng.randn(1, 128, 160, 3).astype(np.float32)
 mask = np.zeros((1, 128, 160), bool)
@@ -59,6 +66,24 @@ def eval_and_train_step():
                            cfgs[1].hybrid_assign)
     metrics = step(batch)
     assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
+
+
+def tiny_dn_family():
+    # DN-Def-DETR++ (single-stage, DN queries) at a tiny size: eval, train step
+    from relation_detr_tpu_torch.configs import build_detector
+
+    dn = family_cfgs[2]
+    model = build_detector(dict(dn.model_args, backbone_arch="resnet18", num_queries=30,
+                                transformer_enc_layers=1, transformer_dec_layers=2),
+                           device="cpu")
+    det = inference.detect(model, images, mask, [[96, 160]], 30)
+    assert det["boxes"].shape == (1, 30, 4) and bool(torch.isfinite(det["boxes"]).all())
+    model.train()
+    step = make_train_step(model, dn.build_criterion(),
+                           build_optimizer(model, train_config.learning_rate))
+    metrics = step(batch)
+    assert np.isfinite(metrics["total_loss"]) and "loss_class_dn" in metrics, metrics
+    assert not any(k.endswith(("_enc", "_hybrid")) for k in metrics), metrics
 
 
 def evaluation_stream():
@@ -112,6 +137,7 @@ def evaluation_stream():
 
 
 eval_and_train_step()
+tiny_dn_family()
 evaluation_stream()
 relation_bias.set_fused_relation(version=1)
 with msda.msda_defaults(impl="tiled"):
