@@ -16,10 +16,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      encoder shape (Q=S=22,323) and the decoder shapes Q=300, 500, 600
      (the model families' 300 queries, with 200 CDN slots, with 300 DN
      slots), 900, 1100 and 1500, each on the encoder-like and the
-     scattered location sets, relation_bias_v4_fwd (N=300, 500, 600, 900
-     and 1100, with bounds) and the relation bias's backward (N=1100),
-     window_accumulate at the four levels' window
-     grids (bit-identical, one covering-window table build per level, at
+     scattered location sets, and at the encoder shape of the 1216x2016
+     canvas (FocalNet-L's 1200x2000 config: Q=S=50,882, levels 152x252,
+     76x126, 38x63, 19x32) on both sets, relation_bias_v4_fwd (N=300,
+     500, 600, 900 and 1100, with bounds) and the relation bias's backward
+     (N=1100), window_accumulate at the four levels' window grids
+     (bit-identical, one covering-window table build per level, at
      the first call), the tiled encoder MSDA's tiled_core_fwd,
      tiled_core_bwd and sep_contract_fwd on its operands at the four levels
      (B=1, and level 0 at B=2; tiled_core_fwd also on edge entries: rows
@@ -135,6 +137,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      committed train split at B=2 with its evaluation, and the eval CLI on
      the DN-Def-DETR++ config (single-stage: no encoder outputs) over the
      val split at B=2, launches counted, metrics finite;
+ 11. (run before phase 10) the models with large backbones: (a) a tiny
+     form of each backbone family (Swin v1 and v2, ConvNeXt, FocalNet with
+     every flag on) on the tiny-test config, GPU (kernels) against CPU
+     (plain versions), same weights: the encoder's heads before the
+     two-stage top-k and the
+     decoder's heads at TOL_MODEL, one train forward + backward as phase
+     9 (c) holds a family (the backbone's weights offset too); (b) the
+     four large configs (``LARGE_CONFIGS``: Swin-L, ConvNeXt-L and
+     FocalNet-L on the 800x1344 canvas, FocalNet-L's 1200x2000 config on
+     the 1216x2016 canvas with EvalPreset(1200, 2000) images) at full
+     width, uncut, seeded weights, fp32: 4 requests through
+     ``inference.detect`` (12 msda_fwd and 5 relation_bias_v4_fwd
+     launches each), the p50 and range, peak memory, the time by stage
+     (backbone, neck, encoder, two-stage, decoder; CUDA events in forward
+     hooks), then 1 + 3 train steps at B=1, GT capacity 100 (18 msda_fwd,
+     18 msda_bwd, 5 relation_bias_v4_fwd a step; losses and gradient norm
+     finite), p50 and peak memory; and one Swin-L detect under the bf16
+     policy, whose backbone outputs must be fp32 and the fp32 run's bit
+     for bit;
  10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
@@ -165,8 +186,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      relation_bias_v4_fwd and ycc_to_rgb from phase 8 (a); msda_fwd_bf16
      and msda_bwd_bf16 from the bf16 train step with remat unset;
      family_launches of msda_fwd, msda_bwd and relation_bias_v4_fwd from
-     each of phase 9's paths), after JSON lines of the precision profiles
-     and phase 7's, phase 8's and phase 9's results, then the last line
+     each of phase 9's paths; large_backbone_launches from each of phase
+     11's), after JSON lines of the precision profiles and phase 7's, 8's,
+     9's and 11's results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: bytes are each input read once and each output written once;
@@ -192,6 +214,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CANVAS = (800, 1344)
 LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21))  # the canvas' 4 levels
+# FocalNet-L's 1200x2000 config: an EvalPreset(1200, 2000) image on this
+# canvas feeds the encoder MSDA 50,882 tokens (phases 3 and 11)
+LARGE_CANVAS = (1216, 2016)
 REQUESTS = ((800, 1333), (800, 1066), (600, 1344), (800, 1344))  # valid (h, w)
 CONFIGS = "relation_detr_tpu_torch.configs.relation_detr."
 TOL_KERNEL = 1e-4
@@ -389,21 +414,21 @@ def run_profiles(torch):
               "; ".join(f"{k} {v[0]:.4f} ms over {v[1]} launches" for k, v in found.items()))
 
 
-def msda_inputs(torch, gen, num_queries, dev):
+def msda_inputs(torch, gen, num_queries, dev, levels=LEVELS):
     """The scattered set, the worst case for locality and the correctness
     set: locations uniform over the image (point 0) or over the image and a
     margin past it (points 1-3), whatever the query; every 7th query
     with point 1 on the left and top borders, every 11th with point 2 on
     the right and bottom ones, every 5th with point 3 on pixel centres of
     random tokens plus whole-pixel offsets."""
-    total = sum(h * w for h, w in LEVELS)
-    h_, l_, p_, d_ = 8, len(LEVELS), 4, 32
+    total = sum(h * w for h, w in levels)
+    h_, l_, p_, d_ = 8, len(levels), 4, 32
     value = torch.randn(1, total, h_, d_, generator=gen, device=dev)
     locs = torch.rand(1, num_queries, h_, l_, p_, 2, generator=gen, device=dev) * 1.2 - 0.1
     locs[:, :, :, :, 0] = torch.rand(1, num_queries, h_, l_, 2, generator=gen, device=dev)
     locs[:, ::7, :, :, 1] = 0.0
     locs[:, ::11, :, :, 2] = 1.0
-    on_pixel_centres(torch, gen, locs[:, ::5, :, :, 3], LEVELS)
+    on_pixel_centres(torch, gen, locs[:, ::5, :, :, 3], levels)
     attn = torch.rand(1, num_queries, h_, l_, p_, generator=gen, device=dev)
     attn = attn / attn.sum(dim=(-2, -1), keepdim=True)
     return value, locs.contiguous(), attn.contiguous()
@@ -477,6 +502,68 @@ def relation_inputs(torch, gen, n, dev, batch=1):
     return src, tgt, kernel, bias
 
 
+def hold_msda(torch, gen, levels, value, locs, attn, label, shape, found, errs, device):
+    """msda_fwd and msda_bwd on one input set against their plain versions,
+    timed in turns with them, with bounds: found[key][label] = [kernel ms,
+    plain ms, bound ms, bound by], errs[key] the max abs error; phase 10
+    profiles both kernels into device[label]."""
+    from relation_detr_tpu_torch.ops import msda
+
+    dev, nq = value.device, locs.shape[1]
+    with torch.no_grad():
+        got = msda.multi_scale_deformable_attention(value, levels, locs, attn)
+        want = msda.msda_reference(value, levels, locs, attn)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not (err <= TOL_KERNEL):
+            raise AssertionError(f"msda_fwd {shape}: max abs err {err} > {TOL_KERNEL}")
+        ms, plain_ms = in_turns(
+            lambda: msda.msda_reference(value, levels, locs, attn),
+            lambda: msda.multi_scale_deformable_attention(value, levels, locs, attn),
+            5, 20)
+    # 4 corner FMAs and a weight FMA per (q, h, l, p, d)
+    fb = bound(msda_value_bytes(torch, value, levels, locs) + size(locs, attn, got),
+               10 * got.numel() * 16)
+    errs["fwd"].append(err)
+    found["fwd"][label] = [ms, plain_ms, fb[0], fb[1]]
+    phase(3, f"msda_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]})")
+    del got, want
+
+    grad_out = torch.randn(value.shape[0], nq, value.shape[2] * value.shape[3], generator=gen,
+                           device=dev)
+    got = msda.msda_backward(value, levels, locs, attn, grad_out)
+    inputs = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
+    with torch.enable_grad():
+        out = msda.msda_reference(inputs[0], levels, inputs[1], inputs[2])
+
+    def plain():
+        return torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+
+    want = plain()
+    torch.cuda.synchronize()
+    rel = [max_rel(g, w) for g, w in zip(got, want)]
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not all(r <= TOL_BWD_REL for r in rel):
+        raise AssertionError(f"msda_bwd {shape}: max rel err (value, locations, "
+                             f"weights) {rel} > {TOL_BWD_REL}")
+    ms, plain_ms = in_turns(
+        plain, lambda: msda.msda_backward(value, levels, locs, attn, grad_out), 3, 10)
+    PROFILES.append((
+        f"msda_fwd x20 + msda_bwd x10, {shape}",
+        lambda args=(value, locs, attn, grad_out): msda_calls(torch, msda, *args, levels),
+        ("msda_fwd_kernel", "msda_bwd_kernel"), device, label))
+    # per (q, h, l, p, d): 4 corner atomics, 4 x 2 location FMAs, 4
+    # weight FMAs and the sample FMA
+    bb = bound(msda_value_bytes(torch, value, levels, locs)
+               + size(locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
+    errs["bwd"].append(err)
+    found["bwd"][label] = [ms, plain_ms, bb[0], bb[1]]
+    phase(3, f"msda_bwd {shape}: max rel err value {rel[0]:.3e}, locations "
+             f"{rel[1]:.3e}, weights {rel[2]:.3e} (max abs {err:.3e}); kernel {ms:.4f} "
+             f"ms, plain backward {plain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+
+
 def check_msda_kernels(torch, rows):
     """msda_fwd and msda_bwd against their plain versions at the encoder
     shape (Q = S) and the decoder shapes Q = 300 (the model families' eval,
@@ -486,8 +573,6 @@ def check_msda_kernels(torch, rows):
     the scattered set, timed in turns with them. A row's ms is the encoder
     shape on the encoder-like set; shapes_ms lists [kernel, plain, bound]
     for every shape and set."""
-    from relation_detr_tpu_torch.ops import msda
-
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     total = sum(h * w for h, w in LEVELS)
@@ -497,60 +582,8 @@ def check_msda_kernels(torch, rows):
     for nq in (total, *FAMILY_N, 900, 1100, 1500):
         for set_name, make in MSDA_SETS:
             value, locs, attn = make(torch, gen, nq, dev)
-            label = f"Q={nq} {set_name}"
-            shape = f"B=1 Q={nq} S={total} H=8 D=32 L=4 P=4, {set_name}"
-            with torch.no_grad():
-                got = msda.multi_scale_deformable_attention(value, LEVELS, locs, attn)
-                want = msda.msda_reference(value, LEVELS, locs, attn)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                if not (err <= TOL_KERNEL):
-                    raise AssertionError(f"msda_fwd {shape}: max abs err {err} > {TOL_KERNEL}")
-                ms, plain_ms = in_turns(
-                    lambda: msda.msda_reference(value, LEVELS, locs, attn),
-                    lambda: msda.multi_scale_deformable_attention(value, LEVELS, locs, attn),
-                    5, 20)
-            # 4 corner FMAs and a weight FMA per (q, h, l, p, d)
-            fb = bound(msda_value_bytes(torch, value, LEVELS, locs) + size(locs, attn, got),
-                       10 * got.numel() * 16)
-            errs["fwd"].append(err)
-            found["fwd"][label] = [ms, plain_ms, fb[0], fb[1]]
-            phase(3, f"msda_fwd {shape}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
-                     f"{plain_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]})")
-            del got, want
-
-            grad_out = torch.randn(1, nq, 256, generator=gen, device=dev)
-            got = msda.msda_backward(value, LEVELS, locs, attn, grad_out)
-            inputs = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
-            with torch.enable_grad():
-                out = msda.msda_reference(inputs[0], LEVELS, inputs[1], inputs[2])
-
-            def plain():
-                return torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
-
-            want = plain()
-            torch.cuda.synchronize()
-            rel = [max_rel(g, w) for g, w in zip(got, want)]
-            err = max((g - w).abs().max().item() for g, w in zip(got, want))
-            if not all(r <= TOL_BWD_REL for r in rel):
-                raise AssertionError(f"msda_bwd {shape}: max rel err (value, locations, "
-                                     f"weights) {rel} > {TOL_BWD_REL}")
-            ms, plain_ms = in_turns(
-                plain, lambda: msda.msda_backward(value, LEVELS, locs, attn, grad_out), 3, 10)
-            PROFILES.append((
-                f"msda_fwd x20 + msda_bwd x10, {shape}",
-                lambda args=(value, locs, attn, grad_out): msda_calls(torch, msda, *args),
-                ("msda_fwd_kernel", "msda_bwd_kernel"), device, label))
-            # per (q, h, l, p, d): 4 corner atomics, 4 x 2 location FMAs, 4
-            # weight FMAs and the sample FMA
-            bb = bound(msda_value_bytes(torch, value, LEVELS, locs)
-                       + size(locs, attn, grad_out, *got), 2 * 17 * grad_out.numel() * 16)
-            errs["bwd"].append(err)
-            found["bwd"][label] = [ms, plain_ms, bb[0], bb[1]]
-            phase(3, f"msda_bwd {shape}: max rel err value {rel[0]:.3e}, locations "
-                     f"{rel[1]:.3e}, weights {rel[2]:.3e} (max abs {err:.3e}); kernel {ms:.4f} "
-                     f"ms, plain backward {plain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
-            del out, inputs, want, got
+            hold_msda(torch, gen, LEVELS, value, locs, attn, f"Q={nq} {set_name}",
+                      f"B=1 Q={nq} S={total} H=8 D=32 L=4 P=4, {set_name}", found, errs, device)
     head = f"Q={total} encoder-like"
     for key, name, library in (("fwd", "msda_fwd", "none: grid_sample takes one level per call"),
                                ("bwd", "msda_bwd", "none: no one backward call")):
@@ -565,6 +598,31 @@ def check_msda_kernels(torch, rows):
             shapes_ms={k: v[:3] for k, v in found[key].items()},
             device_ms=device,
         )
+
+
+def check_msda_large_canvas(torch, rows):
+    """msda_fwd and msda_bwd against their plain versions at the encoder
+    shape of LARGE_CANVAS (FocalNet-L at 1200x2000: Q = S = 50,882 over
+    levels 152x252, 76x126, 38x63, 19x32), on the encoder-like and the
+    scattered set, timed in turns with them, with bounds; phase 10 profiles
+    their device time. Stored at each row's ``large_canvas`` ([kernel, plain,
+    bound, bound by] per set, ``device_ms``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    levels = canvas_levels(LARGE_CANVAS)
+    total = sum(h * w for h, w in levels)
+    found = {"fwd": {}, "bwd": {}}
+    errs = {"fwd": [], "bwd": []}
+    device = {}
+    for set_name, make in MSDA_SETS:
+        value, locs, attn = make(torch, gen, total, dev, levels)
+        hold_msda(torch, gen, levels, value, locs, attn, f"Q={total} {set_name}",
+                  f"B=1 Q={total} S={total} levels {levels} H=8 D=32 L=4 P=4, {set_name}",
+                  found, errs, device)
+    for key, row in (("fwd", "msda"), ("bwd", "msda_bwd")):
+        rows[row]["large_canvas"] = dict(canvas=list(LARGE_CANVAS), levels=levels,
+                                         device_ms=device, **found[key])
+        rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], *errs[key])
 
 
 def bf16_rounding_err(got, want):
@@ -723,14 +781,14 @@ def check_msda_bf16_nan(torch, msda, vb, locs, attn, grad_out):
              f"{int(wants[0].isnan().sum())})")
 
 
-def msda_calls(torch, msda, value, locs, attn, grad_out):
+def msda_calls(torch, msda, value, locs, attn, grad_out, levels=LEVELS):
     """msda_fwd 20 times and msda_bwd 10 times on one input set (phase 10
     profiles them: each kernel's device time without the host's gaps)."""
     with torch.no_grad():
         for _ in range(20):
-            msda.multi_scale_deformable_attention(value, LEVELS, locs, attn)
+            msda.multi_scale_deformable_attention(value, levels, locs, attn)
     for _ in range(10):
-        msda.msda_backward(value, LEVELS, locs, attn, grad_out)
+        msda.msda_backward(value, levels, locs, attn, grad_out)
 
 
 def check_kernels(torch):
@@ -1291,7 +1349,10 @@ class PinnedKinks:
     run's own tensors; ``flips`` counts the MSDA samples whose bilinear cell
     (the floor of the pixel coordinate) and the ReLU inputs whose sign
     differed from the record's. ``layers`` also pins the ReLUs of the
-    transformer's encoder and decoder layers (their FFNs)."""
+    transformer's encoder and decoder layers (their FFNs), of its MLPs (the
+    box heads, ``ref_point_head``, ``query_scale``) and of the memory
+    fusion. (The relation bias' ReLU stays unpinned: the card's kernel
+    computes it inside.)"""
 
     def __init__(self, model, record=None, layers=False):
         import torch
@@ -1330,8 +1391,13 @@ class PinnedKinks:
         self.attention.multi_scale_deformable_attention = self._msda
         scopes = [self.model.backbone]
         if self.layers:
-            scopes += [*self.model.transformer.encoder.layers,
-                       *self.model.transformer.decoder.layers]
+            from relation_detr_tpu_torch.models.layers import MLP
+
+            transformer = self.model.transformer
+            scopes += [*transformer.encoder.layers, *transformer.decoder.layers,
+                       *(m for m in transformer.modules() if isinstance(m, MLP))]
+            if transformer.encoder.memory_fusion is not None:  # its nn.ReLU (called alone)
+                scopes.append(transformer.encoder.memory_fusion[1])
         self.hooks = [hook for scope in scopes for hook in (
             scope.register_forward_pre_hook(lambda *_: setattr(torch, "relu", self._relu)),
             scope.register_forward_hook(lambda *_: setattr(torch, "relu", self.relu)))]
@@ -1417,22 +1483,30 @@ def synthetic_batch(torch, gen, bs, cap, hw, dev, valid_hw=None):
             "gt_valid": valid}
 
 
-def check_tiny_train(torch, label, settings, version, family=None, n=4):
+def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone=None):
     """The tiny-test config (or, with ``family``, that family's tiny model,
     ``tiny_family``) on the GPU (kernels) and the CPU (plain versions):
     one train forward + backward with the same denoising draws, run on the
-    CPU as is and with the kinks pinned (``PinnedKinks``); phase ``n``. The
+    CPU as is and with the kinks pinned (``PinnedKinks``) and the GPU's
+    two-stage top-k indices taken (``PinnedTopk``: a near-tie at the k-th
+    proposal sends the gradient to other tokens); phase ``n``. The
     loss terms are held on both runs. The gradients: the tiny-test config's
     outside the backbone on the unpinned run too; a family's on the pinned
-    run only, with its transformer layers' FFN ReLUs pinned as well (a ReLU
+    run only, with the transformer's ReLUs pinned as well (a ReLU
     input within rounding of 0 moves a tiny family's encoder ``linear1``
-    gradient by up to 1.3e-2 of its max; measured on the H100)."""
+    gradient by up to 1.3e-2 of its max; measured on the H100). With
+    ``backbone`` (an arch), the tiny-test config on that backbone, held as
+    a family is."""
+    from relation_detr_tpu_torch.configs import build_detector
     from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
     from relation_detr_tpu_torch.ops import msda
 
+    pin_layers = family is not None or backbone is not None
     if family is None:
         cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
-        cpu_model = cfg.build_model(device="cpu", seed=1).train()
+        args = cfg.model_args if backbone is None else dict(cfg.model_args,
+                                                            backbone_arch=backbone)
+        cpu_model = build_detector(args, "cpu", 1).train()
         criterion, num_classes, hybrid_assign = (cfg.build_criterion(), cfg.num_classes,
                                                  cfg.hybrid_assign)
     else:
@@ -1443,10 +1517,14 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4):
     # Offsets on every non-backbone weight, as the CPU parity tests do. At
     # the initialisation itself the zero-initialised sampling offsets and
     # box heads put MSDA samples exactly on pixel centres, on the jump of
-    # the location gradient, for every token at once.
+    # the location gradient, for every token at once. A Swin, ConvNeXt or
+    # FocalNet backbone takes offsets too: at its zero-initialised biases the
+    # canvas' zero padding gives exactly zero tokens, whose k in Swin v2's
+    # cosine attention is 0, where the normalisation's gradient is 1/eps
+    # (1e12; JAX's is NaN there) and swamps every backbone gradient.
     with torch.no_grad():
         for name, param in cpu_model.named_parameters():
-            if not name.startswith("backbone."):
+            if not name.startswith("backbone.") or backbone is not None:
                 param.add_(torch.randn(param.shape, generator=gen) * 0.02)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = synthetic_batch(torch, gen, 2, 16, (256, 320), "cpu")
@@ -1456,9 +1534,10 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4):
     generator = cpu_model.denoising_generator
     draws = {} if generator is None else generator.draw_noise(2, gen, "cpu")
 
-    def run(model, dev, record=None):
+    def run(model, dev, record=None, topk=None):
         b = {k: v.to(dev) for k, v in batch.items()}
-        with TopkRecorder() as rec, PinnedKinks(model, record, family is not None) as pins, \
+        with TopkRecorder() if topk is None else PinnedTopk(topk) as rec, \
+                PinnedKinks(model, record, pin_layers) as pins, \
                 msda.msda_defaults(**settings), RelationVersion(version, cpu_model) as launched:
             outputs = model(b["images"], b["mask"], b["gt_labels"], b["gt_boxes"],
                             b["gt_valid"], train=True,
@@ -1470,12 +1549,13 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4):
         total.backward()
         grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
         model.zero_grad(set_to_none=True)
-        return dict(topk=rec.indices, losses={k: v.item() for k, v in losses.items()},
+        return dict(topk=getattr(rec, "indices", None),
+                    losses={k: v.item() for k, v in losses.items()},
                     total=total.item(), grads=grads, pins=pins)
 
     gpu = run(gpu_model, "cuda")
     cpu = run(cpu_model, "cpu")
-    pinned = run(cpu_model, "cpu", record=gpu["pins"])
+    pinned = run(cpu_model, "cpu", record=gpu["pins"], topk=gpu["topk"])
     # Padded and invalid proposals share one score and one box, so the
     # top-k may take different members of such a tie on the two devices;
     # that changes no loss or gradient. What must agree is what was
@@ -1508,16 +1588,17 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4):
 
     loss_err, ratios = compare(cpu, "CPU")
     name, err, count = worst(ratios, backbone=False)
-    if err > TOL_TRAIN_GRAD and family is None:
+    if err > TOL_TRAIN_GRAD and not pin_layers:
         raise AssertionError(f"tiny train step: grad of {name} differs GPU vs CPU by "
                              f"{err:.3e} of its max")
     bb_name, bb_err, bb_count = worst(ratios, backbone=True)
-    what = "tiny-test config" if family is None else f"tiny {family}"
+    what = ("tiny-test config" if backbone is None else f"tiny-test config on {backbone}") \
+        if family is None else f"tiny {family}"
     phase(n, f"[{label}] {what} train forward + backward GPU vs CPU, same "
              f"draws: total {gpu['total']:.6f} vs {cpu['total']:.6f}, {len(cpu['losses'])} "
              f"loss terms within {loss_err:.3e} rel; {count} grads outside the backbone within "
              f"{err:.3e} of each leaf's max ({name}); {bb_count} backbone grads within "
-             f"{bb_err:.3e} ({bb_name}), {'held' if family is None else 'all held'} below; "
+             f"{bb_err:.3e} ({bb_name}), {'all held' if pin_layers else 'held'} below; "
              f"top-k selections equal (indices that "
              f"differ inside exact ties: {', '.join(flipped)})")
     loss_err, ratios = compare(pinned, "CPU pinned")
@@ -1527,16 +1608,17 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4):
                              f"kinks pinned by {err:.3e} of its max")
     _, bb_err, _ = worst(ratios, backbone=True)
     flips = pinned["pins"].flips
-    phase(n, f"[{label}] the same with the CPU's kinks pinned to the GPU's side ({flips['msda']} MSDA "
+    phase(n, f"[{label}] the same with the CPU's kinks and top-k pinned to the GPU's "
+             f"({flips['msda']} MSDA "
              f"samples in another bilinear cell, {flips['relu']} "
-             f"{'backbone' if family is None else 'backbone and FFN'} ReLU inputs of "
+             f"{'backbone and transformer' if pin_layers else 'backbone'} ReLU inputs of "
              f"another sign): total {pinned['total']:.6f}, loss terms within {loss_err:.3e} rel; "
              f"all {len(ratios)} grads within {err:.3e} of each leaf's max ({name}), backbone "
              f"within {bb_err:.3e}")
 
 
 def train_steps(torch, step, batch, warmup, timed, counters, label, precision="fp32",
-                title="flagship", n=6, last=None):
+                title="flagship", n=6, last=None, canvas=CANVAS):
     """Runs warm-up + timed steps; checks finite losses and gradient norm
     and each counter's launches per step; prints p50, peak memory and host
     matching time (phase ``n``, the model named ``title``); ``last`` (a
@@ -1568,7 +1650,8 @@ def train_steps(torch, step, batch, warmup, timed, counters, label, precision="f
             times.append(start.elapsed_time(end))
             host.append(compute_matching.host_seconds - h0)
     peak = torch.cuda.max_memory_allocated()
-    phase(n, f"{title} train step {label} ({BOXES_PER_IMAGE} boxes per image) 800x1344 "
+    phase(n, f"{title} train step {label} ({BOXES_PER_IMAGE} boxes per image) "
+             f"{canvas[0]}x{canvas[1]} "
              f"{precision}: p50 {statistics.median(times):.3f} ms ({len(times)} steps: "
              f"{', '.join(f'{t:.3f}' for t in times)}); peak memory {peak / 2**30:.3f} GiB; "
              f"host matching {statistics.median(host):.4f} s/step; total_loss "
@@ -3244,12 +3327,13 @@ def family_kernels():
             "relation_bias_v4_fwd": relation_bias.relation_bias_v4}
 
 
-def record_family_launches(kernels, path, launches):
-    """Each kernel row's ``family_launches[path]``: the launches of one of
-    phase 9's paths, its counters set to 0 just before it."""
+def record_family_launches(kernels, path, launches, field="family_launches"):
+    """Each kernel row's ``field[path]``: the launches of one of phase 9's
+    (phase 11's: ``large_backbone_launches``) paths, its counters set to 0
+    just before it."""
     for key, row in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
                      ("relation_bias_v4_fwd", "relation")):
-        kernels[row].setdefault("family_launches", {})[path] = launches[key]
+        kernels[row].setdefault(field, {})[path] = launches[key]
 
 
 def check_tiny_family_eval(torch, family):
@@ -3547,6 +3631,299 @@ def run_families(torch, kernels):
     return results
 
 
+# phase 11, the models with large backbones: the port's copies of the JAX
+# package's four large configs at full width (seeded weights), and a tiny
+# form of each backbone family on the tiny-test config
+LARGE_CONFIGS = {  # label: (config module, canvas)
+    "swin_l": ("relation_detr_swin_l_800_1333", CANVAS),
+    "convnext_l": ("relation_detr_convnext_l_800_1333", CANVAS),
+    "focalnet_l": ("relation_detr_focalnet_large_lrf_fl4_800_1333", CANVAS),
+    "focalnet_l_1200": ("relation_detr_focalnet_large_lrf_fl4_1200_2000", LARGE_CANVAS),
+}
+# original (h, w) of the 1200x2000 config's requests: EvalPreset(1200, 2000)
+# resizes them to 1200x2000, 1200x1800, 1000x2000 and 1200x1600
+LARGE_REQUESTS = ((600, 1000), (480, 720), (500, 1000), (900, 1200))
+LARGE_TRAIN_RUN = (1, 100, 1, 3)  # B, GT capacity, warm-up, timed
+STAGE_RUNS = 3  # detects timed by stage (hooks), after the p50's
+TINY_BACKBONES = {  # arch: (port module, ARCH_SETTINGS entry)
+    "swin_smoke": ("swin", (16, (2, 2, 2, 2), (2, 2, 4, 8), 7, False)),
+    "swin_v2_smoke": ("swin", (16, (2, 2, 2, 2), (2, 2, 4, 8), 8, True)),
+    "convnext_smoke": ("convnext", ((8, 16, 32, 64), (1, 1, 2, 1))),
+    "focalnet_smoke": ("focalnet", (16, (1, 1, 1, 1), (4,) * 4, (3,) * 4, True, True, True,
+                                    True)),
+}
+
+
+def register_tiny_backbones():
+    for arch, (module, entry) in TINY_BACKBONES.items():
+        importlib.import_module(
+            f"relation_detr_tpu_torch.models.backbones.{module}").ARCH_SETTINGS[arch] = entry
+
+
+def check_tiny_backbone_eval(torch, arch):
+    """Phase 11 (a): the tiny-test config on ``arch``, GPU (kernels) against
+    CPU (plain versions), same weights and inputs: the encoder's class and
+    box heads over every token before the two-stage top-k, and the decoder's
+    heads, at TOL_MODEL. Returns the max abs diffs."""
+    from relation_detr_tpu_torch.configs import build_detector
+
+    cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
+    cpu_model = build_detector(dict(cfg.model_args, backbone_arch=arch), "cpu", 1)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    images = torch.randn(2, 256, 320, 3, generator=gen)
+    mask = torch.zeros(2, 256, 320, dtype=torch.bool)
+    mask[1, 192:] = True
+    mask[1, :, 240:] = True
+    images[mask] = 0.0
+    names = ("encoder_class_head", "encoder_bbox_head")
+    outs = {}
+    for label, model, dev in (("gpu", gpu_model, "cuda"), ("cpu", cpu_model, "cpu")):
+        pre = {}
+        hooks = [getattr(model.transformer, n).register_forward_hook(
+            lambda mod, a, out, n=n, pre=pre: pre.__setitem__(n, out.cpu())) for n in names]
+        with torch.inference_mode():
+            out = model(images.to(dev), mask.to(dev))
+        for hook in hooks:
+            hook.remove()
+        outs[label] = {**pre, **{k: out[k].cpu() for k in ("pred_logits", "pred_boxes")}}
+    errs = {}
+    for key, want in outs["cpu"].items():
+        got = outs["gpu"][key]
+        torch.testing.assert_close(got, want, rtol=TOL_MODEL, atol=TOL_MODEL, msg=lambda m:
+                                   f"tiny {arch} GPU vs CPU {key}: {m}")
+        errs[key] = (got - want).abs().max().item()
+    phase(11, f"[{arch}] tiny-test config GPU (kernels) vs CPU (plain) eval, before the top-k "
+              "and after: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+          f" (tolerance {TOL_MODEL})")
+    return errs
+
+
+def large_requests(torch, gen, canvas):
+    """((images, mask, orig sizes), valid (h, w)) of each request on
+    ``canvas``: REQUESTS' valid sizes on the 800x1344 canvas; on
+    LARGE_CANVAS, LARGE_REQUESTS' random images through EvalPreset(1200,
+    2000) (host resize and normalisation, as the eval CLI's preset does)."""
+    import numpy as np
+
+    from relation_detr_tpu_torch.data.transforms import EvalPreset
+
+    if canvas == CANVAS:
+        return [(family_request(torch, gen, h, w), (h, w)) for h, w in REQUESTS]
+    out = []
+    preset = EvalPreset(1200, 2000)
+    rng = np.random.RandomState(14)
+    for h, w in LARGE_REQUESTS:
+        sample = preset({"image": rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+                         "boxes": np.zeros((0, 4), np.float32)})
+        image = torch.from_numpy(np.ascontiguousarray(sample["image"])).cuda()
+        vh, vw = image.shape[:2]
+        images = torch.zeros(1, *canvas, 3, device="cuda")
+        images[0, :vh, :vw] = image
+        mask = torch.ones(1, *canvas, dtype=torch.bool, device="cuda")
+        mask[0, :vh, :vw] = False
+        out.append(((images, mask, [[h, w]]), (vh, vw)))
+    return out
+
+
+class StageTimer:
+    """CUDA events around the backbone, the neck, the encoder, the decoder
+    and the whole transformer of ``model`` (forward hooks). ``split()``
+    gives the ms of each stage in the last forward; "two-stage" is the
+    transformer's time outside its encoder and decoder (input flattening,
+    the encoder output heads, the top-k and the query set-up)."""
+
+    STAGES = ("backbone", "neck", "encoder", "decoder", "transformer")
+
+    def __init__(self, torch, model):
+        self.torch, self.events, self.hooks = torch, {}, []
+        mods = dict(backbone=model.backbone, neck=model.neck,
+                    encoder=model.transformer.encoder, decoder=model.transformer.decoder,
+                    transformer=model.transformer)
+        for name, mod in mods.items():
+            self.hooks.append(mod.register_forward_pre_hook(
+                lambda *_, name=name: self._record(name, 0)))
+            self.hooks.append(mod.register_forward_hook(
+                lambda *_, name=name: self._record(name, 1)))
+
+    def _record(self, name, end):
+        event = self.torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.setdefault(name, [None, None])[end] = event
+
+    def split(self):
+        self.torch.cuda.synchronize()
+        ms = {k: v[0].elapsed_time(v[1]) for k, v in self.events.items()}
+        ms["two-stage"] = ms.pop("transformer") - ms["encoder"] - ms["decoder"]
+        return ms
+
+    def remove(self):
+        for hook in self.hooks:
+            hook.remove()
+
+
+def run_large_model(torch, label, kernels):
+    """Phase 11 (b): a large config at full width, fp32, seeded weights. 4
+    requests through ``inference.detect`` after one warm-up (12 msda_fwd and
+    5 relation_bias_v4_fwd launches each; 300 finite detections), the p50 and
+    range of their CUDA-event times and the peak memory above what earlier
+    phases keep resident; STAGE_RUNS detects timed by stage (``StageTimer``);
+    then LARGE_TRAIN_RUN's train steps (18 msda_fwd, 18 msda_bwd and 5
+    relation_bias_v4_fwd a step; every loss term and the gradient norm
+    finite). Returns the numbers, the model and the first request."""
+    from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.parallel.train_step import make_train_step
+
+    module, canvas = LARGE_CONFIGS[label]
+    cfg = importlib.import_module(CONFIGS + module)
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = cfg.build_model(device="cuda", seed=0)
+    build_s = time.perf_counter() - t0
+    raw = {}
+    hook = model.register_forward_hook(lambda mod, args, out: raw.update(out))
+    counters = family_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    topk = cfg.select_box_nums_for_evaluation
+    requests, sizes = zip(*large_requests(torch, gen, canvas))
+    detect(model, *requests[0], topk)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for i, request in enumerate(requests):
+        before = {k: fn.launches for k, fn in counters.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        det = detect(model, *request, topk)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        got = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if got != {"msda_fwd": 12, "msda_bwd": 0, "relation_bias_v4_fwd": 5}:
+            raise AssertionError(f"{label} request {i}: launches {got}, expected 12 msda_fwd "
+                                 "and 5 relation_bias_v4_fwd")
+        if raw["pred_logits"].shape != (1, 900, 91) or det["boxes"].shape != (1, topk, 4):
+            raise AssertionError(f"{label} request {i}: logits {raw['pred_logits'].shape}, "
+                                 f"detections {det['boxes'].shape}")
+        for t in (raw["pred_logits"], raw["pred_boxes"], det["scores"], det["boxes"]):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{label} request {i}: non-finite outputs")
+    eval_launches = {k: fn.launches for k, fn in counters.items()}
+    eval_peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    timer = StageTimer(torch, model)
+    splits = []
+    for _ in range(STAGE_RUNS):
+        detect(model, *requests[0], topk)
+        splits.append(timer.split())
+    timer.remove()
+    hook.remove()
+    stages = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    phase(11, f"[{label}] built in {build_s:.1f} s ({sum(p.numel() for p in model.parameters())} "
+              f"parameters); B=1 {canvas[0]}x{canvas[1]} detect over {len(requests)} requests "
+              f"(valid {list(sizes)}): p50 {statistics.median(times):.3f} ms (range "
+              f"{min(times):.3f}-{max(times):.3f}), peak memory {eval_peak:.3f} GiB above the "
+              f"{resident / 2**30:.3f} GiB earlier phases hold; {topk} finite detections each; "
+              f"launches {eval_launches}; by stage (median of {STAGE_RUNS}, CUDA events): " +
+          ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    record_family_launches(kernels, f"{label} eval", eval_launches, "large_backbone_launches")
+
+    model.train()
+    step = make_train_step(model, cfg.build_criterion(), family_optimizer(model),
+                           cfg.hybrid_assign, seed=0)
+    bs, cap, warmup, timed = LARGE_TRAIN_RUN
+    batch = synthetic_batch(torch, gen, bs, cap, canvas, "cuda", sizes[0])
+    per_step = {"msda_fwd": 18, "msda_bwd": 18, "relation_bias_v4_fwd": 5}
+    for fn in counters.values():
+        fn.launches = 0
+    last = {}
+    train_times, train_peak = train_steps(
+        torch, step, batch, warmup, timed,
+        {k: (counters[k], e) for k, e in per_step.items()}, f"B={bs} GT capacity {cap}",
+        title=label, n=11, last=last, canvas=canvas)
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    record_family_launches(kernels, f"{label} train", train_launches,
+                           "large_backbone_launches")
+    train_peak = (train_peak - resident) / 2**30
+    phase(11, f"[{label}] train launches {train_launches} over {warmup + timed} steps; "
+              f"{sum(k.startswith('loss') for k in last)} loss terms and the gradient norm "
+              f"{last['grad_norm']:.4f} finite; peak memory {train_peak:.3f} GiB above the "
+              "resident")
+    del step
+    model.eval()
+    return dict(canvas=list(canvas), valid_sizes=list(sizes), build_s=build_s,
+                parameters=sum(p.numel() for p in model.parameters()),
+                detect_ms_p50=statistics.median(times), detect_ms=times,
+                detect_peak_gib=eval_peak, stage_ms=stages,
+                step_ms_p50=statistics.median(train_times), step_ms=train_times,
+                step_peak_gib=train_peak, resident_gib=resident / 2**30,
+                grad_norm=last["grad_norm"], eval_launches=eval_launches,
+                train_launches=train_launches), model, requests[0]
+
+
+def check_swin_bf16(torch, model32, request):
+    """Phase 11 (b): the Swin-L config under the bf16 policy (backbone_dtype
+    = compute_dtype = bf16, ``model32``'s weights): one detect, whose
+    backbone outputs must be fp32 and equal the fp32 model's on the same
+    request bit for bit (the JAX package gives the backbone dtype to the
+    ResNet only); the transformer runs its bf16 forms (12 msda_fwd_bf16)."""
+    from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.ops import msda
+
+    cfg = importlib.import_module(CONFIGS + LARGE_CONFIGS["swin_l"][0])
+    model16 = cfg.build_model(device="cuda", seed=0, backbone_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model16.load_state_dict(model32.state_dict())  # the weights after its train steps
+    feats = {}
+    hooks = [m.backbone.register_forward_hook(
+        lambda mod, args, out, k=k: feats.__setitem__(k, [o.clone() for o in out]))
+        for k, m in (("fp32", model32), ("bf16", model16))]
+    detect(model32, *request, 300)
+    before = msda.multi_scale_deformable_attention.bf16_launches
+    det = detect(model16, *request, 300)
+    torch.cuda.synchronize()
+    launches = msda.multi_scale_deformable_attention.bf16_launches - before
+    for hook in hooks:
+        hook.remove()
+    del model16
+    if launches != 12 or not bool(torch.isfinite(det["scores"]).all()):
+        raise AssertionError(f"swin_l bf16 detect: {launches} msda_fwd_bf16 launches")
+    for i, (got, want) in enumerate(zip(feats["bf16"], feats["fp32"])):
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise AssertionError(f"swin_l bf16 policy: backbone output {i} is {got.dtype}, "
+                                 "not the fp32 run's bit for bit")
+    phase(11, f"[swin_l] bf16 policy detect: {launches} msda_fwd_bf16 launches, the 3 backbone "
+              "outputs fp32 and bit-identical to the fp32 run's "
+              f"({[tuple(f.shape) for f in feats['bf16']]})")
+    return dict(msda_fwd_bf16=launches, backbone_fp32_bit_identical=True)
+
+
+def run_large_backbones(torch, kernels):
+    """Phase 11: (a) each backbone family's tiny form on the tiny-test
+    config, GPU against CPU, eval and one train step; (b) the four large
+    configs at full width (``run_large_model``), the Swin-L one also under
+    the bf16 policy."""
+    register_tiny_backbones()
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    results = {"card": smi, "tiny": {}}
+    for arch in TINY_BACKBONES:
+        results["tiny"][arch] = check_tiny_backbone_eval(torch, arch)
+        check_tiny_train(torch, "gather", {}, None, n=11, backbone=arch)
+    for label in LARGE_CONFIGS:
+        results[label], model, request = run_large_model(torch, label, kernels)
+        if label == "swin_l":
+            results[label]["bf16"] = check_swin_bf16(torch, model, request)
+        del model, request
+        torch.cuda.empty_cache()
+    phase(11, f"[{smi}] " + "; ".join(
+        f"{k}: detect p50 {results[k]['detect_ms_p50']:.3f} ms, "
+        f"{results[k]['detect_peak_gib']:.3f} GiB, step p50 {results[k]['step_ms_p50']:.3f} ms, "
+        f"{results[k]['step_peak_gib']:.3f} GiB" for k in LARGE_CONFIGS))
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3589,6 +3966,7 @@ def main() -> int:
         return out
 
     kernels = timed(3, check_kernels, torch)
+    timed(3, check_msda_large_canvas, torch, kernels)
     timed(3, check_msda_bf16_kernels, torch, kernels)
     timed(3, check_eval_shapes, torch, kernels)
     timed(3, check_ycc_kernel, torch, kernels)
@@ -3604,6 +3982,7 @@ def main() -> int:
     evaluation = timed(7, run_evaluation, torch, kernels)
     training = timed(8, run_train, torch, kernels)
     families = timed(9, run_families, torch, kernels)
+    large = timed(11, run_large_backbones, torch, kernels)
     timed(10, run_profiles, torch)
     precision = timed(10, check_precision_profiles, torch, model, model16, step16)
     del model16, step16
@@ -3628,6 +4007,7 @@ def main() -> int:
     print(json.dumps({"evaluation": evaluation}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"families": families}), flush=True)
+    print(json.dumps({"large_backbones": large}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ mask (True = padding) and returns the raw heads; ``post_process`` decodes
 them and ``losses.criterion.relation_detr_loss`` scores the train forward.
 
 The precision policy is the JAX module's two fields (``detector.py:70-80``,
-the reference's ``--mixed-precision bf16``): ``backbone_dtype`` runs the
-backbone's convolutions in that dtype, ``compute_dtype`` the encoder and
+the reference's ``--mixed-precision bf16``): ``backbone_dtype`` runs a ResNet
+backbone's convolutions in that dtype (the Swin, ConvNeXt and FocalNet
+backbones stay fp32, as in JAX), ``compute_dtype`` the encoder and
 decoder layers' projections (MHA, MSDA, FFN) and the memory fusion. The
 neck, every LayerNorm, the heads, the relation embedding, the MSDA
 sampling arithmetic and softmaxes, the denoising generator and the loss
@@ -29,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from relation_detr_tpu_torch.models.backbones import build_backbone
+from relation_detr_tpu_torch.models.backbones import ResNetBackbone, build_backbone
 from relation_detr_tpu_torch.models.denoising import GenerateCDNQueries, GenerateDNQueries
 from relation_detr_tpu_torch.models.layers import init_weights, resolve_dtype, set_compute_dtype
 from relation_detr_tpu_torch.models.neck import ChannelMapper
@@ -115,8 +116,11 @@ class RelationDETR(nn.Module):
         else:
             raise ValueError(f"unknown denoising {denoising!r}; use cdn|dn|None")
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
-        # the bf16 islands: the JAX modules built with dtype=compute dtype
-        set_compute_dtype(self.backbone, resolve_dtype(backbone_dtype))
+        # the bf16 islands: the JAX modules built with dtype=compute dtype.
+        # The JAX package gives the backbone dtype to the ResNet only: Swin,
+        # ConvNeXt and FocalNet stay fp32 under the bf16 policy.
+        if isinstance(self.backbone, ResNetBackbone):
+            set_compute_dtype(self.backbone, resolve_dtype(backbone_dtype))
         encoder, decoder = self.transformer.encoder, self.transformer.decoder
         for island in (encoder.layers, encoder.memory_fusion, decoder.layers):
             if island is not None:

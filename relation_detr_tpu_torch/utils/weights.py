@@ -10,6 +10,13 @@ and the flax module names mapped onto the reference's. ``load_weights``
 reads the JAX package's ``.npz`` weight files into a model leniently, as
 ``relation_detr_tpu/utils/checkpoint.py::load_weights`` does.
 
+The Swin backbone's names are torchvision's (``features.0.0``, ``features.{2s}``
+for ``merge{s}``, ``features.{2s+1}.{j}`` for ``stage{s}_block{j}``,
+``mlp.0`` / ``mlp.3``, ``cpb_mlp.0`` / ``.2``); ConvNeXt's and FocalNet's
+blocks and MLPs take the same ones, their other modules the JAX names
+(``focal_{l}`` as ``focal.{l}``). Depthwise kernels cross as any conv's:
+HWIO (k, k, 1, C) <-> OIHW (C, 1, k, k).
+
 ``jax_weights`` is the inverse map: a port ``state_dict`` to the JAX
 layout (``params/...`` and ``batch_stats/...``, merged ``in_proj`` tensors
 split into the q, k and v keys), the same arrays as
@@ -29,8 +36,20 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-_INDEXED = re.compile(r"^(layers|convs|class_head|bbox_head)_(\d+)$")
+_INDEXED = re.compile(r"^(layers|convs|class_head|bbox_head|focal)_(\d+)$")
 _STAGE_BLOCK = re.compile(r"^layer(\d+)_(\d+)$")
+# Swin, ConvNeXt and FocalNet name their blocks alike in the JAX package
+# (stage{s}_block{j}, and Swin's and FocalNet's MLPs mlp_fc1 / mlp_fc2), so
+# the port gives all three torchvision's Swin names for them
+# (features.{2s+1}.{j}, mlp.0 / mlp.3), which ``convert_state_dict`` reads.
+_SWIN_BLOCK = re.compile(r"^stage(\d+)_block(\d+)$")
+_SWIN_MERGE = re.compile(r"^merge(\d+)$")
+_BACKBONE_RENAMES = {
+    "mlp_fc1": "mlp.0",
+    "mlp_fc2": "mlp.3",
+    "cpb_fc1": "cpb_mlp.0",
+    "cpb_fc2": "cpb_mlp.2",
+}
 _RENAMES = {
     "downsample_conv": "downsample.0",
     "downsample_bn": "downsample.1",
@@ -46,9 +65,32 @@ _BARE = {"transformer/tgt_embed": "transformer.tgt_embed.weight",
 _QKV = ("q_proj", "k_proj", "v_proj")
 
 
+def _backbone_segment(seg: str, last: bool) -> Optional[str]:
+    """The port's path of a Swin / ConvNeXt / FocalNet segment under
+    ``backbone``, or None for one the port names as JAX does. Swin's
+    ``patch_embed`` is the conv itself (``features.0.0``); FocalNet's holds
+    ``proj`` and ``norm`` and keeps its name."""
+    m = _SWIN_BLOCK.match(seg)
+    if m:
+        return f"features.{2 * int(m.group(1)) + 1}.{m.group(2)}"
+    m = _SWIN_MERGE.match(seg)
+    if m:
+        return f"features.{2 * int(m.group(1))}"
+    if seg == "patch_embed" and last:
+        return "features.0.0"
+    if seg == "patch_norm":
+        return "features.0.2"
+    return _BACKBONE_RENAMES.get(seg)
+
+
 def _module_path(parts) -> str:
     out = []
-    for seg in parts:
+    for i, seg in enumerate(parts):
+        if parts[0] == "backbone":
+            renamed = _backbone_segment(seg, i == len(parts) - 1)
+            if renamed is not None:
+                out.append(renamed)
+                continue
         m = _STAGE_BLOCK.match(seg)
         if m:
             out.append(f"layer{m.group(1)}.{m.group(2)}")
@@ -183,8 +225,27 @@ def load_weights(model: torch.nn.Module, path: str, strict: bool = False) -> Dic
 
 # the inverse of _RENAMES: (module, index) segment pairs of the port
 _PAIRS = {tuple(v.split(".")): k for k, v in _RENAMES.items() if "." in v}
-_INDEXED_NAMES = ("layers", "convs", "class_head", "bbox_head")
+_INDEXED_NAMES = ("layers", "convs", "class_head", "bbox_head", "focal")
 _INV_BARE = {v: k for k, v in _BARE.items()}
+_INV_BACKBONE = {tuple(v.split(".")): k for k, v in _BACKBONE_RENAMES.items()}
+
+
+def _jax_backbone_segment(parts, i):
+    """(JAX segment, port segments taken) for a Swin / ConvNeXt / FocalNet
+    path under ``backbone`` at ``parts[i]``, or None: the inverse of
+    ``_backbone_segment``."""
+    seg, nxt = parts[i], parts[i + 1] if i + 1 < len(parts) else None
+    pair = (seg, nxt)
+    if pair in _INV_BACKBONE:
+        return _INV_BACKBONE[pair], 2
+    if seg != "features" or nxt is None:
+        return None
+    n, third = int(nxt), parts[i + 2] if i + 2 < len(parts) else None
+    if n % 2:
+        return f"stage{(n - 1) // 2}_block{third}", 3
+    if n == 0:
+        return {"0": "patch_embed", "2": "patch_norm"}[third], 3
+    return f"merge{n // 2}", 2
 
 
 def _jax_path(module_path: str) -> str:
@@ -193,7 +254,11 @@ def _jax_path(module_path: str) -> str:
     parts, out, i = module_path.split("."), [], 0
     while i < len(parts):
         seg, nxt = parts[i], parts[i + 1] if i + 1 < len(parts) else None
-        if (seg, nxt) in _PAIRS:
+        backbone = _jax_backbone_segment(parts, i) if parts[0] == "backbone" else None
+        if backbone is not None:
+            out.append(backbone[0])
+            i += backbone[1]
+        elif (seg, nxt) in _PAIRS:
             out.append(_PAIRS[(seg, nxt)])
             i += 2
         elif nxt is not None and nxt.isdigit() and (

@@ -86,6 +86,30 @@ def tiny_dn_family():
     assert not any(k.endswith(("_enc", "_hybrid")) for k in metrics), metrics
 
 
+def tiny_backbones():
+    # the Swin (v1, v2), ConvNeXt and FocalNet (every flag on) modules at a
+    # tiny size, each in a tiny detector: eval, and a train step (Swin v1)
+    from relation_detr_tpu_torch.configs import build_detector
+    from relation_detr_tpu_torch.models.backbones import convnext, focalnet, swin
+
+    swin.ARCH_SETTINGS["swin_no_jax"] = (16, (2, 2, 2, 2), (2, 2, 4, 8), 7, False)
+    swin.ARCH_SETTINGS["swin_v2_no_jax"] = (16, (2, 2, 2, 2), (2, 2, 4, 8), 8, True)
+    convnext.ARCH_SETTINGS["convnext_no_jax"] = ((8, 16, 32, 64), (1, 1, 2, 1))
+    focalnet.ARCH_SETTINGS["focalnet_no_jax"] = (16, (1, 1, 1, 1), (4,) * 4, (3,) * 4,
+                                                 True, True, True, True)
+    tiny = cfgs[1]
+    for arch in ("swin_no_jax", "swin_v2_no_jax", "convnext_no_jax", "focalnet_no_jax"):
+        model = build_detector(dict(tiny.model_args, backbone_arch=arch), device="cpu")
+        det = inference.detect(model, images, mask, [[96, 160]], 30)
+        assert det["boxes"].shape == (1, 30, 4) and bool(torch.isfinite(det["boxes"]).all())
+    model = build_detector(dict(tiny.model_args, backbone_arch="swin_no_jax"), device="cpu")
+    model.train()
+    step = make_train_step(model, tiny.build_criterion(),
+                           build_optimizer(model, train_config.learning_rate), tiny.hybrid_assign)
+    metrics = step(batch)
+    assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
+
+
 def evaluation_stream():
     # collate, the eval stream and the evaluator on numpy images (uint8,
     # EvalPreset(normalize_host=False)) with a tiny annotations JSON
@@ -138,6 +162,7 @@ def evaluation_stream():
 
 eval_and_train_step()
 tiny_dn_family()
+tiny_backbones()
 evaluation_stream()
 relation_bias.set_fused_relation(version=1)
 with msda.msda_defaults(impl="tiled"):
@@ -230,7 +255,8 @@ print("ok")
 
 def test_port_imports_and_runs_without_jax_flax_cv2():
     """The tiny config's eval and train step on CPU, as they are and under
-    impl="tiled" with relation version 1, and the evaluation path (collate,
+    impl="tiled" with relation version 1; tiny detectors on the Swin (v1,
+    v2), ConvNeXt and FocalNet backbones; and the evaluation path (collate,
     the loader, the detections function and stream, the evaluator, the CLI
     module): no kernel launch, and nothing of jax, flax, cv2, PIL or
     relation_detr_tpu imported."""
