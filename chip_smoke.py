@@ -156,6 +156,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      finite), p50 and peak memory; and one Swin-L detect under the bf16
      policy, whose backbone outputs must be fp32 and the fp32 run's bit
      for bit;
+ 12. (run before phase 10) ViT, EVA-02 and the DCN ResNet: (a) a tiny ViT,
+     a tiny EVA-02 (RoPE, SwiGLU, windows that pad) and the DCN ResNet-18
+     (offsets and masks perturbed: samples fractional, some off the map)
+     on the tiny-test config, GPU against CPU as phase 11 (a) holds them
+     (the DCN's sampling points pinned too); (b) the flagship config on
+     ``VIT_DCN_MODELS`` (ViT-B, ViT-L, EVA-02-B, EVA-02-L, ResNet-50 with
+     DCN in layer2-4) at full width as phase 11 (b) runs its configs,
+     every gradient of a step finite and the DCN offsets' non-zero; one
+     R50-DCN detect under the bf16 policy (every DCN fed and computing in
+     fp32, the other convs in bf16) and one EVA-02-L detect (backbone
+     outputs the fp32 run's bit for bit); (c) the plain-PyTorch ops of
+     these paths timed on the card: ``bilinear_sample`` forward and
+     backward at the R50-DCN's conv2 shapes (beside ``F.grid_sample``,
+     with bounds and their share of the DCN detect and step), and
+     ``nms_mask`` at N=300, B=1 and 2, on the flagship's detect outputs
+     through ``post_process(nms_iou_threshold=0.7)``, its keep mask the
+     CPU's exactly;
  10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
@@ -187,8 +204,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and msda_bwd_bf16 from the bf16 train step with remat unset;
      family_launches of msda_fwd, msda_bwd and relation_bias_v4_fwd from
      each of phase 9's paths; large_backbone_launches from each of phase
-     11's), after JSON lines of the precision profiles and phase 7's, 8's,
-     9's and 11's results, then the last line
+     11's; vit_dcn_launches from each of phase 12's), after JSON lines of
+     the precision profiles and phase 7's, 8's, 9's, 11's and 12's results,
+     then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: bytes are each input read once and each output written once;
@@ -1346,7 +1364,8 @@ class PinnedKinks:
     backbone are positive. With the ``record`` of another run, each MSDA
     call samples at the recorded locations and each backbone ReLU passes
     the inputs the record's passed, while the gradient still flows to this
-    run's own tensors; ``flips`` counts the MSDA samples whose bilinear cell
+    run's own tensors; so does each DCN's ``bilinear_sample`` call with its
+    points; ``flips`` counts the MSDA and DCN samples whose bilinear cell
     (the floor of the pixel coordinate) and the ReLU inputs whose sign
     differed from the record's. ``layers`` also pins the ReLUs of the
     transformer's encoder and decoder layers (their FFNs), of its MLPs (the
@@ -1356,14 +1375,25 @@ class PinnedKinks:
 
     def __init__(self, model, record=None, layers=False):
         import torch
-        from relation_detr_tpu_torch.models import attention
+        from relation_detr_tpu_torch.models import attention, deform_conv
 
         self.torch, self.attention, self.model = torch, attention, model
         self.msda, self.relu = attention.multi_scale_deformable_attention, torch.relu
+        self.deform_conv, self.sample = deform_conv, deform_conv.bilinear_sample
         self.record, self.layers = record, layers
-        self.locations, self.signs = [], []
-        self.flips = {"msda": 0, "relu": 0}
+        self.locations, self.signs, self.points = [], [], []
+        self.flips = {"msda": 0, "relu": 0, "dcn": 0}
         self.hooks = []
+
+    def _sample(self, feat, points):
+        if self.record is None:
+            self.points.append(points.detach().cpu())
+            return self.sample(feat, points)
+        want = self.record.points[len(self.points)].to(points.device)
+        self.points.append(None)
+        cells = [self.torch.floor(t) for t in (points.detach(), want)]
+        self.flips["dcn"] += int((cells[0] != cells[1]).any(-1).sum())
+        return self.sample(feat, want + (points - points.detach()))
 
     def _msda(self, value, shapes, locs, weights):
         if self.record is None:
@@ -1389,6 +1419,7 @@ class PinnedKinks:
     def __enter__(self):
         torch = self.torch
         self.attention.multi_scale_deformable_attention = self._msda
+        self.deform_conv.bilinear_sample = self._sample
         scopes = [self.model.backbone]
         if self.layers:
             from relation_detr_tpu_torch.models.layers import MLP
@@ -1405,6 +1436,7 @@ class PinnedKinks:
 
     def __exit__(self, *exc):
         self.attention.multi_scale_deformable_attention = self.msda
+        self.deform_conv.bilinear_sample = self.sample
         self.torch.relu = self.relu
         for hook in self.hooks:
             hook.remove()
@@ -1483,7 +1515,19 @@ def synthetic_batch(torch, gen, bs, cap, hw, dev, valid_hw=None):
             "gt_valid": valid}
 
 
-def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone=None):
+def perturb_dcn(torch, model, gen):
+    """Offsets of about a pixel and a half and masks away from 0.5 on every
+    DCN of ``model``: at their zero initialisation every sample would sit
+    on its grid point; so they are fractional and some leave the map."""
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if ".conv_offset." in name or ".conv_mask." in name:
+                scale = 1.5 if name.endswith("bias") else 0.01
+                param.add_(torch.randn(param.shape, generator=gen) * scale)
+
+
+def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone=None,
+                     dcn=None):
     """The tiny-test config (or, with ``family``, that family's tiny model,
     ``tiny_family``) on the GPU (kernels) and the CPU (plain versions):
     one train forward + backward with the same denoising draws, run on the
@@ -1496,7 +1540,7 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone
     input within rounding of 0 moves a tiny family's encoder ``linear1``
     gradient by up to 1.3e-2 of its max; measured on the H100). With
     ``backbone`` (an arch), the tiny-test config on that backbone, held as
-    a family is."""
+    a family is; ``dcn``: its ResNet's stage flags (``perturb_dcn``)."""
     from relation_detr_tpu_torch.configs import build_detector
     from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
     from relation_detr_tpu_torch.ops import msda
@@ -1504,8 +1548,8 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone
     pin_layers = family is not None or backbone is not None
     if family is None:
         cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
-        args = cfg.model_args if backbone is None else dict(cfg.model_args,
-                                                            backbone_arch=backbone)
+        args = cfg.model_args if backbone is None else dict(
+            cfg.model_args, backbone_arch=backbone, backbone_stage_with_dcn=dcn)
         cpu_model = build_detector(args, "cpu", 1).train()
         criterion, num_classes, hybrid_assign = (cfg.build_criterion(), cfg.num_classes,
                                                  cfg.hybrid_assign)
@@ -1526,6 +1570,8 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone
         for name, param in cpu_model.named_parameters():
             if not name.startswith("backbone.") or backbone is not None:
                 param.add_(torch.randn(param.shape, generator=gen) * 0.02)
+    if dcn is not None:
+        perturb_dcn(torch, cpu_model, gen)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = synthetic_batch(torch, gen, 2, 16, (256, 320), "cpu")
     batch["gt_labels"][:, :BOXES_PER_IMAGE] %= num_classes
@@ -1592,8 +1638,8 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone
         raise AssertionError(f"tiny train step: grad of {name} differs GPU vs CPU by "
                              f"{err:.3e} of its max")
     bb_name, bb_err, bb_count = worst(ratios, backbone=True)
-    what = ("tiny-test config" if backbone is None else f"tiny-test config on {backbone}") \
-        if family is None else f"tiny {family}"
+    what = ("tiny-test config" if backbone is None else f"tiny-test config on {backbone}"
+            f"{' with DCN' if dcn else ''}") if family is None else f"tiny {family}"
     phase(n, f"[{label}] {what} train forward + backward GPU vs CPU, same "
              f"draws: total {gpu['total']:.6f} vs {cpu['total']:.6f}, {len(cpu['losses'])} "
              f"loss terms within {loss_err:.3e} rel; {count} grads outside the backbone within "
@@ -1609,7 +1655,7 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone
     _, bb_err, _ = worst(ratios, backbone=True)
     flips = pinned["pins"].flips
     phase(n, f"[{label}] the same with the CPU's kinks and top-k pinned to the GPU's "
-             f"({flips['msda']} MSDA "
+             f"({flips['msda']} MSDA and {flips['dcn']} DCN "
              f"samples in another bilinear cell, {flips['relu']} "
              f"{'backbone and transformer' if pin_layers else 'backbone'} ReLU inputs of "
              f"another sign): total {pinned['total']:.6f}, loss terms within {loss_err:.3e} rel; "
@@ -3654,23 +3700,28 @@ TINY_BACKBONES = {  # arch: (port module, ARCH_SETTINGS entry)
 }
 
 
-def register_tiny_backbones():
-    for arch, (module, entry) in TINY_BACKBONES.items():
+def register_tiny_backbones(table=TINY_BACKBONES):
+    for arch, (module, entry) in table.items():
         importlib.import_module(
             f"relation_detr_tpu_torch.models.backbones.{module}").ARCH_SETTINGS[arch] = entry
 
 
-def check_tiny_backbone_eval(torch, arch):
-    """Phase 11 (a): the tiny-test config on ``arch``, GPU (kernels) against
-    CPU (plain versions), same weights and inputs: the encoder's class and
-    box heads over every token before the two-stage top-k, and the decoder's
-    heads, at TOL_MODEL. Returns the max abs diffs."""
+def check_tiny_backbone_eval(torch, arch, n=11, dcn=None):
+    """Phase ``n`` (a): the tiny-test config on ``arch`` (``dcn``: its
+    ResNet's stage flags, the DCNs perturbed by ``perturb_dcn``), GPU
+    (kernels) against CPU (plain versions), same weights and inputs: the
+    encoder's class and box heads over every token before the two-stage
+    top-k, and the decoder's heads, at TOL_MODEL. Returns the max abs
+    diffs."""
     from relation_detr_tpu_torch.configs import build_detector
 
     cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
-    cpu_model = build_detector(dict(cfg.model_args, backbone_arch=arch), "cpu", 1)
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_model = build_detector(dict(cfg.model_args, backbone_arch=arch,
+                                    backbone_stage_with_dcn=dcn), "cpu", 1)
     gen = torch.Generator().manual_seed(2)
+    if dcn is not None:
+        perturb_dcn(torch, cpu_model, gen)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     images = torch.randn(2, 256, 320, 3, generator=gen)
     mask = torch.zeros(2, 256, 320, dtype=torch.bool)
     mask[1, 192:] = True
@@ -3693,7 +3744,8 @@ def check_tiny_backbone_eval(torch, arch):
         torch.testing.assert_close(got, want, rtol=TOL_MODEL, atol=TOL_MODEL, msg=lambda m:
                                    f"tiny {arch} GPU vs CPU {key}: {m}")
         errs[key] = (got - want).abs().max().item()
-    phase(11, f"[{arch}] tiny-test config GPU (kernels) vs CPU (plain) eval, before the top-k "
+    arch = arch if dcn is None else f"{arch} with DCN {dcn}"
+    phase(n, f"[{arch}] tiny-test config GPU (kernels) vs CPU (plain) eval, before the top-k "
               "and after: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
           f" (tolerance {TOL_MODEL})")
     return errs
@@ -3762,23 +3814,38 @@ class StageTimer:
             hook.remove()
 
 
-def run_large_model(torch, label, kernels):
-    """Phase 11 (b): a large config at full width, fp32, seeded weights. 4
+def large_model_spec(label, overrides):
+    """(config module, canvas, model_args) of a phase-11 config
+    (``overrides`` None) or of the flagship config with ``overrides`` on its
+    model_args (phase 12)."""
+    if overrides is None:
+        module, canvas = LARGE_CONFIGS[label]
+        cfg = importlib.import_module(CONFIGS + module)
+        return cfg, canvas, cfg.model_args
+    cfg = importlib.import_module(CONFIGS + FLAGSHIP)
+    return cfg, CANVAS, dict(cfg.model_args, **overrides)
+
+
+def run_large_model(torch, label, kernels, overrides=None, n=11):
+    """Phase ``n`` (b): a large config (phase 12: the flagship config with
+    ``overrides``) at full width, fp32, seeded weights. 4
     requests through ``inference.detect`` after one warm-up (12 msda_fwd and
     5 relation_bias_v4_fwd launches each; 300 finite detections), the p50 and
     range of their CUDA-event times and the peak memory above what earlier
     phases keep resident; STAGE_RUNS detects timed by stage (``StageTimer``);
     then LARGE_TRAIN_RUN's train steps (18 msda_fwd, 18 msda_bwd and 5
     relation_bias_v4_fwd a step; every loss term and the gradient norm
-    finite). Returns the numbers, the model and the first request."""
+    finite; a DCN's offset convs must get a non-zero gradient). Returns the
+    numbers, the model and the first request."""
+    from relation_detr_tpu_torch.configs import build_detector
     from relation_detr_tpu_torch.inference import detect
     from relation_detr_tpu_torch.parallel.train_step import make_train_step
 
-    module, canvas = LARGE_CONFIGS[label]
-    cfg = importlib.import_module(CONFIGS + module)
+    cfg, canvas, model_args = large_model_spec(label, overrides)
+    field = "large_backbone_launches" if overrides is None else "vit_dcn_launches"
     resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model = cfg.build_model(device="cuda", seed=0)
+    model = build_detector(model_args, "cuda", 0)
     build_s = time.perf_counter() - t0
     raw = {}
     hook = model.register_forward_hook(lambda mod, args, out: raw.update(out))
@@ -3821,16 +3888,20 @@ def run_large_model(torch, label, kernels):
     timer.remove()
     hook.remove()
     stages = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
-    phase(11, f"[{label}] built in {build_s:.1f} s ({sum(p.numel() for p in model.parameters())} "
+    phase(n, f"[{label}] built in {build_s:.1f} s ({sum(p.numel() for p in model.parameters())} "
               f"parameters); B=1 {canvas[0]}x{canvas[1]} detect over {len(requests)} requests "
               f"(valid {list(sizes)}): p50 {statistics.median(times):.3f} ms (range "
               f"{min(times):.3f}-{max(times):.3f}), peak memory {eval_peak:.3f} GiB above the "
               f"{resident / 2**30:.3f} GiB earlier phases hold; {topk} finite detections each; "
               f"launches {eval_launches}; by stage (median of {STAGE_RUNS}, CUDA events): " +
           ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-    record_family_launches(kernels, f"{label} eval", eval_launches, "large_backbone_launches")
+    record_family_launches(kernels, f"{label} eval", eval_launches, field)
 
     model.train()
+    offset_grads = {}  # a DCN offset conv's largest |grad| in each step
+    grad_hooks = [param.register_hook(
+        lambda g, name=name: offset_grads.setdefault(name, []).append(g.abs().max()))
+        for name, param in model.named_parameters() if ".conv_offset." in name]
     step = make_train_step(model, cfg.build_criterion(), family_optimizer(model),
                            cfg.hybrid_assign, seed=0)
     bs, cap, warmup, timed = LARGE_TRAIN_RUN
@@ -3842,15 +3913,27 @@ def run_large_model(torch, label, kernels):
     train_times, train_peak = train_steps(
         torch, step, batch, warmup, timed,
         {k: (counters[k], e) for k, e in per_step.items()}, f"B={bs} GT capacity {cap}",
-        title=label, n=11, last=last, canvas=canvas)
+        title=label, n=n, last=last, canvas=canvas)
     train_launches = {k: fn.launches for k, fn in counters.items()}
-    record_family_launches(kernels, f"{label} train", train_launches,
-                           "large_backbone_launches")
+    record_family_launches(kernels, f"{label} train", train_launches, field)
     train_peak = (train_peak - resident) / 2**30
-    phase(11, f"[{label}] train launches {train_launches} over {warmup + timed} steps; "
-              f"{sum(k.startswith('loss') for k in last)} loss terms and the gradient norm "
-              f"{last['grad_norm']:.4f} finite; peak memory {train_peak:.3f} GiB above the "
-              "resident")
+    for hook in grad_hooks:
+        hook.remove()
+    offset_grad = None
+    if grad_hooks:
+        if len(offset_grads) != len(grad_hooks):
+            raise AssertionError(f"{label}: {len(grad_hooks) - len(offset_grads)} DCN offset "
+                                 "convs got no gradient")
+        offset_grad = min(max(g.item() for g in grads) for grads in offset_grads.values())
+        if not offset_grad > 0 or not math.isfinite(offset_grad):
+            raise AssertionError(f"{label}: a DCN offset conv's gradient is {offset_grad}")
+    phase(n, f"[{label}] train launches {train_launches} over {warmup + timed} steps; "
+             f"{sum(k.startswith('loss') for k in last)} loss terms and the gradient norm "
+             f"{last['grad_norm']:.4f} finite; peak memory {train_peak:.3f} GiB above the "
+             "resident" + ("" if offset_grad is None else
+                           f"; each of the {len(grad_hooks) // 2} DCN offset convs' weight "
+                           f"and bias got a non-zero gradient (smallest max |grad| "
+                           f"{offset_grad:.3e})"))
     del step
     model.eval()
     return dict(canvas=list(canvas), valid_sizes=list(sizes), build_s=build_s,
@@ -3860,26 +3943,38 @@ def run_large_model(torch, label, kernels):
                 step_ms_p50=statistics.median(train_times), step_ms=train_times,
                 step_peak_gib=train_peak, resident_gib=resident / 2**30,
                 grad_norm=last["grad_norm"], eval_launches=eval_launches,
-                train_launches=train_launches), model, requests[0]
+                train_launches=train_launches, dcn_offset_grad_min=offset_grad), model, \
+        requests[0]
 
 
-def check_swin_bf16(torch, model32, request):
-    """Phase 11 (b): the Swin-L config under the bf16 policy (backbone_dtype
-    = compute_dtype = bf16, ``model32``'s weights): one detect, whose
-    backbone outputs must be fp32 and equal the fp32 model's on the same
-    request bit for bit (the JAX package gives the backbone dtype to the
-    ResNet only); the transformer runs its bf16 forms (12 msda_fwd_bf16)."""
+def check_bf16_backbone(torch, label, model32, request, overrides=None, n=11):
+    """Phase ``n`` (b): ``label``'s model under the bf16 policy
+    (backbone_dtype = compute_dtype = bf16, ``model32``'s weights), one
+    detect; the transformer runs its bf16 forms (12 msda_fwd_bf16). A
+    backbone the JAX package keeps fp32 (Swin, EVA-02: it gives the
+    backbone dtype to the ResNet only) must return fp32 outputs equal to
+    the fp32 model's on the same request bit for bit. A DCN ResNet's plain
+    convs must compute in bf16 while every DCN is fed and computes in fp32
+    (the JAX module has no dtype; the FrozenBN before it promotes)."""
+    from relation_detr_tpu_torch.configs import build_detector
     from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.models.deform_conv import DeformConv2dPack
     from relation_detr_tpu_torch.ops import msda
 
-    cfg = importlib.import_module(CONFIGS + LARGE_CONFIGS["swin_l"][0])
-    model16 = cfg.build_model(device="cuda", seed=0, backbone_dtype="bfloat16",
-                              compute_dtype="bfloat16")
+    _, _, model_args = large_model_spec(label, overrides)
+    model16 = build_detector(model_args, "cuda", 0, backbone_dtype="bfloat16",
+                             compute_dtype="bfloat16")
     model16.load_state_dict(model32.state_dict())  # the weights after its train steps
-    feats = {}
+    dcns = [m for m in model16.backbone.modules() if isinstance(m, DeformConv2dPack)]
+    feats, dtypes = {}, []
     hooks = [m.backbone.register_forward_hook(
         lambda mod, args, out, k=k: feats.__setitem__(k, [o.clone() for o in out]))
         for k, m in (("fp32", model32), ("bf16", model16))]
+    hooks += [m.register_forward_hook(lambda mod, args, out: dtypes.append(
+        ("dcn", args[0].dtype, out.dtype))) for m in dcns]
+    if dcns:
+        hooks.append(model16.backbone.layer2[0].conv1.register_forward_hook(
+            lambda mod, args, out: dtypes.append(("conv1", args[0].dtype, out.dtype))))
     detect(model32, *request, 300)
     before = msda.multi_scale_deformable_attention.bf16_launches
     det = detect(model16, *request, 300)
@@ -3889,14 +3984,23 @@ def check_swin_bf16(torch, model32, request):
         hook.remove()
     del model16
     if launches != 12 or not bool(torch.isfinite(det["scores"]).all()):
-        raise AssertionError(f"swin_l bf16 detect: {launches} msda_fwd_bf16 launches")
+        raise AssertionError(f"{label} bf16 detect: {launches} msda_fwd_bf16 launches")
+    shapes = [tuple(f.shape) for f in feats["bf16"]]
+    if dcns:
+        fp32 = (torch.float32, torch.float32)
+        if [d[1:] for d in dtypes if d[0] == "dcn"] != [fp32] * len(dcns) or \
+                [d[1:] for d in dtypes if d[0] == "conv1"] != [(torch.bfloat16,) * 2]:
+            raise AssertionError(f"{label} bf16 policy: (input, output) dtypes {dtypes}")
+        phase(n, f"[{label}] bf16 policy detect: {launches} msda_fwd_bf16 launches; each of the "
+                 f"{len(dcns)} DCNs fed and computing in fp32, layer2.0.conv1 in bf16; backbone "
+                 f"outputs {[str(f.dtype) for f in feats['bf16']]} {shapes}")
+        return dict(msda_fwd_bf16=launches, dcn_fp32=len(dcns))
     for i, (got, want) in enumerate(zip(feats["bf16"], feats["fp32"])):
         if got.dtype != torch.float32 or not torch.equal(got, want):
-            raise AssertionError(f"swin_l bf16 policy: backbone output {i} is {got.dtype}, "
+            raise AssertionError(f"{label} bf16 policy: backbone output {i} is {got.dtype}, "
                                  "not the fp32 run's bit for bit")
-    phase(11, f"[swin_l] bf16 policy detect: {launches} msda_fwd_bf16 launches, the 3 backbone "
-              "outputs fp32 and bit-identical to the fp32 run's "
-              f"({[tuple(f.shape) for f in feats['bf16']]})")
+    phase(n, f"[{label}] bf16 policy detect: {launches} msda_fwd_bf16 launches, the "
+             f"{len(shapes)} backbone outputs fp32 and bit-identical to the fp32 run's {shapes}")
     return dict(msda_fwd_bf16=launches, backbone_fp32_bit_identical=True)
 
 
@@ -3914,13 +4018,207 @@ def run_large_backbones(torch, kernels):
     for label in LARGE_CONFIGS:
         results[label], model, request = run_large_model(torch, label, kernels)
         if label == "swin_l":
-            results[label]["bf16"] = check_swin_bf16(torch, model, request)
+            results[label]["bf16"] = check_bf16_backbone(torch, label, model, request)
         del model, request
         torch.cuda.empty_cache()
     phase(11, f"[{smi}] " + "; ".join(
         f"{k}: detect p50 {results[k]['detect_ms_p50']:.3f} ms, "
         f"{results[k]['detect_peak_gib']:.3f} GiB, step p50 {results[k]['step_ms_p50']:.3f} ms, "
         f"{results[k]['step_peak_gib']:.3f} GiB" for k in LARGE_CONFIGS))
+    return results
+
+
+# phase 12, ViT, EVA-02 and the DCN ResNet. No config of the JAX package
+# uses them, so each is the flagship config with its backbone fields
+# overridden, as the JAX RelationDETR takes them
+FLAGSHIP = "relation_detr_resnet50_800_1333"
+DCN_STAGES = (False, True, True, True)
+VIT_DCN_MODELS = {  # label: the flagship config's model_args overridden
+    "vit_b": dict(backbone_arch="vit_b"),
+    "vit_l": dict(backbone_arch="vit_l"),
+    "eva_02_vit_b": dict(backbone_arch="eva_02_vit_b_4attn_1024"),
+    "eva_02_vit_l": dict(backbone_arch="eva_02_vit_l_4attn_1024"),
+    "r50_dcn": dict(backbone_stage_with_dcn=DCN_STAGES),
+}
+VIT_DCN_BF16 = ("eva_02_vit_l", "r50_dcn")  # one bf16 detect each
+# tiny forms: on the tiny-test config's 256x320 canvas the token grid is
+# 16x20, which windows of 6 pad to 18x24
+TINY_VITS = {
+    "vit_smoke": ("vit", dict(dim=32, depth=4, num_heads=2, mlp_dim=64, global_idx=(1, 3),
+                              rope=False, swiglu=False, window_size=6)),
+    "eva_02_vit_smoke": ("vit", dict(dim=32, depth=4, num_heads=2, mlp_dim=48,
+                                     global_idx=(1, 3), rope=True, swiglu=True, window_size=6)),
+}
+# the R50-DCN's conv2 samplers on the 800x1344 canvas: (label, map (H, W,
+# C), output (oh, ow), stride, blocks at this shape a forward)
+DCN_SAMPLERS = (
+    ("layer2.0", (200, 336, 128), (100, 168), 2, 1),
+    ("layer2.1-3", (100, 168, 128), (100, 168), 1, 3),
+    ("layer3.0", (100, 168, 256), (50, 84), 2, 1),
+    ("layer3.1-5", (50, 84, 256), (50, 84), 1, 5),
+    ("layer4.0", (50, 84, 512), (25, 42), 2, 1),
+    ("layer4.1-2", (25, 42, 512), (25, 42), 1, 2),
+)
+SAMPLER_ITERS = 20
+NMS_THRESHOLD = 0.7
+NMS_ITERS = 20
+
+
+def sampler_inputs(torch, gen, hwc, out_hw, stride):
+    """A (1, H, W, C) map and the 3x3 taps of every output position at
+    ``stride`` with offsets of N(0, 1.5) pixels, as a DCN samples them."""
+    (h, w, c), (oh, ow) = hwc, out_hw
+    feat = torch.randn(1, h, w, c, device="cuda", generator=gen)
+    taps = torch.arange(3, device="cuda") - 1
+    ys = (torch.arange(oh, device="cuda") * stride)[:, None, None, None] + taps[:, None]
+    xs = (torch.arange(ow, device="cuda") * stride)[None, :, None, None] + taps
+    grid = torch.stack(torch.broadcast_tensors(xs, ys), -1).reshape(1, -1, 2).float()
+    return feat, grid + torch.randn(grid.shape, device="cuda", generator=gen) * 1.5
+
+
+def check_bilinear_sample(torch, dcn):
+    """Phase 12 (c): ``ops.grid_sample.bilinear_sample`` (plain PyTorch, no
+    hand kernel) at each of the R50-DCN's conv2 shapes (DCN_SAMPLERS): the
+    card's output against the CPU's, CUDA-event times of the forward and
+    of the backward (map and points), beside one ``F.grid_sample`` call
+    (align_corners=True on the pixel grid: the same function, NCHW) and the
+    bounds; then their sum over a forward's 13 DCNs as a share of the
+    R50-DCN detect p50, and forward + backward of the step p50. Bytes: the
+    map, points and output once (backward: the output gradient, map and
+    points read, their gradients written); operations: 4 corners x C FMAs a
+    sample forward, 3x that backward."""
+    import torch.nn.functional as F
+
+    from relation_detr_tpu_torch.ops.grid_sample import bilinear_sample
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for label, hwc, out_hw, stride, count in DCN_SAMPLERS:
+        feat, points = sampler_inputs(torch, gen, hwc, out_hw, stride)
+        out = bilinear_sample(feat, points)
+        err = (out.cpu() - bilinear_sample(feat.cpu(), points.cpu())).abs().max().item()
+        if not err <= TOL_KERNEL * max(out.abs().max().item(), 1.0):
+            raise AssertionError(f"bilinear_sample {label}: card vs CPU max abs err {err}")
+        h, w, c = hwc
+        nchw = feat.permute(0, 3, 1, 2).contiguous()
+        grid = (points / torch.tensor([w - 1, h - 1], device="cuda") * 2 - 1)[:, :, None]
+        lib = F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True)
+        lib_err = (lib[..., 0].permute(0, 2, 1) - out).abs().max().item()
+        fwd_ms = cuda_ms(lambda: bilinear_sample(feat, points), SAMPLER_ITERS)
+        lib_ms = cuda_ms(lambda: F.grid_sample(nchw, grid, "bilinear", "zeros",
+                                               align_corners=True), SAMPLER_ITERS)
+        feat_g, points_g = feat.requires_grad_(True), points.requires_grad_(True)
+        out = bilinear_sample(feat_g, points_g)
+        grad_out = torch.randn(out.shape, device="cuda", generator=gen)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (feat_g, points_g), grad_out,
+                                                     retain_graph=True), SAMPLER_ITERS)
+        nchw_g, grid_g = nchw.requires_grad_(True), grid.requires_grad_(True)
+        lib_out = F.grid_sample(nchw_g, grid_g, "bilinear", "zeros", align_corners=True)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (nchw_g, grid_g), grad_out.permute(0, 2, 1)[..., None],
+            retain_graph=True), SAMPLER_ITERS)
+        n = points.shape[1]
+        fwd_bound = bound(size(feat, points, out), 8 * n * c)
+        bwd_bound = bound(size(grad_out, feat, points) + size(feat, points), 24 * n * c)
+        rows.append(dict(shape=label, map=list(hwc), samples=n, count=count, max_abs_err=err,
+                         fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound[0],
+                         fwd_bound_by=fwd_bound[1], bwd_bound_ms=bwd_bound[0],
+                         bwd_bound_by=bwd_bound[1], library_fwd_ms=lib_ms,
+                         library_bwd_ms=lib_bwd_ms, library_max_abs_diff=lib_err))
+        phase(12, f"bilinear_sample {label} ({h}x{w}x{c} at {n} points, {count} a forward): "
+                  f"card vs CPU max abs err {err:.3e}; forward {fwd_ms:.4f} ms (bound "
+                  f"{fwd_bound[0]:.4f}, {fwd_bound[1]}; F.grid_sample {lib_ms:.4f}, max abs "
+                  f"diff {lib_err:.3e}), backward {bwd_ms:.4f} ms (bound {bwd_bound[0]:.4f}, "
+                  f"{bwd_bound[1]}; F.grid_sample's {lib_bwd_ms:.4f})")
+        del feat, points, feat_g, points_g, out, nchw, grid, lib, lib_out, nchw_g, grid_g
+    fwd = sum(r["fwd_ms"] * r["count"] for r in rows)
+    bwd = sum(r["bwd_ms"] * r["count"] for r in rows)
+    shares = dict(forward_ms_per_detect=fwd, detect_share=fwd / dcn["detect_ms_p50"],
+                  fwd_bwd_ms_per_step=fwd + bwd, step_share=(fwd + bwd) / dcn["step_ms_p50"])
+    phase(12, f"bilinear_sample over a forward's {sum(r['count'] for r in rows)} DCNs: "
+              f"{fwd:.3f} ms, {100 * shares['detect_share']:.2f}% of the R50-DCN detect p50 "
+              f"{dcn['detect_ms_p50']:.3f} ms; forward + backward {fwd + bwd:.3f} ms, "
+              f"{100 * shares['step_share']:.2f}% of its step p50 {dcn['step_ms_p50']:.3f} ms")
+    return dict(rows=rows, **shares)
+
+
+def check_nms(torch, model):
+    """Phase 12 (c): ``ops.nms.nms_mask`` (plain PyTorch on the card: the
+    greedy rule's fixed point, one scalar read a pass) on the flagship's
+    detect outputs (``model``: phase 5's, seeded weights) at B=1 and B=2:
+    ``post_process(..., 300, nms_iou_threshold=0.7)`` whose valid mask must
+    be the top-k's keep mask, the keep mask equal to the CPU's on the same
+    boxes and scores, CUDA-event times of ``nms_mask`` alone and of
+    ``post_process`` with and without NMS, and the bound (the boxes,
+    scores and mask once; about 20 operations an IoU pair)."""
+    from relation_detr_tpu_torch.models.post_process import post_process
+    from relation_detr_tpu_torch.ops.nms import nms_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    requests = [family_request(torch, gen, h, w) for h, w in REQUESTS[:2]]
+    rows = []
+    for bs in (1, 2):
+        images = torch.cat([r[0] for r in requests[:bs]])
+        mask = torch.cat([r[1] for r in requests[:bs]])
+        sizes = torch.tensor([r[2][0] for r in requests[:bs]], dtype=torch.float32,
+                             device="cuda")
+        with torch.inference_mode():
+            raw = model(images, mask)
+            logits, boxes = raw["pred_logits"], raw["pred_boxes"]
+            plain = post_process(logits, boxes, sizes, 300)
+            det = post_process(logits, boxes, sizes, 300, nms_iou_threshold=NMS_THRESHOLD)
+            keep = nms_mask(plain["boxes"], plain["scores"], NMS_THRESHOLD)
+            cpu_keep = nms_mask(plain["boxes"].cpu(), plain["scores"].cpu(), NMS_THRESHOLD)
+            if not torch.equal(keep.cpu(), cpu_keep) or not torch.equal(det["valid"], keep):
+                raise AssertionError(f"nms_mask B={bs}: the card's keep mask is not the CPU's "
+                                     "or post_process's valid mask")
+            nms_ms = cuda_ms(lambda: nms_mask(plain["boxes"], plain["scores"], NMS_THRESHOLD),
+                             NMS_ITERS)
+            pp_ms = cuda_ms(lambda: post_process(logits, boxes, sizes, 300), NMS_ITERS)
+            pp_nms_ms = cuda_ms(lambda: post_process(logits, boxes, sizes, 300,
+                                                     nms_iou_threshold=NMS_THRESHOLD), NMS_ITERS)
+        n = plain["scores"].shape[1]
+        nms_bound = bound(size(plain["boxes"], plain["scores"], keep), 20 * bs * n * n)
+        kept = keep.sum(1).tolist()
+        rows.append(dict(batch=bs, n=n, kept=kept, ms=nms_ms, bound_ms=nms_bound[0],
+                         bound_by=nms_bound[1], post_process_ms=pp_ms,
+                         post_process_nms_ms=pp_nms_ms))
+        phase(12, f"nms_mask B={bs} N={n} IoU > {NMS_THRESHOLD} on the flagship's detect "
+                  f"outputs: kept {kept}, keep mask equal to the CPU's and post_process's valid "
+                  f"mask; {nms_ms:.4f} ms (bound {nms_bound[0]:.6f}, {nms_bound[1]}); "
+                  f"post_process {pp_ms:.4f} ms, with NMS {pp_nms_ms:.4f} ms")
+    return rows
+
+
+def run_vit_dcn(torch, kernels, flagship):
+    """Phase 12: (a) the tiny ViT, EVA-02 and DCN ResNet-18 on the tiny-test
+    config, GPU against CPU, eval and one train step; (b) VIT_DCN_MODELS at
+    full width (``run_large_model``), VIT_DCN_BF16 also under the bf16
+    policy; (c) ``bilinear_sample`` and ``nms_mask`` timed on the card
+    (``flagship``: phase 5's model)."""
+    register_tiny_backbones(TINY_VITS)
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    results = {"card": smi, "tiny": {}}
+    for arch in TINY_VITS:
+        results["tiny"][arch] = check_tiny_backbone_eval(torch, arch, n=12)
+        check_tiny_train(torch, "gather", {}, None, n=12, backbone=arch)
+    results["tiny"]["resnet18_dcn"] = check_tiny_backbone_eval(torch, "resnet18", n=12,
+                                                               dcn=DCN_STAGES)
+    check_tiny_train(torch, "gather", {}, None, n=12, backbone="resnet18", dcn=DCN_STAGES)
+    for label, overrides in VIT_DCN_MODELS.items():
+        results[label], model, request = run_large_model(torch, label, kernels, overrides,
+                                                         n=12)
+        if label in VIT_DCN_BF16:
+            results[label]["bf16"] = check_bf16_backbone(torch, label, model, request,
+                                                         overrides, n=12)
+        del model, request
+        torch.cuda.empty_cache()
+    results["bilinear_sample"] = check_bilinear_sample(torch, results["r50_dcn"])
+    results["nms_mask"] = check_nms(torch, flagship)
+    phase(12, f"[{smi}] " + "; ".join(
+        f"{k}: detect p50 {results[k]['detect_ms_p50']:.3f} ms, "
+        f"{results[k]['detect_peak_gib']:.3f} GiB, step p50 {results[k]['step_ms_p50']:.3f} ms, "
+        f"{results[k]['step_peak_gib']:.3f} GiB" for k in VIT_DCN_MODELS))
     return results
 
 
@@ -3983,6 +4281,7 @@ def main() -> int:
     training = timed(8, run_train, torch, kernels)
     families = timed(9, run_families, torch, kernels)
     large = timed(11, run_large_backbones, torch, kernels)
+    vit_dcn = timed(12, run_vit_dcn, torch, kernels, model)
     timed(10, run_profiles, torch)
     precision = timed(10, check_precision_profiles, torch, model, model16, step16)
     del model16, step16
@@ -4008,6 +4307,7 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"large_backbones": large}), flush=True)
+    print(json.dumps({"vit_dcn": vit_dcn}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 """ResNet backbone with frozen BatchNorm (NCHW). Counterpart of
-``relation_detr_tpu/models/backbones/resnet.py`` for the plain (non-DCN)
-archs of its table; state_dict names are torchvision's (conv1, bn1,
-layer{s}.{b}.conv{n}, downsample.0/1).
+``relation_detr_tpu/models/backbones/resnet.py``: every arch of its table,
+and ``stage_with_dcn``, which makes conv2 of each block of a stage a
+``models/deform_conv.py::DeformConv2dPack`` (bias-free, at the block's
+stride and groups). state_dict names are torchvision's (conv1, bn1,
+layer{s}.{b}.conv{n}, downsample.0/1; a DCN conv2's ``weight``,
+``conv_offset`` and ``conv_mask``).
 
 The stem and ``layer1`` are frozen (``requires_grad=False``, so the
 optimizer never holds them), as the reference freezes them
@@ -13,7 +16,9 @@ on the backbone and its convolutions) runs the convolutions in that dtype:
 the input is cast before ``conv1`` and the activations after ``bn1`` and
 after every block, as the JAX module casts them (``resnet.py:140-203``);
 FrozenBatchNorm's fp32 buffers promote a bf16 conv output to fp32 in
-between, as in JAX, and each returned stage output is fp32."""
+between, as in JAX, and each returned stage output is fp32. A DCN conv2
+is fed that fp32 and stays fp32, as the JAX module (which has no dtype)
+does."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
@@ -21,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from relation_detr_tpu_torch.models.deform_conv import DeformConv2dPack
 from relation_detr_tpu_torch.models.layers import Conv2d, FrozenBatchNorm
 
 # arch -> (block, stage sizes, groups, width_per_group), as the JAX table
@@ -53,12 +59,20 @@ def _init_convs(module: nn.Module, generator: torch.Generator) -> None:
             _init_convs(child, generator)
 
 
+def _conv2(cin, cout, stride, groups, with_dcn):
+    """A block's 3x3 conv2, deformable with ``with_dcn``."""
+    if with_dcn:
+        return DeformConv2dPack(cin, cout, 3, stride, groups, use_bias=False)
+    return _conv(cin, cout, 3, stride, groups)
+
+
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False,
+                 with_dcn: bool = False):
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride)
         self.bn1 = FrozenBatchNorm(features)
-        self.conv2 = _conv(features, features, 3)
+        self.conv2 = _conv2(features, features, 1, 1, with_dcn)
         self.bn2 = FrozenBatchNorm(features)
         self.downsample = (
             nn.Sequential(_conv(cin, features, 1, stride), FrozenBatchNorm(features))
@@ -78,11 +92,11 @@ class Bottleneck(nn.Module):
     """torchvision v1.5 bottleneck (stride on the 3x3)."""
 
     def __init__(self, cin: int, width: int, cout: int, stride: int = 1,
-                 downsample: bool = False, groups: int = 1):
+                 downsample: bool = False, groups: int = 1, with_dcn: bool = False):
         super().__init__()
         self.conv1 = _conv(cin, width, 1)
         self.bn1 = FrozenBatchNorm(width)
-        self.conv2 = _conv(width, width, 3, stride, groups)
+        self.conv2 = _conv2(width, width, stride, groups, with_dcn)
         self.bn2 = FrozenBatchNorm(width)
         self.conv3 = _conv(width, cout, 1)
         self.bn3 = FrozenBatchNorm(cout)
@@ -103,11 +117,13 @@ class Bottleneck(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """ResNet feature extractor: (B, 3, H, W) -> stage outputs selected by
-    ``return_indices`` (0 = layer1 ... 3 = layer4), NCHW, fp32."""
+    ``return_indices`` (0 = layer1 ... 3 = layer4), NCHW, fp32;
+    ``stage_with_dcn`` (one flag a stage) as the JAX module's."""
 
     compute_dtype: Optional[torch.dtype] = None
 
-    def __init__(self, arch: str = "resnet50", return_indices: Sequence[int] = (1, 2, 3)):
+    def __init__(self, arch: str = "resnet50", return_indices: Sequence[int] = (1, 2, 3),
+                 stage_with_dcn: Sequence[bool] = (False, False, False, False)):
         super().__init__()
         block, stage_sizes, groups, width_per_group = ARCH_SETTINGS[arch]
         self.return_indices = tuple(return_indices)
@@ -127,9 +143,11 @@ class ResNetBackbone(nn.Module):
                 )
                 if block == "bottleneck":
                     width = int(base * (width_per_group / 64.0)) * groups
-                    blocks.append(Bottleneck(cin, width, base * 4, stride, needs_down, groups))
+                    blocks.append(Bottleneck(cin, width, base * 4, stride, needs_down, groups,
+                                             stage_with_dcn[stage_idx]))
                 else:
-                    blocks.append(BasicBlock(cin, base, stride, needs_down))
+                    blocks.append(BasicBlock(cin, base, stride, needs_down,
+                                             stage_with_dcn[stage_idx]))
                 cin = base * expansion
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*blocks))
             channels.append(cin)

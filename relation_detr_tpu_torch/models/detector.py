@@ -8,8 +8,9 @@ them and ``losses.criterion.relation_detr_loss`` scores the train forward.
 
 The precision policy is the JAX module's two fields (``detector.py:70-80``,
 the reference's ``--mixed-precision bf16``): ``backbone_dtype`` runs a ResNet
-backbone's convolutions in that dtype (the Swin, ConvNeXt and FocalNet
-backbones stay fp32, as in JAX), ``compute_dtype`` the encoder and
+backbone's convolutions in that dtype (its DCN convs and the Swin,
+ConvNeXt, FocalNet, ViT and EVA-02 backbones stay fp32, as in JAX),
+``compute_dtype`` the encoder and
 decoder layers' projections (MHA, MSDA, FFN) and the memory fusion. The
 neck, every LayerNorm, the heads, the relation embedding, the MSDA
 sampling arithmetic and softmaxes, the denoising generator and the loss
@@ -49,7 +50,8 @@ def downsample_mask(mask: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor
 
 class RelationDETR(nn.Module):
     """Backbone -> neck -> transformer. Constructor arguments are the JAX
-    module's fields (``backbone_dtype`` / ``compute_dtype``: None or
+    module's fields (``backbone_stage_with_dcn``: the DCN ResNet's stage
+    flags; ``backbone_dtype`` / ``compute_dtype``: None or
     "bfloat16"; ``remat_policy``: see ``transformer.resolve_remat_policy``;
     the family switches: see the module docstring);
     ``generator`` seeds the initialisation (the model is built on CPU; move
@@ -69,6 +71,7 @@ class RelationDETR(nn.Module):
         transformer_enc_layers: int = 6,
         transformer_dec_layers: int = 6,
         backbone_arch: str = "resnet50",
+        backbone_stage_with_dcn: Optional[Tuple[bool, bool, bool, bool]] = None,
         encoder_memory_fusion: bool = True,
         decoder_use_relation: bool = True,
         with_hybrid: bool = True,
@@ -88,7 +91,7 @@ class RelationDETR(nn.Module):
         self.denoising_nums = denoising_nums
         self.with_hybrid = with_hybrid
         self.dropout = dropout
-        self.backbone = build_backbone(backbone_arch)
+        self.backbone = build_backbone(backbone_arch, backbone_stage_with_dcn)
         self.neck = ChannelMapper(self.backbone.num_channels, embed_dim, num_feature_levels)
         self.transformer = RelationTransformer(
             num_classes=num_classes,
@@ -118,7 +121,8 @@ class RelationDETR(nn.Module):
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         # the bf16 islands: the JAX modules built with dtype=compute dtype.
         # The JAX package gives the backbone dtype to the ResNet only: Swin,
-        # ConvNeXt and FocalNet stay fp32 under the bf16 policy.
+        # ConvNeXt, FocalNet, ViT and EVA-02 stay fp32 under the bf16 policy,
+        # and so does the DCN (its convs are plain nn.Conv2d, not set here).
         if isinstance(self.backbone, ResNetBackbone):
             set_compute_dtype(self.backbone, resolve_dtype(backbone_dtype))
         encoder, decoder = self.transformer.encoder, self.transformer.decoder

@@ -195,3 +195,77 @@ class ConvNormActivation(nn.Sequential):
         xavier_(self[0], generator)
         nn.init.ones_(self[1].weight)
         nn.init.zeros_(self[1].bias)
+
+
+class SqueezeExcitation(nn.Module):
+    """Channel squeeze-and-excitation over an NHWC map: the spatial mean
+    through ``fc1`` (C -> C / reduction), ReLU, ``fc2`` and a sigmoid scales
+    each channel. No shipped config uses it."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = Linear(channels, max(channels // reduction, 1))
+        self.fc2 = Linear(self.fc1.out_features, channels)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_(self.fc1, generator)
+        lecun_(self.fc2, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.sigmoid(self.fc2(torch.relu(self.fc1(x.mean((1, 2))))))
+        return x * s[:, None, None, :]
+
+
+class ContextBlock(nn.Module):
+    """GCNet global-context block over an NHWC map. ``pooling_type`` "attn"
+    (a softmax over the positions of the 1-channel ``conv_mask``) or "avg"
+    (the spatial mean) gives a (B, C) context; each of ``fusion_types``
+    ("channel_mul", then "channel_add") passes it through ``{fusion}_1`` (C
+    -> C * ratio), ``{fusion}_norm`` (LayerNorm), ReLU and the
+    zero-initialised ``{fusion}_2``, so the block starts as the identity.
+    No shipped config uses it."""
+
+    FUSIONS = ("channel_mul", "channel_add")
+
+    def __init__(self, channels: int, ratio: float = 1.0 / 16, pooling_type: str = "attn",
+                 fusion_types=("channel_add",)):
+        super().__init__()
+        if pooling_type not in ("attn", "avg"):
+            raise ValueError(f"unknown pooling_type {pooling_type!r}; use attn|avg")
+        if not fusion_types or any(f not in self.FUSIONS for f in fusion_types):
+            raise ValueError(f"fusion_types must be a non-empty subset of {self.FUSIONS}")
+        self.pooling_type, self.fusion_types = pooling_type, tuple(fusion_types)
+        hidden = max(int(channels * ratio), 1)
+        if pooling_type == "attn":
+            self.conv_mask = Linear(channels, 1)
+        for fusion in self.FUSIONS:
+            if fusion in self.fusion_types:
+                self.add_module(f"{fusion}_1", Linear(channels, hidden))
+                self.add_module(f"{fusion}_norm", nn.LayerNorm(hidden, eps=LN_EPS))
+                self.add_module(f"{fusion}_2", Linear(hidden, channels))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.pooling_type == "attn":
+            lecun_(self.conv_mask, generator)
+        for fusion in self.fusion_types:
+            lecun_(getattr(self, f"{fusion}_1"), generator)
+            nn.init.zeros_(getattr(self, f"{fusion}_2").weight)
+            nn.init.zeros_(getattr(self, f"{fusion}_2").bias)
+
+    def _bottleneck(self, context: torch.Tensor, fusion: str) -> torch.Tensor:
+        t = torch.relu(getattr(self, f"{fusion}_norm")(getattr(self, f"{fusion}_1")(context)))
+        return getattr(self, f"{fusion}_2")(t)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if self.pooling_type == "attn":
+            attn = torch.softmax(self.conv_mask(x).reshape(b, h * w), -1)
+            context = torch.einsum("bn,bnc->bc", attn, x.reshape(b, h * w, c))
+        else:
+            context = x.mean((1, 2))
+        out = x
+        if "channel_mul" in self.fusion_types:
+            out = out * torch.sigmoid(self._bottleneck(context, "channel_mul"))[:, None, None, :]
+        if "channel_add" in self.fusion_types:
+            out = out + self._bottleneck(context, "channel_add")[:, None, None, :]
+        return out

@@ -1,11 +1,12 @@
-"""Sinusoidal position encodings. Counterpart of
-``relation_detr_tpu/models/position_encoding.py``; same layouts (the mask
-embedding returns (B, H, W, C), channels last)."""
+"""Position encodings: the sine embeddings and the learned one.
+Counterpart of ``relation_detr_tpu/models/position_encoding.py``; same
+layouts (the mask embeddings return (B, H, W, C), channels last)."""
 from __future__ import annotations
 
 import math
 
 import torch
+from torch import nn
 
 
 def _dim_t(num_pos_feats: int, temperature: float, device=None) -> torch.Tensor:
@@ -58,3 +59,30 @@ def get_sine_pos_embed(
     if exchange_xy and pos.shape[-2] >= 2:
         pos = torch.cat([pos[..., 1:2, :], pos[..., 0:1, :], pos[..., 2:, :]], dim=-2)
     return pos.flatten(-2)
+
+
+class PositionEmbeddingLearned(nn.Module):
+    """Learned absolute position embedding (uniform [0, 1) row and column
+    tables; state_dict ``row_embed.weight`` / ``col_embed.weight``, the JAX
+    module's ``row_embed`` / ``col_embed``). A (B, H, W) mask gives (B, H,
+    W, 2 * num_pos_feats), channels [col(x), row(y)], the opposite order
+    from the sine embedding's. A row or column past the table takes its
+    last entry, as the JAX gather clamps its index."""
+
+    def __init__(self, num_embeddings: int = 50, num_pos_feats: int = 256):
+        super().__init__()
+        self.row_embed = nn.Embedding(num_embeddings, num_pos_feats)
+        self.col_embed = nn.Embedding(num_embeddings, num_pos_feats)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.uniform_(self.row_embed.weight, generator=generator)
+        nn.init.uniform_(self.col_embed.weight, generator=generator)
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        b, h, w = mask.shape
+        last = self.row_embed.num_embeddings - 1
+        x_emb = self.col_embed(torch.arange(w, device=mask.device).clamp(max=last))  # (W, F)
+        y_emb = self.row_embed(torch.arange(h, device=mask.device).clamp(max=last))  # (H, F)
+        f = x_emb.shape[-1]
+        pos = torch.cat([x_emb[None].expand(h, w, f), y_emb[:, None].expand(h, w, f)], -1)
+        return pos[None].expand(b, h, w, 2 * f)

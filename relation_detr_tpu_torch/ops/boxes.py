@@ -39,6 +39,11 @@ def elementwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
     return inter / union.clamp(min=1e-12)
 
 
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of xyxy boxes: (..., N, 4) x (..., M, 4) -> (..., N, M)."""
+    return elementwise_box_iou(boxes1[..., :, None, :], boxes2[..., None, :, :])
+
+
 def elementwise_generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
                                     ) -> torch.Tensor:
     """Elementwise GIoU of aligned xyxy boxes: IoU - (hull - union) / hull."""

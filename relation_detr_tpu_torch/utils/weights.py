@@ -17,6 +17,17 @@ blocks and MLPs take the same ones, their other modules the JAX names
 (``focal_{l}`` as ``focal.{l}``). Depthwise kernels cross as any conv's:
 HWIO (k, k, 1, C) <-> OIHW (C, 1, k, k).
 
+The ViT and EVA-02 backbones take the JAX names, dotted (``block{i}``,
+``attn.q_proj``, ``mlp.w1``, ``fpn{s}_up1``, ...). JAX's ViT and Swin both
+have a ``backbone/patch_embed`` conv, so each function tells the two
+layouts apart by the ViT's ``backbone/block{i}`` keys (``_vit_layout``).
+The backbone's q / k / v projections stay three tensors (only the
+transformer's merge into ``in_proj``). flax's ``ConvTranspose`` (HWIO,
+unflipped: a convolution of the dilated input) is torch's
+``ConvTranspose2d`` (in, out, kh, kw) flipped in space. The DCN's tap
+kernel (k^2, C/g, O) is torchvision's (O, C/g, k, k). The learned position
+embedding's ``row_embed`` / ``col_embed`` are ``nn.Embedding`` weights.
+
 ``jax_weights`` is the inverse map: a port ``state_dict`` to the JAX
 layout (``params/...`` and ``batch_stats/...``, merged ``in_proj`` tensors
 split into the q, k and v keys), the same arrays as
@@ -33,6 +44,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from relation_detr_tpu_torch.models.deform_conv import DeformConv2dPack
 
 logger = logging.getLogger(__name__)
 
@@ -63,6 +76,15 @@ _BARE = {"transformer/tgt_embed": "transformer.tgt_embed.weight",
          "transformer/hybrid_tgt_embed": "transformer.hybrid_tgt_embed.weight",
          "transformer/refpoint_embed": "transformer.refpoint_embed.weight"}
 _QKV = ("q_proj", "k_proj", "v_proj")
+_VIT_KEY = re.compile(r"(^|[./])backbone[./]block\d+[./]")
+_CONV_TRANSPOSE = re.compile(r"^fpn\d+_up\d$")  # the ViT pyramid's
+_EMBED_TABLES = ("row_embed", "col_embed")  # PositionEmbeddingLearned's
+
+
+def _vit_layout(keys) -> bool:
+    """Whether '/'-keyed JAX names or '.'-keyed port names hold a ViT
+    backbone (whose names the bridge leaves as JAX's)."""
+    return any(_VIT_KEY.search(k) for k in keys)
 
 
 def _backbone_segment(seg: str, last: bool) -> Optional[str]:
@@ -83,10 +105,10 @@ def _backbone_segment(seg: str, last: bool) -> Optional[str]:
     return _BACKBONE_RENAMES.get(seg)
 
 
-def _module_path(parts) -> str:
+def _module_path(parts, vit: bool = False) -> str:
     out = []
     for i, seg in enumerate(parts):
-        if parts[0] == "backbone":
+        if parts[0] == "backbone" and not vit:
             renamed = _backbone_segment(seg, i == len(parts) - 1)
             if renamed is not None:
                 out.append(renamed)
@@ -102,38 +124,47 @@ def _module_path(parts) -> str:
     return ".".join(out)
 
 
-def _torch_name(key: str) -> str:
+def _torch_name(key: str, vit: bool = False) -> str:
     if key in _BARE:
         return _BARE[key]
     parts = key.split("/")
+    if parts[-1] in _EMBED_TABLES:
+        return f"{_module_path(parts, vit)}.weight"
     if parts[-1] not in _LEAVES:  # a bare parameter, e.g. level_embeds
-        return _module_path(parts)
-    return f"{_module_path(parts[:-1])}.{_LEAVES[parts[-1]]}"
+        return _module_path(parts, vit)
+    return f"{_module_path(parts[:-1], vit)}.{_LEAVES[parts[-1]]}"
 
 
-def _param_slot(key: str) -> Tuple[str, Optional[int]]:
+def _param_slot(key: str, vit: bool = False) -> Tuple[str, Optional[int]]:
     """Where a JAX ``params`` array goes in the port: (state_dict name,
     part), part 0 / 1 / 2 for the q / k / v rows of a merged
-    ``in_proj_weight`` / ``in_proj_bias``, else None."""
+    ``in_proj_weight`` / ``in_proj_bias`` (the transformer's attention;
+    the backbone's projections stay apart), else None."""
     parts = key.split("/")
-    if len(parts) >= 3 and parts[-2] in _QKV:
+    if len(parts) >= 3 and parts[-2] in _QKV and parts[0] != "backbone":
         leaf = "in_proj_weight" if parts[-1] == "kernel" else "in_proj_bias"
         return f"{_module_path(parts[:-2])}.{leaf}", _QKV.index(parts[-2])
-    return _torch_name(key), None
+    return _torch_name(key, vit), None
 
 
-def _param_entry(key: str, value: np.ndarray) -> Tuple[str, Optional[int], np.ndarray]:
+def _param_entry(key: str, value: np.ndarray,
+                 vit: bool = False) -> Tuple[str, Optional[int], np.ndarray]:
     """``_param_slot`` of a JAX ``params`` array and its value in the port's
     layout."""
     value = np.asarray(value, np.float32)
     if key.endswith("/kernel"):
-        if value.ndim == 4:
+        if value.ndim == 4 and _CONV_TRANSPOSE.match(key.split("/")[-2]):
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)  # flipped, (in, out, kh, kw)
+        elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif value.ndim == 3:  # the DCN's (k^2, C/g, O) -> (O, C/g, k, k)
+            k = int(round(np.sqrt(value.shape[0])))
+            value = value.reshape(k, k, *value.shape[1:]).transpose(3, 2, 0, 1)
         elif key.split("/")[-2] == "pos_proj":  # (in, H) Dense -> (H, in, 1, 1) conv
             value = value.T[:, :, None, None]
         else:
             value = value.T
-    return (*_param_slot(key), value)
+    return (*_param_slot(key, vit), value)
 
 
 def state_dict_from_jax(
@@ -143,8 +174,9 @@ def state_dict_from_jax(
     """JAX '/'-keyed params and batch_stats -> the port's state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     qkv: Dict[str, Dict[int, np.ndarray]] = {}
+    vit = _vit_layout(params_flat)
     for key, value in params_flat.items():
-        name, part, value = _param_entry(key, value)
+        name, part, value = _param_entry(key, value, vit)
         if part is None:
             sd[name] = torch.from_numpy(np.ascontiguousarray(value))
         else:
@@ -153,7 +185,7 @@ def state_dict_from_jax(
         sd[name] = torch.from_numpy(np.ascontiguousarray(
             np.concatenate([parts[i] for i in range(len(_QKV))], axis=0)))
     for key, value in batch_stats_flat.items():
-        sd[_torch_name(key)] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+        sd[_torch_name(key, vit)] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
     return sd
 
 
@@ -161,14 +193,15 @@ def _label(name: str, part: Optional[int]) -> str:
     return name if part is None else f"{name}[{'qkv'[part]}]"
 
 
-def jax_key_label(key: str) -> str:
+def jax_key_label(key: str, vit: bool = False) -> str:
     """The port's name of a '/'-keyed array of a JAX weight file
     (``params/...`` or ``batch_stats/...``): its state_dict name, with
-    ``[q]``, ``[k]`` or ``[v]`` for a part of a merged in_proj tensor."""
+    ``[q]``, ``[k]`` or ``[v]`` for a part of a merged in_proj tensor;
+    ``vit``: the file holds a ViT backbone (``_vit_layout``)."""
     collection, _, rest = key.partition("/")
     if collection == "batch_stats":
-        return _torch_name(rest)
-    return _label(*_param_slot(rest))
+        return _torch_name(rest, vit)
+    return _label(*_param_slot(rest, vit))
 
 
 def load_weights(model: torch.nn.Module, path: str, strict: bool = False) -> Dict[str, list]:
@@ -183,13 +216,14 @@ def load_weights(model: torch.nn.Module, path: str, strict: bool = False) -> Dic
     path = path if path.endswith(".npz") else path + ".npz"
     entries = {}  # (state_dict name, part) -> value in the port's layout
     with np.load(path) as archive:
+        vit = _vit_layout(archive.files)
         for key in archive.files:
             collection, _, rest = key.partition("/")
             if collection == "params":
-                name, part, value = _param_entry(rest, archive[key])
+                name, part, value = _param_entry(rest, archive[key], vit)
                 entries[(name, part)] = value
             elif collection == "batch_stats":
-                entries[(_torch_name(rest), None)] = np.asarray(archive[key], np.float32)
+                entries[(_torch_name(rest, vit), None)] = np.asarray(archive[key], np.float32)
     report = {"loaded": [], "mismatched": [], "missing": []}
     update: Dict[str, torch.Tensor] = {}
     for name, current in model.state_dict().items():
@@ -285,13 +319,14 @@ def jax_weights(model: torch.nn.Module,
     through ``state_dict_from_jax``'s names; one that does not raises."""
     state_dict = model.state_dict() if state_dict is None else state_dict
     buffers = {name for name, _ in model.named_buffers()}
+    vit = _vit_layout(state_dict)
     out: Dict[str, np.ndarray] = {}
     for name, tensor in state_dict.items():
         value = tensor.detach().cpu().numpy()
         module_path, _, leaf = name.rpartition(".")
         if name in buffers:
             key = f"{_jax_path(module_path)}/{leaf}"
-            if _torch_name(key) != name:
+            if _torch_name(key, vit) != name:
                 raise ValueError(f"{name}: no JAX key maps back to it (got {key})")
             out[f"batch_stats/{key}"] = value
             continue
@@ -306,6 +341,11 @@ def jax_weights(model: torch.nn.Module,
             continue
         if name in _INV_BARE:
             key = _INV_BARE[name]
+        elif leaf == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
+            key, value = f"{path}/kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif leaf == "weight" and isinstance(module, DeformConv2dPack):
+            key = f"{path}/kernel"  # (O, C/g, k, k) -> (k^2, C/g, O)
+            value = value.transpose(2, 3, 1, 0).reshape(-1, *value.shape[1::-1])
         elif leaf == "weight" and isinstance(module, torch.nn.Conv2d):
             key = f"{path}/kernel"
             if path.split("/")[-1] == "pos_proj":  # a Dense kernel in the JAX model
@@ -317,12 +357,12 @@ def jax_weights(model: torch.nn.Module,
         elif leaf == "weight" and isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
             key = f"{path}/scale"
         elif leaf == "weight" and isinstance(module, torch.nn.Embedding):
-            key = f"{path}/embedding"
+            key = path if path.split("/")[-1] in _EMBED_TABLES else f"{path}/embedding"
         elif leaf == "bias":
             key = f"{path}/bias"
         else:  # a bare parameter, e.g. level_embeds
             key = _jax_path(name)
-        if _param_slot(key) != (name, None):
+        if _param_slot(key, vit) != (name, None):
             raise ValueError(f"{name}: no JAX key maps back to it (got {key})")
         out[key] = np.ascontiguousarray(value)
     return {(k if k.startswith("batch_stats/") else f"params/{k}"): v for k, v in out.items()}

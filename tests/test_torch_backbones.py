@@ -35,10 +35,12 @@ from relation_detr_tpu.models import backbones as jbackbones  # noqa: E402
 from relation_detr_tpu.models.backbones import convnext as jconvnext  # noqa: E402
 from relation_detr_tpu.models.backbones import focalnet as jfocalnet  # noqa: E402
 from relation_detr_tpu.models.backbones import swin as jswin  # noqa: E402
+from relation_detr_tpu.models.backbones import vit as jvit  # noqa: E402
 from relation_detr_tpu.models.detector import RelationDETR as JRelationDETR  # noqa: E402
 from relation_detr_tpu.utils.config import Config as JConfig  # noqa: E402
 from relation_detr_tpu_torch.models import backbones, layers  # noqa: E402
 from relation_detr_tpu_torch.models.backbones import convnext, focalnet, swin  # noqa: E402
+from relation_detr_tpu_torch.models.deform_conv import DeformConv2dPack  # noqa: E402
 from relation_detr_tpu_torch.models.detector import RelationDETR  # noqa: E402
 from relation_detr_tpu_torch.utils.config import Config  # noqa: E402
 from relation_detr_tpu_torch.utils.param_groups import build_optimizer  # noqa: E402
@@ -440,22 +442,28 @@ def test_full_config_matches_jax(config):
 
 
 def test_build_backbone_routes_and_raises():
-    """``build_backbone`` takes every Swin, ConvNeXt and FocalNet arch of the
-    JAX tables (on ``meta``, no compute); an unknown arch of a family raises
-    ValueError; ViT, EVA-02 and the DCN ResNet raise NotImplementedError
-    naming ROADMAP Queue 1 item 4."""
+    """``build_backbone`` takes every Swin, ConvNeXt, FocalNet, ViT and
+    EVA-02 arch of the JAX tables (on ``meta``, no compute) with JAX's
+    ``num_channels``, and a ResNet with ``stage_with_dcn`` (its DCN convs
+    where the flags say); an unknown arch of a family raises ValueError."""
     families = ((jswin, backbones.SwinTransformerBackbone),
                 (jconvnext, backbones.ConvNeXtBackbone),
-                (jfocalnet, backbones.FocalNetBackbone))
+                (jfocalnet, backbones.FocalNetBackbone),
+                (jvit, backbones.VisionTransformerBackbone))
     for jmod, cls in families:
         for arch in jmod.ARCH_SETTINGS:
             with torch.device("meta"):
                 model = backbones.build_backbone(arch)
             assert isinstance(model, cls)
             assert model.num_channels == jbackbones.build_backbone(arch).num_channels, arch
-    with pytest.raises(ValueError):
-        backbones.build_backbone("swin_xxl")
-    for arch, kwargs in (("vit_base", {}), ("eva_02_vit_large", {}),
-                         ("resnet50", {"stage_with_dcn": (False, False, True, True)})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            backbones.build_backbone(arch, **kwargs)
+    for arch in ("swin_xxl", "vit_base", "eva_02_vit_large", "no_such_arch"):
+        with pytest.raises(ValueError):
+            backbones.build_backbone(arch)
+    flags = (False, False, True, True)
+    with torch.device("meta"):
+        model = backbones.build_backbone("resnet50", stage_with_dcn=flags)
+    assert model.num_channels == jbackbones.build_backbone(
+        "resnet50", stage_with_dcn=flags).num_channels
+    for stage, dcn in enumerate(flags):
+        for block in getattr(model, f"layer{stage + 1}"):
+            assert isinstance(block.conv2, DeformConv2dPack) == dcn, (stage, block)

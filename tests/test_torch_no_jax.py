@@ -110,6 +110,48 @@ def tiny_backbones():
     assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
 
 
+def vit_dcn_and_bricks():
+    # tiny ViT and EVA-02 (RoPE, SwiGLU, padded windows) detectors and the
+    # DCN ResNet-18 one: eval, and a train step on EVA and on the DCN (its
+    # offsets get gradients); NMS in post_process, the segmentation decode,
+    # the learned position embedding, SE, ContextBlock, the registry
+    from relation_detr_tpu_torch.configs import build_detector
+    from relation_detr_tpu_torch.models import layers, post_process
+    from relation_detr_tpu_torch.models.backbones import vit
+    from relation_detr_tpu_torch.models.position_encoding import PositionEmbeddingLearned
+    from relation_detr_tpu_torch.utils import weight_registry
+
+    for arch, extra in (("vit", {}), ("eva_02_vit", dict(rope=True, swiglu=True))):
+        vit.ARCH_SETTINGS[arch + "_no_jax"] = dict(
+            dict(dim=32, depth=2, num_heads=2, mlp_dim=48, global_idx=(1,), rope=False,
+                 swiglu=False, window_size=4), **extra)
+    tiny = cfgs[1]
+    dcn = dict(backbone_arch="resnet18", backbone_stage_with_dcn=(False, True, True, True))
+    for args in (dict(backbone_arch="vit_no_jax"), dict(backbone_arch="eva_02_vit_no_jax"), dcn):
+        model = build_detector(dict(tiny.model_args, **args), device="cpu")
+        det = inference.detect(model, images, mask, [[96, 160]], 30)
+        assert det["boxes"].shape == (1, 30, 4) and bool(torch.isfinite(det["boxes"]).all())
+    for args in (dict(backbone_arch="eva_02_vit_no_jax"), dcn):
+        model = build_detector(dict(tiny.model_args, **args), device="cpu").train()
+        step = make_train_step(model, tiny.build_criterion(),
+                               build_optimizer(model, train_config.learning_rate),
+                               tiny.hybrid_assign)
+        metrics = step(batch)
+        assert np.isfinite(metrics["total_loss"]) and metrics["nonfinite_count"] == 0, metrics
+    logits, boxes = torch.randn(2, 30, 4), torch.rand(2, 30, 4) * 0.5 + 0.25
+    out = post_process.post_process(logits, boxes, torch.tensor([[96.0, 160.0]] * 2), 30,
+                                     nms_iou_threshold=0.5)
+    assert 0 < int(out["valid"].sum()) < 60
+    seg = post_process.segmentation_post_process(logits, torch.randn(2, 30, 8, 8), (12, 6))
+    assert seg.shape == (2, 12, 6)
+    assert PositionEmbeddingLearned(4, 8)(torch.zeros(1, 6, 3, dtype=torch.bool)).shape == \
+        (1, 6, 3, 16)
+    x = torch.randn(1, 5, 6, 32)
+    assert layers.SqueezeExcitation(32)(x).shape == x.shape
+    assert layers.ContextBlock(32, fusion_types=("channel_mul", "channel_add"))(x).shape == x.shape
+    assert weight_registry.lookup_url("resnet50").endswith(".pth")
+
+
 def evaluation_stream():
     # collate, the eval stream and the evaluator on numpy images (uint8,
     # EvalPreset(normalize_host=False)) with a tiny annotations JSON
@@ -163,6 +205,7 @@ def evaluation_stream():
 eval_and_train_step()
 tiny_dn_family()
 tiny_backbones()
+vit_dcn_and_bricks()
 evaluation_stream()
 relation_bias.set_fused_relation(version=1)
 with msda.msda_defaults(impl="tiled"):
@@ -256,7 +299,8 @@ print("ok")
 def test_port_imports_and_runs_without_jax_flax_cv2():
     """The tiny config's eval and train step on CPU, as they are and under
     impl="tiled" with relation version 1; tiny detectors on the Swin (v1,
-    v2), ConvNeXt and FocalNet backbones; and the evaluation path (collate,
+    v2), ConvNeXt, FocalNet, ViT, EVA-02 and DCN ResNet backbones; NMS, the
+    segmentation decode and the other bricks; and the evaluation path (collate,
     the loader, the detections function and stream, the evaluator, the CLI
     module): no kernel launch, and nothing of jax, flax, cv2, PIL or
     relation_detr_tpu imported."""
