@@ -173,6 +173,24 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      ``nms_mask`` at N=300, B=1 and 2, on the flagship's detect outputs
      through ``post_process(nms_iou_threshold=0.7)``, its keep mask the
      CPU's exactly;
+ 13. (run after phase 10, the flagship model freed) data parallelism on
+     the flagship (``parallel/mesh.py``, seeded weights, 800x1344): (a) in
+     this process, a NCCL group of one process against no group: an eval
+     batch bit-identical, two train steps (the first's losses
+     bit-identical, then within msda_bwd's atomics noise); (b) the
+     one-process B=2 step, its two-stage top-k recorded, then timed, and
+     the eval CLI at B=2 over the committed split; (c) 2 spawned processes
+     (``dp_process``; NCCL on 2 cards where the machine has 2, else gloo
+     with both on card 0, printed): the step at B=1 a process on (b)'s
+     images, denoising draws and top-k against (b)'s step (losses,
+     grad_norm, the parameters after the update, both processes'
+     parameters equal), launches per step, timed steps and the gradient
+     all-reduce's span and bytes; the train CLI for an epoch of the
+     16-image split at B=1 with an evaluation (rank 0 writes one
+     checkpoint; the same stats in both) and a --resume of it; the eval
+     CLI at B=2, whose 12 stats equal (b)'s in both processes; a process
+     that fails, or a collective that waits past DP_TIMEOUT_S, fails the
+     phase;
  10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
@@ -204,8 +222,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and msda_bwd_bf16 from the bf16 train step with remat unset;
      family_launches of msda_fwd, msda_bwd and relation_bias_v4_fwd from
      each of phase 9's paths; large_backbone_launches from each of phase
-     11's; vit_dcn_launches from each of phase 12's), after JSON lines of
-     the precision profiles and phase 7's, 8's, 9's, 11's and 12's results,
+     11's; vit_dcn_launches from each of phase 12's; dp_launches, each
+     process's, from phase 13's steps), after JSON lines of the precision
+     profiles and phase 7's, 8's, 9's, 11's, 12's and 13's results,
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -220,6 +239,7 @@ repository.
 from __future__ import annotations
 
 import copy
+import gc
 import importlib
 import json
 import math
@@ -4222,6 +4242,437 @@ def run_vit_dcn(torch, kernels, flagship):
     return results
 
 
+
+# phase 13, data parallelism: the flagship on 2 processes. Where the
+# machine has 2 cards they run under NCCL, one a card; on one card they share
+# it under gloo, whose collectives take tensors on the card through host
+# memory (NCCL refuses two processes on one card).
+DP_WORLD = 2
+DP_TIMED = (1, 5)  # warm-up and timed steps after the checked one (2 processes, and B=2 alone)
+DP_TIMEOUT_S = 120.0  # a collective that waits longer fails the process, and the phase
+DP_GT_CAP = 100
+# the 2-process step at B=1 a process against one process at B=2, on the same
+# weights, images, denoising draws and (pinned) two-stage top-k: each loss
+# term relative; grad_norm relative (a ReLU input within rounding of 0 that
+# B=1 and B=2 convolutions round to other sides moves a few gradients, PERF.md
+# §6); the parameters after one AdamW update: AdamW's first update is about
+# lr * sign(g), so an element whose gradient is within noise of 0 may move by
+# up to 2 lr; at most this share of elements may differ by more than lr / 1000
+TOL_DP_LOSS = 1e-4
+TOL_DP_NORM = 1e-3
+TOL_DP_SHARE = 1e-3
+
+
+def dp_options(torch):
+    """The phase's backend and cards: NCCL on 2 cards where there are 2,
+    else gloo with both processes on card 0."""
+    two = torch.cuda.device_count() >= DP_WORLD
+    return dict(backend="nccl" if two else "gloo", device="cuda", config=FLAGSHIP,
+                canvas=CANVAS, coco=os.path.join(ROOT, EVAL_DATA, "synth_coco"),
+                cards="one card per process" if two else "both processes on card 0")
+
+
+def dp_config_path(opts):
+    return os.path.join(ROOT, "relation_detr_tpu_torch", "configs", "relation_detr",
+                        opts["config"] + ".py")
+
+
+def dp_flagship_step(torch, opts, device):
+    """The flagship (seed 0) in train mode on ``device``, its AdamW (the
+    train config's) and its train step."""
+    from relation_detr_tpu_torch.configs import train_config
+    from relation_detr_tpu_torch.parallel.train_step import make_train_step
+    from relation_detr_tpu_torch.utils.param_groups import build_optimizer
+
+    cfg = importlib.import_module(CONFIGS + opts["config"])
+    model = cfg.build_model(device=device, seed=0).train()
+    optimizer = build_optimizer(model, train_config.learning_rate,
+                                weight_decay=train_config.weight_decay,
+                                betas=train_config.betas, max_norm=train_config.max_norm)
+    step = make_train_step(model, cfg.build_criterion(), optimizer, cfg.hybrid_assign, seed=0)
+    return model, optimizer, step
+
+
+def dp_inject(model, draws):
+    """The denoising draws of the whole global batch, on the model's device
+    (the step takes its process's rows)."""
+    model.denoising_generator.draw_noise = lambda bs, gen, dev: {
+        k: v.to(dev) for k, v in draws.items()}
+
+
+def dp_inputs(torch, opts, bs, seed):
+    """A global batch (BOXES_PER_IMAGE boxes an image, GT capacity
+    DP_GT_CAP) and its denoising draws, on the CPU."""
+    cfg = importlib.import_module(CONFIGS + opts["config"])
+    gen = torch.Generator().manual_seed(seed)
+    batch = synthetic_batch(torch, gen, bs, DP_GT_CAP, opts["canvas"], "cpu",
+                            (opts["canvas"][0], opts["canvas"][1] - 64))
+    batch["gt_labels"][:, :BOXES_PER_IMAGE] %= cfg.num_classes
+    dn_cap = 2 * cfg.model_args.get("denoising_nums", 100)
+    draws = {"flip_u": torch.rand(bs, dn_cap, generator=gen),
+             "random_labels": torch.randint(0, cfg.num_classes, (bs, dn_cap), generator=gen),
+             "rand_sign": torch.randint(0, 2, (bs, dn_cap, 4), generator=gen).float() * 2 - 1,
+             "rand_part": torch.rand(bs, dn_cap, 4, generator=gen)}
+    return batch, draws
+
+
+def dp_params(model):
+    """The trainable parameters, flattened, on the CPU."""
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).cpu() for p in model.parameters()
+                      if p.requires_grad])
+
+
+def dp_param_diff(got, want, lr):
+    """(max |got - want|, share of elements apart by more than lr / 1000)."""
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff > lr * 1e-3).double().mean())
+
+
+def dp_losses_err(got, want):
+    """The largest relative difference over the loss terms and the total."""
+    keys = [k for k in want if k.startswith("loss") or k == "total_loss"]
+    if set(keys) - set(got):
+        raise AssertionError(f"loss terms missing: {sorted(set(keys) - set(got))}")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in keys)
+
+
+def dp_counters():
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+
+    return {"msda_fwd": msda.multi_scale_deformable_attention, "msda_bwd": msda.msda_backward,
+            "relation_bias_v4_fwd": relation_bias.relation_bias_v4}
+
+
+def dp_timed_steps(torch, step, batch, n):
+    """Runs n steps; each one's ms (CUDA events), its losses finite."""
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        if not math.isfinite(metrics["total_loss"]) or metrics["nonfinite_count"]:
+            raise AssertionError(f"data-parallel step: non-finite metrics {metrics}")
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def dp_rank(torch, opts, rank, device, tmp):
+    """One process of the phase: the checked step (top-k pinned to the
+    one-process run's rows of this process's image), warm-up and timed
+    steps with every counter at 0 before them, then the train CLI for an
+    epoch with an evaluation, a --resume of it, and the eval CLI."""
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch import train
+    from relation_detr_tpu_torch.parallel import mesh
+
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=True)
+    out = {"device": str(device), "name": torch.cuda.get_device_name(device),
+           "backend": mesh.backend_name()}
+    model, optimizer, step = dp_flagship_step(torch, opts, device)
+    dp_inject(model, inputs["draws"])
+    batch = {k: v[rank:rank + 1].to(device) for k, v in inputs["batch"].items()}
+    counters = dp_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    pins = [[None, None, idx[rank:rank + 1]] for idx in inputs["topk"]]
+    with PinnedTopk(pins):
+        out["metrics"] = step(batch)
+    torch.cuda.synchronize()
+    if rank == 0:
+        out["params"] = dp_params(model)
+    out["digest"] = torch.stack([p.detach().double().sum() for p in model.parameters()]).cpu()
+    out["step_ms"] = dp_timed_steps(torch, step, batch, sum(DP_TIMED))[DP_TIMED[0]:]
+    out["reduce_ms"] = step.reduce_ms()[1 + DP_TIMED[0]:]
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["steps"] = 1 + sum(DP_TIMED)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del model, optimizer, step, batch
+    torch.cuda.empty_cache()
+
+    args = ["--coco-path", opts["coco"], "--batch-size", "1", "--canvas",
+            f"{opts['canvas'][0]},{opts['canvas'][1]}", "--seed", "0", "--device", "cuda",
+            "--model-config", dp_config_path(opts)]
+    first_dir, resumed_dir = os.path.join(tmp, "train"), os.path.join(tmp, "resumed")
+    t0 = time.perf_counter()
+    got = train.main(args + ["--output-dir", first_dir, "--num-epochs", "1",
+                             "--eval-every-epochs", "1"])
+    out["train_cli"] = dict(seconds=time.perf_counter() - t0, steps=len(got["steps"]),
+                            images=got["images"], evals=got["evals"],
+                            step_ms=[s["step"] for s in got["steps"]],
+                            total_loss=got["metrics"]["total_loss"],
+                            checkpoints=sorted(os.listdir(os.path.join(first_dir, "checkpoints"))),
+                            weights=sorted(f for f in os.listdir(first_dir)
+                                           if f.endswith(".npz")))
+    t0 = time.perf_counter()
+    got = train.main(args + ["--output-dir", resumed_dir, "--num-epochs", "2", "--resume",
+                             first_dir, "--max-steps", "2"])
+    out["resume"] = dict(seconds=time.perf_counter() - t0, steps=len(got["steps"]),
+                         epochs=sorted({s["epoch"] for s in got["steps"]}),
+                         total_loss=got["metrics"]["total_loss"],
+                         checkpoints=sorted(os.listdir(os.path.join(resumed_dir,
+                                                                    "checkpoints"))))
+    got = eval_cli.main(["--coco-path", opts["coco"], "--batch-size", str(EVAL_BATCH),
+                         "--device", "cuda", "--result-json", os.path.join(tmp, "eval.json"),
+                         "--model-config", args[-1]])
+    out["eval_cli"] = dict(stats=got["stats"], images=got["images"], seconds=got["seconds"])
+    return out
+
+
+def dp_process(rank, opts, tmp):
+    """A spawned process of phase 13: joins the group, runs ``dp_rank`` and
+    writes its result; an exception fails the process, and the phase."""
+    import torch
+
+    from relation_detr_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.init_distributed(opts["backend"], opts["device"],
+                                   init_method=f"file://{tmp}/rendezvous", rank=rank,
+                                   world_size=DP_WORLD, local_rank=rank, timeout_s=DP_TIMEOUT_S)
+    try:
+        out = dp_rank(torch, opts, rank, device, tmp)
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def check_world_one(torch, opts, tmp):
+    """Phase 13 (a): the flagship in this process under a NCCL group of one
+    process against no group: an eval batch (bit-identical: no collective
+    runs and the forward has no atomics) and two train steps (the first's
+    losses bit-identical, the second's, on the first run's two-stage top-k,
+    and the parameters after within msda_bwd's atomics noise)."""
+    from relation_detr_tpu_torch.configs import train_config
+    from relation_detr_tpu_torch.parallel import mesh
+    from relation_detr_tpu_torch.utils.evaluation import make_detections_fn
+
+    batch, draws = dp_inputs(torch, opts, 1, 21)
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    sizes = torch.tensor([[opts["canvas"][0], opts["canvas"][1] - 64]], dtype=torch.float32,
+                         device="cuda")
+
+    def run(topk=None):
+        model, optimizer, step = dp_flagship_step(torch, opts, "cuda")
+        dp_inject(model, draws)
+        model.eval()
+        det = make_detections_fn(model, 300)(batch["images"], batch["mask"], sizes).cpu()
+        model.train()
+        with TopkRecorder() if topk is None else PinnedTopk(topk) as rec:
+            metrics = [step(batch)]
+            params = [dp_params(model)]
+            metrics.append(step(batch))
+            params.append(dp_params(model))
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+        return det, metrics, params, getattr(rec, "indices", None)
+
+    alone = run()
+    mesh.init_distributed("nccl", "cuda", init_method=f"file://{tmp}/world_one", rank=0,
+                          world_size=1, local_rank=0, timeout_s=DP_TIMEOUT_S)
+    try:
+        if (mesh.backend_name(), mesh.world(), mesh.active()) != ("nccl", (0, 1), False):
+            raise AssertionError(f"world-one group: {mesh.backend_name()} {mesh.world()}")
+        # the second step's two-stage top-k taken from the first run: msda_bwd's
+        # atomics move the first update by rounding, which can swap near-equal
+        # proposals at the k-th place and send the second step's losses elsewhere
+        grouped = run(alone[3])
+    finally:
+        mesh.destroy()
+    if not torch.equal(grouped[0], alone[0]):
+        raise AssertionError("NCCL world size 1: the eval batch's detections differ from no "
+                             "group's")
+    first = [{k: v for k, v in m.items() if k.startswith("loss") or k == "total_loss"}
+             for m in (grouped[1][0], alone[1][0])]
+    if first[0] != first[1]:
+        raise AssertionError("NCCL world size 1: the first step's losses differ from no "
+                             "group's")
+    norm_err = abs(grouped[1][0]["grad_norm"] - alone[1][0]["grad_norm"]) / \
+        alone[1][0]["grad_norm"]
+    loss_err = dp_losses_err(grouped[1][1], alone[1][1])
+    (top, share), (top2, share2) = (dp_param_diff(g, a, train_config.learning_rate)
+                                    for g, a in zip(grouped[2], alone[2]))
+    if loss_err > TOL_DP_LOSS or norm_err > TOL_DP_NORM or share > TOL_DP_SHARE:
+        raise AssertionError(f"NCCL world size 1: second step's losses {loss_err:.3e} rel from "
+                             f"no group's, first grad_norm {norm_err:.3e} rel, parameters "
+                             f"after the first update {share:.3e} of elements apart")
+    phase(13, f"(a) flagship under a NCCL group of one process vs no group: eval batch's 300 "
+              f"detections bit-identical, first step's {len(first[0])} losses bit-identical "
+              f"and grad_norm within {norm_err:.3e} rel (tolerance {TOL_DP_NORM:g}), second "
+              f"step's losses (top-k pinned) within {loss_err:.3e} rel (tolerance "
+              f"{TOL_DP_LOSS:g}); parameters after the first update max |diff| {top:.3e}, "
+              f"{share:.3e} of elements apart by more than lr/1000 (tolerance "
+              f"{TOL_DP_SHARE:g}; msda_bwd's atomics), after the second {top2:.3e}, "
+              f"{share2:.3e} (not held: AdamW's second update moves a gradient within "
+              f"rounding of eps by up to lr)")
+    return dict(first_grad_norm_rel=norm_err, second_step_loss_rel=loss_err,
+                params_max_abs=top, params_share=share, params_max_abs_2=top2,
+                params_share_2=share2)
+
+
+def run_data_parallel(torch, kernels):
+    """Phase 13: (a) ``check_world_one``; (b) the one-process B=2 step with
+    its top-k recorded, then timed, and the eval CLI alone; (c) two
+    spawned processes (``dp_process``): the checked step against (b)'s,
+    timed steps and the all-reduce's span, the train CLI (one checkpoint,
+    a resume) and the eval CLI (the same 12 stats as alone)."""
+    import gc
+    import tempfile
+
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.configs import train_config
+
+    opts = dp_options(torch)
+    lr = train_config.learning_rate
+    t_phase = time.perf_counter()
+    result = {"backend": opts["backend"], "cards": opts["cards"], "world": DP_WORLD}
+    with tempfile.TemporaryDirectory() as tmp:
+        result["world_one"] = check_world_one(torch, opts, tmp)
+
+        batch, draws = dp_inputs(torch, opts, DP_WORLD, 23)
+        model, optimizer, step = dp_flagship_step(torch, opts, "cuda")
+        dp_inject(model, draws)
+        on_card = {k: v.to("cuda") for k, v in batch.items()}
+        with TopkRecorder() as rec:
+            want = step(on_card)
+        want_params = dp_params(model)
+        alone_ms = dp_timed_steps(torch, step, on_card, sum(DP_TIMED))[DP_TIMED[0]:]
+        n_params = want_params.numel()
+        del model, optimizer, step, on_card
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.save({"batch": batch, "draws": draws, "topk": [i[2] for i in rec.indices]},
+                   os.path.join(tmp, "inputs.pt"))
+        alone_eval = eval_cli.main(["--coco-path", opts["coco"], "--batch-size",
+                                    str(EVAL_BATCH), "--device", "cuda", "--model-config",
+                                    dp_config_path(opts), "--result-json",
+                                    os.path.join(tmp, "alone.json")])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(dp_process, args=(opts, tmp), nprocs=DP_WORLD, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+        phase(13, f"(c) {DP_WORLD} processes ({opts['backend']}, {opts['cards']}: "
+                  f"{', '.join(r['device'] + ' ' + r['name'] for r in ranks)}) ran in "
+                  f"{spawn_s:.1f} s")
+        for r, out in enumerate(ranks):
+            if out["backend"] != opts["backend"]:
+                raise AssertionError(f"rank {r} ran {out['backend']}, not {opts['backend']}")
+            loss_err = dp_losses_err(out["metrics"], want)
+            norm_err = abs(out["metrics"]["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+            if loss_err > TOL_DP_LOSS or norm_err > TOL_DP_NORM:
+                raise AssertionError(f"rank {r}: the 2-process step's losses are {loss_err:.3e} "
+                                     f"rel and grad_norm {norm_err:.3e} rel from the one-process "
+                                     "B=2 step's")
+            if not torch.equal(out["digest"], ranks[0]["digest"]):
+                raise AssertionError(f"rank {r}'s parameters differ from rank 0's")
+            result.setdefault("loss_rel", []).append(loss_err)
+            result.setdefault("grad_norm_rel", []).append(norm_err)
+        top, share = dp_param_diff(ranks[0]["params"], want_params, lr)
+        if share > TOL_DP_SHARE:
+            raise AssertionError(f"the 2-process step's parameters: {share:.3e} of elements "
+                                 "apart from the one-process B=2 step's by more than lr/1000")
+        per_step = {"msda_fwd": 18, "msda_bwd": 18, "relation_bias_v4_fwd": 5}
+        if any(out["launches"] != {k: n * out["steps"] for k, n in per_step.items()}
+               for out in ranks):
+            raise AssertionError(f"launches per process {[o['launches'] for o in ranks]}, "
+                                 "expected 18 msda_fwd, 18 msda_bwd, 5 relation_bias_v4_fwd "
+                                 "a step")
+        phase(13, f"(c) flagship step, B=1 a process against one process at B=2 (same images, "
+                  f"denoising draws and top-k): total {ranks[0]['metrics']['total_loss']:.6f} vs "
+                  f"{want['total_loss']:.6f}; loss terms within "
+                  f"{max(result['loss_rel']):.3e} rel (tolerance {TOL_DP_LOSS:g}), grad_norm "
+                  f"{ranks[0]['metrics']['grad_norm']:.6f} vs {want['grad_norm']:.6f} "
+                  f"({max(result['grad_norm_rel']):.3e} rel, tolerance {TOL_DP_NORM:g}); "
+                  f"parameters after the update max |diff| {top:.3e}, {share:.3e} of "
+                  f"{n_params} elements apart by more than lr/1000 (tolerance "
+                  f"{TOL_DP_SHARE:g}); both processes' parameters equal; launches per step "
+                  f"and process: {per_step}")
+        step_p50 = statistics.median(ranks[0]["step_ms"])
+        reduce_p50 = statistics.median(ranks[0]["reduce_ms"])
+        alone_p50 = statistics.median(alone_ms)
+        mbytes = 4 * n_params / 1e6
+        phase(13, f"(c) step p50: {DP_WORLD} processes at B=1 {step_p50:.3f} ms "
+                  f"({', '.join(f'{t:.3f}' for t in ranks[0]['step_ms'])}; rank 1 "
+                  f"{statistics.median(ranks[1]['step_ms']):.3f}), one process at B=2 "
+                  f"{alone_p50:.3f} ms ({', '.join(f'{t:.3f}' for t in alone_ms)}); gradient "
+                  f"all-reduce p50 {reduce_p50:.3f} ms a step "
+                  f"({', '.join(f'{t:.3f}' for t in ranks[0]['reduce_ms'])}) over "
+                  f"{mbytes:.1f} MB ({n_params} trainable parameters x 4 B, "
+                  f"{mbytes / reduce_p50:.3f} GB/s); peak memory a process "
+                  f"{max(o['peak_gib'] for o in ranks):.3f} GiB")
+        result.update(loss_rel_max=max(result["loss_rel"]),
+                      grad_norm_rel_max=max(result["grad_norm_rel"]), params_max_abs=top,
+                      params_share=share, step_ms_p50=step_p50, step_ms=ranks[0]["step_ms"],
+                      alone_b2_ms_p50=alone_p50, alone_b2_ms=alone_ms, reduce_ms_p50=reduce_p50,
+                      reduce_ms=ranks[0]["reduce_ms"], reduce_mb=mbytes,
+                      trainable_params=n_params, launches_per_step=per_step,
+                      peak_gib=max(o["peak_gib"] for o in ranks))
+
+        cli = [o["train_cli"] for o in ranks]
+        resume = [o["resume"] for o in ranks]
+        if cli[0]["checkpoints"] != ["0.pt"] or cli[0]["weights"] != ["best_ap.npz",
+                                                                     "best_ap50.npz",
+                                                                     "latest.npz"]:
+            raise AssertionError(f"train CLI wrote {cli[0]['checkpoints']}, {cli[0]['weights']}")
+        if cli[0]["evals"] != cli[1]["evals"] or len(cli[0]["evals"]) != 1:
+            raise AssertionError(f"train CLI evaluations differ across processes: "
+                                 f"{[c['evals'] for c in cli]}")
+        if [c["steps"] for c in cli] != [TRAIN_IMAGES // DP_WORLD] * DP_WORLD or \
+                cli[0]["total_loss"] != cli[1]["total_loss"]:
+            raise AssertionError(f"train CLI: {[c['steps'] for c in cli]} steps, last losses "
+                                 f"{[c['total_loss'] for c in cli]}")
+        if [r["steps"] for r in resume] != [2, 2] or resume[0]["epochs"] != [1] or \
+                resume[0]["checkpoints"] != ["1.pt"]:
+            raise AssertionError(f"train CLI --resume: {resume}")
+        stats = cli[0]["evals"][0]["stats"]
+        phase(13, f"(c) train CLI, {DP_WORLD} processes at B=1 over the {TRAIN_IMAGES}-image "
+                  f"split: {cli[0]['steps']} steps each in {cli[0]['seconds']:.1f} s (step p50 "
+                  f"{statistics.median(cli[0]['step_ms'][1:]):.3f} ms), rank 0 wrote "
+                  f"{cli[0]['checkpoints']} and {cli[0]['weights']}; the in-training "
+                  f"evaluation's AP {stats['AP']:.4f} / AP50 {stats['AP50']:.4f} the same in "
+                  f"both; --resume into epoch 1: {resume[0]['steps']} steps in "
+                  f"{resume[0]['seconds']:.1f} s, wrote {resume[0]['checkpoints']}")
+        evals = [o["eval_cli"] for o in ranks]
+        for e in evals:
+            if e["stats"] != alone_eval["stats"]:
+                raise AssertionError(f"eval CLI on {DP_WORLD} processes: stats {e['stats']} "
+                                     f"differ from one process's {alone_eval['stats']}")
+        predictions = []
+        for name in ("eval.json", "alone.json"):
+            with open(os.path.join(tmp, name)) as f:
+                predictions.append(sorted(json.load(f), key=lambda p: (
+                    p["image_id"], p["category_id"], -p["score"], p["bbox"])))
+        if predictions[0] != predictions[1]:
+            raise AssertionError(f"eval CLI: rank 0's result JSON ({len(predictions[0])} "
+                                 f"predictions) differs from one process's "
+                                 f"({len(predictions[1])})")
+        phase(13, f"(c) eval CLI, {DP_WORLD} processes at B={EVAL_BATCH} over the split "
+                  f"({[e['images'] for e in evals]} images): each process's 12 stats equal "
+                  f"one process's ({', '.join(f'{k} {alone_eval['stats'][k]:.4f}' for k in STATS[:3])}"
+                  f", ...; seeded weights), and rank 0's result JSON holds one process's "
+                  f"{len(predictions[1])} predictions exactly; {evals[0]['seconds']:.2f} s "
+                  f"against one process's {alone_eval['seconds']:.2f} s")
+        result.update(train_cli={k: cli[0][k] for k in ("steps", "seconds", "checkpoints",
+                                                         "weights")},
+                      train_cli_step_ms_p50=statistics.median(cli[0]["step_ms"][1:]),
+                      resume={k: resume[0][k] for k in ("steps", "seconds", "checkpoints")},
+                      eval_cli_seconds=[e["seconds"] for e in evals],
+                      alone_eval_seconds=alone_eval["seconds"], spawn_s=spawn_s)
+    for key, row in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
+                     ("relation_bias_v4_fwd", "relation")):
+        kernels[row]["dp_launches"] = [o["launches"][key] for o in ranks]
+    result["seconds"] = time.perf_counter() - t_phase
+    phase(13, f"done in {result['seconds']:.1f} s")
+    return result
+
 def main() -> int:
     import torch
 
@@ -4288,6 +4739,10 @@ def main() -> int:
     evaluation["forward_busy"] = timed(10, check_eval_forward_busy, torch, model)
     training["cli_step_busy"] = timed(10, check_train_cli_busy, torch)
     timed(10, check_relation_calls, torch, model, kernels)
+    del model  # phase 13's processes need the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_parallel = timed(13, run_data_parallel, torch, kernels)
     phase(10, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     if FAILURES:
@@ -4308,6 +4763,7 @@ def main() -> int:
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"large_backbones": large}), flush=True)
     print(json.dumps({"vit_dcn": vit_dcn}), flush=True)
+    print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,14 @@ across the threads. The process index and count default to an initialised
 oversize branch resizes with ``data/transforms.py::resize_bilinear`` (no
 antialias; within one level of cv2's INTER_LINEAR on uint8).
 ``device_prefetch`` takes a device instead of a JAX mesh (one process, one
-device), copies from pinned buffers it reuses on a side stream, and
-normalises uint8 canvases on the device.
+device: under a process group, the process's own card), copies from pinned
+buffers it reuses on a side stream, and normalises uint8 canvases on the
+device. So under N processes with a per-process batch b, step i of rank r
+takes per-process batch i * N + r of the one seeded batch list, and the
+ranks' step-i batches together are the JAX loader's global batch i of N * b
+images (the ``drop_last`` batch list of N * b when N divides its count of
+b-image batches; otherwise this loader repeats batches from the start, as
+under several JAX hosts).
 """
 from __future__ import annotations
 
@@ -38,15 +44,7 @@ import numpy as np
 import torch
 
 from relation_detr_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, resize_bilinear
-
-
-def process_index_count() -> Tuple[int, int]:
-    """(rank, world size) of an initialised torch.distributed, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+from relation_detr_tpu_torch.parallel import mesh
 
 
 # canvas buckets (h, w), /32-divisible, covering the detr preset's output
@@ -219,7 +217,7 @@ class DataLoader:
         # batch list (seeded shuffle) and takes a disjoint stride slice.
         # Defaults come from an initialised torch.distributed, else (0, 1).
         if process_index is None or process_count is None:
-            process_index, process_count = process_index_count()
+            process_index, process_count = mesh.world()
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} not in [0, {process_count})")
         self.process_index = int(process_index)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -264,11 +264,19 @@ def build_weight_dict(cfg: CriterionConfig, num_decoder_layers: int, with_dn: bo
 
 
 def relation_detr_loss(cfg: CriterionConfig, outputs: Dict, gt_labels, gt_boxes, gt_valid,
-                       hybrid_assign: int = 6) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                       hybrid_assign: int = 6, num_valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The weighted total and the dict of every loss term. ``num_boxes`` is
     the valid-GT count, at least 1; the hybrid set matches against the
-    targets tiled ``hybrid_assign`` times, with their own count."""
-    num_boxes = gt_valid.sum().float().clamp(min=1.0)
+    targets tiled ``hybrid_assign`` times, with their own count.
+
+    ``num_valid``: the valid-GT count of the global batch when this batch
+    is one process's slice of it (the JAX criterion's ``num_boxes`` is the
+    global count, ``relation_detr_tpu/losses/criterion.py:9-12``); every
+    term is then this slice's share of the global batch's, and the shares
+    sum to it. None: this batch's own count."""
+    local = num_valid is None
+    num_boxes = (gt_valid.sum() if local else num_valid).float().clamp(min=1.0)
     losses = criterion_forward(cfg, outputs, gt_labels, gt_boxes, gt_valid, num_boxes)
     if "dn_outputs" in outputs:
         losses.update(denoising_loss(cfg, outputs["dn_outputs"], outputs["dn_meta"],
@@ -277,7 +285,8 @@ def relation_detr_loss(cfg: CriterionConfig, outputs: Dict, gt_labels, gt_boxes,
         tiled_labels = gt_labels.repeat(1, hybrid_assign)
         tiled_boxes = gt_boxes.repeat(1, hybrid_assign, 1)
         tiled_valid = gt_valid.repeat(1, hybrid_assign)
-        hybrid_num_boxes = tiled_valid.sum().float().clamp(min=1.0)
+        hybrid_num_boxes = (tiled_valid.sum() if local else num_valid * hybrid_assign
+                            ).float().clamp(min=1.0)
         hybrid = criterion_forward(cfg, outputs["hybrid_outputs"], tiled_labels, tiled_boxes,
                                    tiled_valid, hybrid_num_boxes)
         losses.update({f"{k}_hybrid": v for k, v in hybrid.items()})

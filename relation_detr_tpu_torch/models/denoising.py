@@ -115,11 +115,17 @@ class GenerateDenoisingQueries(nn.Module):
     def forward(self, gt_labels: torch.Tensor, gt_boxes: torch.Tensor,
                 gt_valid: torch.Tensor, num_matching_queries: int,
                 generator: Optional[torch.Generator] = None,
-                noise_draws: Optional[Dict[str, torch.Tensor]] = None):
+                noise_draws: Optional[Dict[str, torch.Tensor]] = None,
+                max_gt: Optional[torch.Tensor] = None):
         """gt_labels (B, G) int, gt_boxes (B, G, 4) cxcywh, gt_valid (B, G)
         bool -> (label queries (B, dn_cap, C), box queries (B, dn_cap, 4) in
         logit space, attention bias (1, 1, T, T) with T = dn_cap +
-        num_matching_queries, DenoisingMeta)."""
+        num_matching_queries, DenoisingMeta). ``max_gt`` is the largest GT
+        count of an image over the global batch when this batch is one
+        process's slice of it (the JAX module takes it over the whole
+        batch); None: this batch's own. It sets the slot layout and the
+        group count, so every process lays out its slots as the global
+        batch does."""
         bs, max_gt_cap = gt_labels.shape
         dn_cap = self.dn_cap
         rpg = self.reps_per_group
@@ -128,7 +134,8 @@ class GenerateDenoisingQueries(nn.Module):
             noise_draws = self.draw_noise(bs, generator, device)
 
         n_gt = gt_valid.sum(1)  # (B,)
-        max_gt = n_gt.max().clamp(1, max_gt_cap)
+        # (n_gt never exceeds the capacity, which only the JAX module's clip names)
+        max_gt = (n_gt.max() if max_gt is None else max_gt).clamp(min=1)
         if self.contrastive:  # groups = denoising_nums // max_gt, >= 1 (denoising.py:253-254)
             groups = torch.clamp(self.denoising_nums // max_gt, min=1)
         else:  # the fixed count, cut only where the static capacity would overflow
@@ -142,7 +149,9 @@ class GenerateDenoisingQueries(nn.Module):
         slot_used = group < groups
         valid = slot_used[None] & (k[None] < n_gt[:, None])  # (B, dn_cap)
 
-        k_b = k[None].expand(bs, dn_cap)
+        # a global max_gt may exceed this batch's capacity: slots past it are
+        # padding here (k >= n_gt), and read slot G - 1 only to be masked
+        k_b = k.clamp(max=max_gt_cap - 1)[None].expand(bs, dn_cap)
         labels = torch.gather(gt_labels, 1, k_b).clamp(0, self.num_classes - 1)
         boxes = torch.gather(gt_boxes, 1, k_b[..., None].expand(bs, dn_cap, 4))
 

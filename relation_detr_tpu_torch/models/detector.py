@@ -141,6 +141,7 @@ class RelationDETR(nn.Module):
         generator: Optional[torch.Generator] = None,  # denoising draws (train)
         noise_draws: Optional[Dict[str, torch.Tensor]] = None,  # injected denoising draws
         dropout_seed: Optional[int] = None,  # dropout masks (train)
+        max_gt: Optional[torch.Tensor] = None,  # the global batch's, under data parallelism
     ) -> Dict[str, object]:
         """The JAX module's output dict: ``pred_logits``/``pred_boxes`` of the
         last decoder layer, ``aux_outputs`` (the others, stacked) and, when
@@ -149,7 +150,9 @@ class RelationDETR(nn.Module):
         ``dn_cap``) and, with the hybrid branch, ``hybrid_outputs`` (with
         its own ``aux_outputs`` and ``enc_outputs``). ``dropout_seed`` seeds
         the transformer's dropout (None: drawn from torch's default
-        generator on the host)."""
+        generator on the host). ``max_gt``, the largest GT count of an
+        image over the global batch when this batch is one process's slice
+        of it, sets the denoising layout (``GenerateDenoisingQueries``)."""
         feats = self.backbone(images.permute(0, 3, 1, 2))
         multi_level_feats = [f.permute(0, 2, 3, 1) for f in self.neck(feats)]
         multi_level_masks = [downsample_mask(mask, f.shape[1:3]) for f in multi_level_feats]
@@ -163,7 +166,7 @@ class RelationDETR(nn.Module):
         if train and self.denoising_generator is not None:
             noised_label_queries, noised_box_queries, attn_bias, dn_meta = (
                 self.denoising_generator(gt_labels, gt_boxes, gt_valid, self.num_queries,
-                                         generator, noise_draws)
+                                         generator, noise_draws, max_gt)
             )
         train_transformer = train and self.with_hybrid
         if train_transformer and dropout_seed is None and self.dropout > 0:

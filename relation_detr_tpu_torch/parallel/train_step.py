@@ -18,17 +18,40 @@ count, and the accumulator is reset. A non-finite micro-step moves neither
 the accumulator nor the micro-step count (the JAX step keeps MultiSteps'
 whole state). ``grad_norm`` stays the micro-gradient's norm.
 
-Single device; data parallelism is not ported yet (ROADMAP).
+Data parallelism: under a process group of N processes (``parallel/
+mesh.py``), each process steps on its slice of the global batch and the
+step reads across the batch wherever the JAX program does (XLA inserts
+those collectives, ``relation_detr_tpu/parallel/train_step.py:85-163``):
+- before the forward, one all-reduce of the ground-truth counts: the
+  global valid-GT count (the criterion's ``num_boxes`` and the hybrid
+  set's) and the largest GT count of an image (the denoising layout and
+  group count, ``models/denoising.py``), so each process's losses are its
+  share of the global batch's;
+- after the backward, one all-reduce of a flat buffer holding every
+  gradient, the loss terms and the count of parameters with a gradient
+  (which must agree across processes): summed shares, so every process
+  holds the global batch's gradients and losses. The norm, the clip, the
+  non-finite decision and AdamW then run on equal numbers in every
+  process, which keeps the parameters equal.
+Every process draws the denoising noise of the whole global batch from
+the same seed and takes its own images' rows, so N processes at batch b
+draw what one process at batch N * b draws; the dropout masks (per layer,
+per process) come from a seed that also takes the rank. With no group, or
+a group of one, no collective runs and the step is the single-process
+one, bit for bit.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import time
 from typing import Callable, Dict
 
 import torch
 
 from relation_detr_tpu_torch.losses.criterion import CriterionConfig, relation_detr_loss
+from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.utils.param_groups import set_learning_rate
 
 BATCH_KEYS = ("images", "mask", "gt_labels", "gt_boxes", "gt_valid")
@@ -108,7 +131,10 @@ def make_train_step(
     JAX step's ``fold_in(rng, step)``; the dropout masks from a second
     stream, the seed with the top bit set (the JAX step's split into
     ``denoising`` and ``dropout`` keys). At dropout 0 the second stream
-    draws nothing.
+    draws nothing. Under a process group (see the module's docstring) the
+    dropout seed also takes the rank, the metrics are the global batch's, and
+    ``step.reduce_ms()`` gives each step's gradient all-reduce span (CUDA
+    events on the step's stream on a card, the host clock on the CPU).
     """
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
@@ -117,22 +143,58 @@ def make_train_step(
     state = TrainState()
     accumulator = ([torch.zeros_like(p) for p in params]
                    if getattr(optimizer, "accumulate_steps", 1) > 1 else None)
+    rank, size = mesh.world()
+    denoising = getattr(model, "denoising_generator", None)
+    spans = collections.deque(maxlen=1024)  # the last steps' all-reduce spans
+
+    def reduce_across_processes(total, losses):
+        """Sums the gradients and the loss terms over the group in one
+        all-reduce; returns the global (total, losses) and how far the mean
+        count of parameters with a gradient is from this process's (0 when
+        the processes agree)."""
+        grads = [p.grad for p in params if p.grad is not None]
+        scalars = torch.stack([total.detach(), *(v.detach() for v in losses.values()),
+                               total.new_tensor(float(len(grads)))])
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        mesh.all_reduce([*grads, scalars])
+        if device.type == "cuda":
+            end.record()
+            spans.append((start, end))
+        else:
+            spans.append((time.perf_counter() - t0) * 1e3)
+        return scalars[0], dict(zip(losses, scalars[1:-1])), scalars[-1] / size - len(grads)
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         optimizer.zero_grad(set_to_none=True)
         step_seed = (seed << 32) + state.step
         generator.manual_seed(step_seed)
         images, mask, gt_labels, gt_boxes, gt_valid = (batch[k] for k in BATCH_KEYS)
+        num_valid, max_gt = mesh.global_gt_counts(gt_valid) or (None, None)
+        draws, bs = None, images.shape[0]
+        if denoising is not None:  # the global batch's draws, this process's rows
+            draws = {k: v[rank * bs:(rank + 1) * bs] for k, v in
+                     denoising.draw_noise(size * bs, generator, device).items()}
         outputs = model(images, mask, gt_labels, gt_boxes, gt_valid, train=True,
-                        generator=generator, dropout_seed=step_seed | 1 << 63)
+                        noise_draws=draws, dropout_seed=(step_seed ^ rank << 56) | 1 << 63,
+                        max_gt=max_gt)
         total, losses = relation_detr_loss(criterion_cfg, outputs, gt_labels, gt_boxes,
-                                           gt_valid, hybrid_assign)
+                                           gt_valid, hybrid_assign, num_valid)
         total.backward()
+        mismatch = []
+        if size > 1:
+            total, losses, off = reduce_across_processes(total, losses)
+            mismatch = [off]
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         names = ["total_loss", "grad_norm", *losses]
         values = torch.stack([total.detach(), grad_norm,
-                              *(v.detach() for v in losses.values())]).cpu().tolist()
+                              *(v.detach() for v in losses.values()), *mismatch]).cpu().tolist()
+        if mismatch and values.pop() != 0.0:
+            raise RuntimeError("the processes disagree on which parameters have a gradient")
         metrics = dict(zip(names, values))
+        # every process decides on the same all-reduced numbers
         if not (math.isfinite(values[0]) and math.isfinite(values[1])):
             state.nonfinite_count += 1
             if state.first_nonfinite_step < 0:
@@ -163,7 +225,12 @@ def make_train_step(
                 for (n, _), a in zip(named, accumulator):
                     a.copy_(saved["accumulator"][n])
 
+    def reduce_ms():
+        return [span if isinstance(span, float) else span[0].elapsed_time(span[1])
+                for span in spans]
+
     step.state = state
+    step.reduce_ms = reduce_ms
     step.state_dict = state_dict
     step.load_state_dict = load_state_dict
     return step

@@ -19,6 +19,18 @@ predictions file without a model.
 ``--device cpu`` runs the model on the CPU (the kernels' plain versions);
 the CPU has no JPEG decoder, so a caller of ``main`` passes ``decode=``.
 
+Data parallelism, one process per card:
+
+    python -m torch.distributed.run --nproc-per-node N -m relation_detr_tpu_torch.test ...
+
+Each process (``parallel/mesh.py``: NCCL on cards, gloo with ``--device
+cpu``; ``--dist-backend gloo`` lets several share a card) evaluates every
+N-th batch, and the detections are gathered into every process
+(``utils/evaluation.py``), so each computes the 12 stats over the whole
+split; the main process (rank 0) alone logs them and writes
+``--result-json`` (every image's predictions, in image and category
+order).
+
 Not ported, and raising: ``--show-dir`` / ``--show-conf``, and the JAX
 package's TPU-only settings (``--msda-halos`` other than ``auto``,
 ``--msda-dtype bf16``, ``--msda-int8-slab``, ``--clamp-check on``,
@@ -42,6 +54,7 @@ from relation_detr_tpu_torch.data.image_io import Decode
 from relation_detr_tpu_torch.data.loader import DataLoader
 from relation_detr_tpu_torch.data.transforms import EvalPreset
 from relation_detr_tpu_torch.ops.msda import set_msda_defaults
+from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.utils.coco_eval import CocoEvaluator
 from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.evaluation import (
@@ -87,6 +100,9 @@ def parse_args(argv=None):
     p.add_argument("--msda-profile", default="auto", choices=("auto", "exact", "fast"),
                    help="auto / exact: the exact default; fast is not ported")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="under torch.distributed.run: the process group's backend (default "
+                        "nccl on cards, gloo on the CPU; gloo lets processes share a card)")
     return p.parse_args(argv)
 
 
@@ -95,7 +111,7 @@ def apply_msda_flags(args) -> None:
     Also takes the train CLI's arguments, which lack the eval-only flags."""
     if getattr(args, "show_dir", None) is not None or getattr(args, "show_conf", None) is not None:
         raise NotImplementedError("--show-dir / --show-conf are not ported "
-                                  "(ROADMAP Queue 1 item 3)")
+                                  "(ROADMAP Queue 1 item 5)")
     if args.clamp_check == "on":
         raise NotImplementedError("--clamp-check on is not ported (no clamp gate: the "
                                   "port's tiled MSDA keeps the exact auto halos)")
@@ -168,10 +184,13 @@ def evaluate(det_fn, loader, ann_file: str, device, result_json: Optional[str] =
                                                    category_names=_category_names(ann_file))
     seconds = time.perf_counter() - t0
     logger.info(f"mAP: {stats['AP']:.4f}  AP50: {stats['AP50']:.4f}")
-    if result_json:
+    if result_json and mesh.active():  # every process's, from the gathered evaluator
+        predictions = [d for _, dets in sorted(evaluator.dets.items()) for d in dets]
+    if result_json and mesh.is_main():
         with open(result_json, "w") as f:
             json.dump(predictions, f)
         logger.info(f"wrote {len(predictions)} predictions to {result_json}")
+    mesh.barrier()
     ms = times.totals()
     for key, value in getattr(loader.dataset, "seconds", {}).items():
         ms[key] = value * 1e3
@@ -187,6 +206,15 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     ``evaluate``'s result."""
     args = parse_args(argv)
     apply_msda_flags(args)
+    device, created = mesh.join_from_env(args.device, args.dist_backend)
+    try:
+        return _main(args, device, decode)
+    finally:
+        if created:
+            mesh.destroy()
+
+
+def _main(args, device, decode) -> Dict:
     logger = setup_logger("relation_detr_tpu_torch")
     ann_file = os.path.join(args.coco_path, "annotations", f"instances_{args.split}.json")
     if args.eval_json:
@@ -198,7 +226,6 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
         logger.info(f"mAP: {stats['AP']:.4f}  AP50: {stats['AP50']:.4f}")
         return {"stats": stats}
 
-    device = torch.device(args.device)
     cfg = Config(args.model_config)
     model = cfg.build_model(device=device)
     if args.checkpoint:

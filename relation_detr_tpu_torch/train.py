@@ -44,9 +44,29 @@ the run's ``--mixed-precision``; the checkpoint records it.
 ``--device cpu`` runs on the CPU (the kernels' plain versions), for tests;
 the CPU has no JPEG decoder, so a caller of ``main`` passes ``decode=``.
 
+Data parallelism, one process per card:
+
+    python -m torch.distributed.run --nproc-per-node N -m relation_detr_tpu_torch.train ...
+
+Each process joins the group (``parallel/mesh.py``: NCCL on cards, gloo
+with ``--device cpu``; ``--dist-backend gloo`` puts several processes on
+one card), takes card ``LOCAL_RANK`` and every N-th batch of the seeded
+batch list (``--batch-size`` per process, as the JAX CLI's per device, and
+``steps_per_epoch`` of that shard), and steps on its slice of the global
+batch, the step summing gradients, losses and ground-truth counts over the
+group (``parallel/train_step.py``): every process keeps the same
+parameters, AdamW state, EMA and metrics. The in-training evaluation runs
+in every process on its shard and gathers the detections, so every
+process sees the same stats and best AP. The main process (rank 0) alone
+logs and writes checkpoints and weight files; the others wait for it.
+``--resume`` restores in every process, under any process count, as the
+JAX CLI restores under any device count (the state is the same in every
+process). A caller of ``main`` that has already joined a group trains in
+it; at one process the run is the single-process one, bit for bit.
+
 Not ported, and raising: ``--tensorboard`` without a ``tensorboard``
-package, multi-process data parallelism (ROADMAP Queue 1 item 8), and the
-JAX package's TPU-only MSDA settings, as in the port's ``test.py``.
+package, and the JAX package's TPU-only MSDA settings, as in the port's
+``test.py``.
 """
 from __future__ import annotations
 
@@ -62,6 +82,7 @@ import torch
 
 from relation_detr_tpu_torch.data.image_io import Decode
 from relation_detr_tpu_torch.data.loader import DataLoader, device_prefetch
+from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.parallel.train_step import BATCH_KEYS, make_train_step
 from relation_detr_tpu_torch.test import apply_msda_flags
 from relation_detr_tpu_torch.utils.checkpoint import CheckpointManager
@@ -125,6 +146,9 @@ def parse_args(argv=None):
     p.add_argument("--msda-dtype", default=None, choices=("auto", "fp32", "bf16"),
                    help="only auto / fp32 are ported")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="under torch.distributed.run: the process group's backend (default "
+                        "nccl on cards, gloo on the CPU; gloo lets processes share a card)")
     return p.parse_args(argv)
 
 
@@ -135,10 +159,14 @@ def check_ported(args) -> None:
         except ImportError:
             raise NotImplementedError("--tensorboard needs the tensorboard package, which "
                                       "is not installed") from None
-    import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("data parallelism is not ported (ROADMAP Queue 1 item 8)")
+
+def on_main(fn, *args, **kwargs) -> None:
+    """``fn(*args, **kwargs)`` in the main process; every process returns
+    once it has (a barrier)."""
+    if mesh.is_main():
+        fn(*args, **kwargs)
+    mesh.barrier()
 
 
 def _repo_path(path: str) -> str:
@@ -192,10 +220,12 @@ class DeviceProfile:
 
 def training_state(model, optimizer, step, ema, epoch: int, loader_epoch: int,
                    precision: str = "no") -> Dict:
-    """What a checkpoint holds: tensors and plain values only."""
+    """What a checkpoint holds: tensors and plain values only (and the
+    process count, for the log of a resume)."""
     return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
             "train_step": step.state_dict(), "ema": ema, "epoch": epoch,
-            "loader_epoch": loader_epoch, "mixed_precision": precision}
+            "loader_epoch": loader_epoch, "mixed_precision": precision,
+            "world_size": mesh.world()[1]}
 
 
 def restore_training(src: CheckpointManager, model, optimizer, step, ema, device,
@@ -233,7 +263,15 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     args = parse_args(argv)
     check_ported(args)
     apply_msda_flags(args)
-    device = torch.device(args.device)
+    device, created = mesh.join_from_env(args.device, args.dist_backend)
+    try:
+        return _main(args, device, decode)
+    finally:
+        if created:
+            mesh.destroy()
+
+
+def _main(args, device, decode) -> Dict:
     cfg = Config(_repo_path(args.config_file))
     model_path = _repo_path(args.model_config or cfg.model_path)
     model_cfg = Config(model_path)
@@ -243,6 +281,8 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     output_dir = args.output_dir or cfg.get("output_dir") or f"checkpoints/{name}"
     os.makedirs(output_dir, exist_ok=True)
     logger = setup_logger("relation_detr_tpu_torch")
+    if not mesh.is_main():
+        return _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger)
     log_file = logging.FileHandler(os.path.join(output_dir, "train.log"))
     log_file.setFormatter(logger.handlers[0].formatter)
     logger.addHandler(log_file)
@@ -254,7 +294,7 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
 
 
 def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) -> Dict:
-    logger.info("environment:\n" + collect_env_info())
+    logger.info("environment:\n" + collect_env_info(device))
     dtype = "bfloat16" if args.mixed_precision == "bf16" else None
     model = model_cfg.build_model(device=device, seed=args.seed, backbone_dtype=dtype,
                                   compute_dtype=dtype, remat_policy=args.remat_policy)
@@ -275,7 +315,9 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
         drop_last=True,
     )
     steps_per_epoch = len(loader)
-    logger.info(f"{len(dataset)} images, {steps_per_epoch} steps/epoch, batch {batch_size}")
+    world_size = mesh.world()[1]
+    logger.info(f"{len(dataset)} images, {steps_per_epoch} steps/epoch, batch {batch_size} "
+                f"per process, {world_size} process(es) ({mesh.backend_name() or 'no group'})")
 
     schedule = warmup_multistep_schedule(
         cfg.learning_rate,
@@ -319,15 +361,16 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
                                  args.mixed_precision)
         ckpt.best = dict(src.best)
         start_epoch = saved["epoch"] + 1
-        logger.info(f"resumed from epoch {saved['epoch']} ({src.directory})")
+        logger.info(f"resumed from epoch {saved['epoch']} ({src.directory}), saved by "
+                    f"{saved.get('world_size', 1)} process(es), resumed by {world_size}")
 
     tb_writer = None
-    if args.tensorboard:
+    if args.tensorboard and mesh.is_main():
         from torch.utils.tensorboard import SummaryWriter
 
         tb_writer = SummaryWriter(os.path.join(output_dir, "tb"))
-    profile = DeviceProfile(args.profile_steps, output_dir, device) if args.profile_steps \
-        else None
+    profile = DeviceProfile(args.profile_steps, output_dir, device) \
+        if args.profile_steps and mesh.is_main() else None
 
     def check_divergence(metrics, host=None):
         # non-finite steps are skipped in the step (parallel/train_step.py),
@@ -417,18 +460,18 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
             for key in ("ap", "ap50"):
                 if improved[key]:
                     paths[f"best_{key}"] = os.path.join(output_dir, f"best_{key}.npz")
-                    save_weights(paths[f"best_{key}"], model)
+                    on_main(save_weights, paths[f"best_{key}"], model)
         if (epoch + 1) % args.save_every_epochs == 0 or epoch == num_epochs - 1 or stop_now:
             ckpt.save(epoch, training_state(model, optimizer, step, ema, epoch, loader.epoch,
                                             args.mixed_precision))
             class_names = cfg.get("class_names")
             extra = {"_classes_": encode_labels(class_names)} if class_names else None
             paths["latest"] = os.path.join(output_dir, "latest.npz")
-            save_weights(paths["latest"], model, extra)
+            on_main(save_weights, paths["latest"], model, extra)
             if ema is not None:
                 paths["latest_ema"] = os.path.join(output_dir, "latest_ema.npz")
-                save_weights(paths["latest_ema"], model, extra,
-                             state_dict={**model.state_dict(), **ema})
+                on_main(save_weights, paths["latest_ema"], model, extra,
+                        state_dict={**model.state_dict(), **ema})
         if stop_now:
             break
     if prev_metrics is not None:  # the final step was never cross-checked

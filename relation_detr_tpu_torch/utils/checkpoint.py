@@ -13,6 +13,10 @@ and accumulator, the EMA, the loader's epoch and the best metrics.
 
 Bare weight files (the JAX ``.npz`` layout) are ``utils/weights.py``'s
 ``save_weights`` and ``load_weights``.
+
+Under a process group every process holds the same state; only the main
+process (rank 0) writes, and ``save`` returns in every process once the
+file is in place (a barrier). Every process can ``restore``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import re
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from relation_detr_tpu_torch.parallel import mesh
 
 _STATE_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -45,12 +51,15 @@ class CheckpointManager:
 
     def save(self, epoch: int, state: Dict[str, Any]) -> None:
         """Writes ``state`` (with the best metrics) as epoch ``epoch``'s file,
-        then deletes the oldest beyond ``max_to_keep``."""
-        tmp = self.path(epoch) + ".tmp"
-        torch.save({**state, "best": dict(self.best)}, tmp)
-        os.replace(tmp, self.path(epoch))
-        for old in self.epochs()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        then deletes the oldest beyond ``max_to_keep``; the main process
+        writes, the others wait for it."""
+        if mesh.is_main():
+            tmp = self.path(epoch) + ".tmp"
+            torch.save({**state, "best": dict(self.best)}, tmp)
+            os.replace(tmp, self.path(epoch))
+            for old in self.epochs()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        mesh.barrier()
 
     def update_best(self, ap: float, ap50: float) -> Dict[str, bool]:
         """Tracks the best metrics; returns which improved."""

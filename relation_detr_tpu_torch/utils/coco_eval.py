@@ -104,6 +104,20 @@ class CocoEvaluator:
                     image_id, cat_id
                 )
 
+    @property
+    def seen_images(self):
+        """The ids of the images added through ``update_from_arrays``."""
+        return frozenset(self._seen_imgs)
+
+    def forget_images(self, image_ids) -> None:
+        """Drops every detection of ``image_ids``, as if never added."""
+        image_ids = set(image_ids)
+        for key in [k for k in self.dets if k[0] in image_ids]:
+            del self.dets[key]
+        for key in [k for k in self._match_cache if k[0] in image_ids]:
+            del self._match_cache[key]
+        self._seen_imgs -= image_ids
+
     def _evaluate_img(self, img_id, cat_id):
         """One pass per (image, category): IoU computed once, greedy matching
         per area range vectorized over all IoU thresholds. Per-maxDet variants

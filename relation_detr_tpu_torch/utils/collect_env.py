@@ -1,7 +1,9 @@
 """Environment dump at start-up. Counterpart of
 ``relation_detr_tpu/utils/collect_env.py`` (the reference's
 util/collect_env.py): Python, torch and its CUDA, the device's name and
-power limit as ``nvidia-smi`` reports them, nvcc's version, numpy."""
+power limit as ``nvidia-smi`` reports them, nvcc's version, numpy, and the
+process group: its backend, its size and each rank's device (a gather, so
+every process of a group calls it)."""
 from __future__ import annotations
 
 import platform
@@ -21,7 +23,23 @@ def _command(args) -> str:
         return f"unavailable ({e.__class__.__name__})"
 
 
-def collect_env_info() -> str:
+def process_group_info(device=None) -> str:
+    """The group's backend, size and each rank's device (``device``, this
+    process's: a card index, or -1 for the CPU)."""
+    from relation_detr_tpu_torch.parallel import mesh
+
+    if not mesh.initialized():
+        return "process group: none (one process)"
+    device = torch.device("cpu" if device is None else device)
+    card = torch.cuda.current_device() if device.type == "cuda" else -1
+    cards = mesh.all_gather_array(np.asarray([card], np.int64))
+    where = ", ".join(f"rank {r}: " + (f"cuda:{c[0]}" if c[0] >= 0 else "cpu")
+                      for r, c in enumerate(cards))
+    return (f"process group: {mesh.backend_name()}, world size {mesh.world()[1]}; "
+            f"devices: {where}")
+
+
+def collect_env_info(device=None) -> str:
     from relation_detr_tpu_torch import _build
 
     lines = [
@@ -42,4 +60,5 @@ def collect_env_info() -> str:
         lines.append("nvcc: not found")
     else:
         lines.append(f"nvcc: {_command([nvcc, '--version']).splitlines()[-1]}")
+    lines.append(process_group_info(device))
     return "\n".join(lines)

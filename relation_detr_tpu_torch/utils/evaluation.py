@@ -9,8 +9,13 @@ the card computes while the host accumulates), ``pack_local_detections``,
 ``evaluate_model``. The model holds its weights and runs where they lie:
 the card, or the CPU when a caller asks for it.
 
-Not ported: the cross-process gather for more than one process (ROADMAP
-Queue 1 item 8) raises; a single process needs none.
+Data parallelism: under a process group every process evaluates its
+stride of the loader's batches (``data/loader.py``), and
+``gather_detections_across_processes`` gives every process every image's
+detections (``parallel/mesh.py::all_gather_array``), so each computes the
+same stats. The JAX package shards one eval forward over its local devices
+instead (``relation_detr_tpu/utils/evaluation.py:19-28``); both give each
+image the detections of its own forward.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from relation_detr_tpu_torch.data.loader import DataLoader, Normalizer
 from relation_detr_tpu_torch.models.post_process import post_process
+from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.utils.coco_eval import CocoEvaluator
 
 
@@ -154,12 +160,14 @@ def pack_local_detections(evaluator: CocoEvaluator) -> np.ndarray:
 def merge_packed_detections(evaluator: CocoEvaluator, packed_per_process) -> None:
     """Merge other processes' packed detections into this evaluator, image
     by image (xywh back to xyxy); images this process already evaluated are
-    skipped (``update_from_arrays(skip_if_seen=True)``)."""
-    per_img = defaultdict(list)
-    for packed in packed_per_process:
-        packed = np.asarray(packed)
-        for row in packed:
-            per_img[int(row[0])].append(row)
+    skipped (``update_from_arrays(skip_if_seen=True)``), and an image that
+    several packs hold takes the first pack's rows."""
+    per_img, first = defaultdict(list), {}
+    for p, packed in enumerate(packed_per_process):
+        for row in np.asarray(packed):
+            img_id = int(row[0])
+            if first.setdefault(img_id, p) == p:
+                per_img[img_id].append(row)
     for img_id, rows in per_img.items():
         arr = np.stack(rows)
         xywh = arr[:, 2:6]
@@ -174,13 +182,18 @@ def merge_packed_detections(evaluator: CocoEvaluator, packed_per_process) -> Non
 
 
 def gather_detections_across_processes(evaluator: CocoEvaluator) -> None:
-    """Every process's detections into every process's evaluator: nothing to
-    do for one process; more than one is not ported yet."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("the cross-process detection gather is not ported "
-                                  "(ROADMAP Queue 1 item 8)")
+    """Every process's detections into every process's evaluator (nothing to
+    do for one process). An image that several processes evaluated (the
+    loader pads the batch list to a multiple of the process count by
+    repeating batches) counts with the lowest rank's detections in every
+    process, so all of them compute the same stats."""
+    if not mesh.active():
+        return
+    rank, _ = mesh.world()
+    packs = mesh.all_gather_array(pack_local_detections(evaluator))
+    lower = {int(i) for p in packs[:rank] for i in p[:, 0]}
+    evaluator.forget_images(lower & evaluator.seen_images)
+    merge_packed_detections(evaluator, packs[:rank] + packs[rank + 1:])
 
 
 def accumulate_batch(evaluator: CocoEvaluator, batch, det: np.ndarray) -> None:

@@ -4,7 +4,8 @@ The port's own copy of ``relation_detr_tpu/utils/logging.py`` (the port
 imports nothing of the JAX package): ``setup_logger`` (stdout and an
 optional file), ``SmoothedValue`` (windowed median / average of a scalar
 series) and ``MetricLogger`` (periodic progress lines over an iterable).
-Values are plain floats.
+Values are plain floats. Under a process group only the main process
+(rank 0) logs below warnings and writes a log file.
 """
 from __future__ import annotations
 
@@ -16,13 +17,16 @@ import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
 
+from relation_detr_tpu_torch.parallel import mesh
+
 
 def setup_logger(name: str = "relation_detr_tpu_torch", output: Optional[str] = None,
                  level=logging.INFO) -> logging.Logger:
     logger = logging.getLogger(name)
+    main = mesh.is_main()
+    logger.setLevel(level if main else max(level, logging.WARNING))
     if logger.handlers:
         return logger
-    logger.setLevel(level)
     logger.propagate = False
     fmt = logging.Formatter(
         "[%(asctime)s %(name)s %(levelname)s] %(message)s", datefmt="%m/%d %H:%M:%S"
@@ -30,7 +34,7 @@ def setup_logger(name: str = "relation_detr_tpu_torch", output: Optional[str] = 
     sh = logging.StreamHandler(stream=sys.stdout)
     sh.setFormatter(fmt)
     logger.addHandler(sh)
-    if output:
+    if output and main:
         os.makedirs(os.path.dirname(output) or ".", exist_ok=True)
         fh = logging.FileHandler(output)
         fh.setFormatter(fmt)

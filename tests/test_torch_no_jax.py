@@ -21,6 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import sys
+import tempfile
 import numpy as np
 import torch
 import relation_detr_tpu_torch
@@ -28,6 +29,7 @@ import relation_detr_tpu_torch.inference as inference
 from relation_detr_tpu_torch.configs import train_config
 from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias
 from relation_detr_tpu_torch.ops.patch_scatter import window_accumulate
+from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.parallel.train_step import make_train_step
 from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.param_groups import build_optimizer
@@ -203,6 +205,16 @@ def evaluation_stream():
 
 
 eval_and_train_step()
+# a gloo group of one process (parallel/mesh.py): no collective runs
+with tempfile.TemporaryDirectory() as tmp:
+    mesh.init_distributed("gloo", "cpu", init_method=f"file://{tmp}/rendezvous", rank=0,
+                          world_size=1, timeout_s=60)
+    try:
+        assert mesh.world() == (0, 1) and mesh.is_main() and not mesh.active()
+        assert len(mesh.all_gather_array(np.ones((2, 7)))) == 1
+        eval_and_train_step()
+    finally:
+        mesh.destroy()
 tiny_dn_family()
 tiny_backbones()
 vit_dcn_and_bricks()
@@ -297,7 +309,8 @@ print("ok")
 
 
 def test_port_imports_and_runs_without_jax_flax_cv2():
-    """The tiny config's eval and train step on CPU, as they are and under
+    """The tiny config's eval and train step on CPU, as they are, in a gloo
+    group of one process (``parallel/mesh.py``) and under
     impl="tiled" with relation version 1; tiny detectors on the Swin (v1,
     v2), ConvNeXt, FocalNet, ViT, EVA-02 and DCN ResNet backbones; NMS, the
     segmentation decode and the other bricks; and the evaluation path (collate,
@@ -877,3 +890,22 @@ def test_nvjpeg_decode_matches_cv2_on_card():
         image_io.decode_image(np.frombuffer(b"\xff\xd8\xff\xe0" + bytes(40), np.uint8),
                               "broken.jpg")
     assert image_io.ycc_to_rgb.launches == launches + 2 + 4 * 3  # none for a failed decode
+
+
+@pytest.mark.cuda
+def test_device_prefetch_onto_the_process_card():
+    """device_prefetch puts a batch on the card a process was given (the
+    last one), normalised there, as a data-parallel process's loader does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.data.loader import Normalizer, device_prefetch
+
+    card = torch.device("cuda", torch.cuda.device_count() - 1)
+    rng = np.random.RandomState(0)
+    batch = {"images": rng.randint(0, 256, (2, 32, 48, 3)).astype(np.uint8),
+             "mask": np.zeros((2, 32, 48), bool)}
+    batch["mask"][1, 20:] = True
+    (out,) = list(device_prefetch([batch], card))
+    assert out["images"].device == card and out["mask"].device == card
+    want = Normalizer("cpu")(torch.from_numpy(batch["images"]), torch.from_numpy(batch["mask"]))
+    torch.testing.assert_close(out["images"].cpu(), want, rtol=0, atol=1e-6)
