@@ -191,6 +191,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      CLI at B=2, whose 12 stats equal (b)'s in both processes; a process
      that fails, or a collective that waits past DP_TIMEOUT_S, fails the
      phase;
+ 14. (after phase 13) the rest of the host data path: (a) the numpy
+     counterparts of cv2 (``data/cv_ops.py``: HSV both ways, grey, box and
+     median blur, the Gaussian blur, shifts, nearest resize, fillPoly on
+     400 polygon masks, the JPEG round trip at quality 85, 90 and 95) and the PNG
+     decode on this machine's numpy against cv2's outputs committed by
+     tests/data/torch_port/make_fixtures.py, equal bytes; a broken JPEG
+     raises UnreadableImage through nvJPEG; (b) every registered train
+     preset through the loader (4 threads, nvJPEG) over the committed train
+     split: wall, decode and transform ms an image; (c) the train CLI on
+     the flagship at full width, B=2, one epoch of 8 steps under
+     strong_album, mosaic_detr followed by the mask SimpleCopyPaste (the
+     split's segmentations, return_masks) and lsj on a 1024x1024 canvas,
+     each through a train config of its own: step p50 and range, the main
+     thread's wait for the next batch, peak memory, launches a step;
  10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
@@ -223,8 +237,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      family_launches of msda_fwd, msda_bwd and relation_bias_v4_fwd from
      each of phase 9's paths; large_backbone_launches from each of phase
      11's; vit_dcn_launches from each of phase 12's; dp_launches, each
-     process's, from phase 13's steps), after JSON lines of the precision
-     profiles and phase 7's, 8's, 9's, 11's, 12's and 13's results,
+     process's, from phase 13's steps; data_path_launches of msda_fwd,
+     msda_bwd, relation_bias_v4_fwd and ycc_to_rgb from each of phase 14
+     (c)'s runs), after JSON lines of the precision profiles and phase 7's,
+     8's, 9's, 11's, 12's, 13's and 14's results,
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -4673,6 +4689,227 @@ def run_data_parallel(torch, kernels):
     phase(13, f"done in {result['seconds']:.1f} s")
     return result
 
+# phase 14, the rest of the host data path: cv2's outputs and PNG decodes
+# from tests/data/torch_port/make_fixtures.py, every registered train preset
+# through the loader, and the train CLI at full width under three presets
+DATA_PATH_BATCH = 2
+DATA_PATH_STEPS = 8  # one epoch of the 16-image train split at B=2
+DATA_PATH_SKIP = 2  # steps left out of the numbers (model and loader warm-up)
+PNG_FIXTURES = ("gray", "rgb", "rgba", "rgb16", "gray16", "palette", "palette4", "gray1",
+                "gray_alpha", "filters")
+# (label, train config's transforms, annotation file, return_masks, canvas)
+DATA_PATH_RUNS = (
+    ("strong_album", "transforms.strong_album(normalize_host=False)",
+     "instances_train2017.json", False, "800,1344"),
+    ("mosaic_detr + SimpleCopyPaste (masks)",
+     "transforms.Compose(transforms.mosaic_detr(normalize_host=False), "
+     "mix_transforms.SimpleCopyPaste(p=0.5))", "instances_train2017_segm.json", True,
+     "800,1344"),
+    ("lsj", "transforms.lsj(normalize_host=False)", "instances_train2017.json", False,
+     "1024,1024"),
+)
+DATA_PATH_CONFIG = """import os
+
+from relation_detr_tpu_torch.configs.train_config import *  # noqa: F401,F403
+from relation_detr_tpu_torch.data import mix_transforms, transforms
+from relation_detr_tpu_torch.data.coco import CocoDetection
+
+
+def train_dataset(root=coco_path, device="cuda", decode=None):
+    return CocoDetection(
+        img_folder=os.path.join(root, "train2017"),
+        ann_file=os.path.join(root, "annotations", {ann!r}),
+        transforms={transforms},
+        train=True,
+        return_masks={masks},
+        device=device,
+        decode=decode,
+    )
+"""
+
+
+def check_cv_golden(np):
+    """Phase 14 (a): ``data/cv_ops.py`` and the PNG decode on this machine's
+    numpy against cv2's outputs committed in ``cv_ops_golden.npz`` and
+    ``png/*.npy``: equal bytes (the Gaussian blur of float noise within two
+    float32 ulps); a broken JPEG raises ``UnreadableImage`` through nvJPEG.
+    Returns the checks' names and the seconds they took."""
+    from relation_detr_tpu_torch.data import cv_ops, image_io
+
+    t0 = time.perf_counter()
+    folder = os.path.join(ROOT, EVAL_DATA)
+    g = dict(np.load(os.path.join(folder, "cv_ops_golden.npz")))
+    verts = np.split(g["poly_vertices"], np.cumsum(g["poly_lengths"])[:-1])
+    ends = np.cumsum(np.concatenate([[0], g["poly_counts"]]))
+    checks = {
+        "rgb2hsv": (cv_ops.rgb2hsv(g["image"]), g["rgb2hsv"]),
+        "hsv2rgb": (cv_ops.hsv2rgb(g["hsv_in"]), g["hsv2rgb"]),
+        "rgb2gray": (cv_ops.rgb2gray(g["image"]), g["rgb2gray"]),
+        "blur3": (cv_ops.blur3(g["image"]), g["blur3"]),
+        "median3": (cv_ops.median3(g["image"]), g["median3"]),
+        "gaussian_blur5 (0/1 alpha)": (cv_ops.gaussian_blur5(g["alpha"]), g["gaussian_alpha"]),
+        "shift": (np.stack([cv_ops.shift(g["image"], dx, dy) for dx, dy in g["shifts"]]),
+                  g["shift_image"]),
+        "shift (mask)": (np.stack([cv_ops.shift(g["mask"], dx, dy) for dx, dy in g["shifts"]]),
+                         g["shift_mask"]),
+        "fill_poly": (np.stack([cv_ops.fill_poly(np.zeros((96, 128), np.uint8), verts[a:b], 1)
+                                for a, b in zip(ends[:-1], ends[1:])]),
+                      np.unpackbits(g["fill_poly"]).reshape(-1, 96, 128)),
+    }
+    for h, w in g["nearest_sizes"]:
+        checks[f"resize_nearest {h}x{w}"] = (cv_ops.resize_nearest(g["image"], int(h), int(w)),
+                                             g[f"nearest_{h}x{w}"])
+    for q in g["jpeg_qualities"]:
+        checks[f"jpeg_roundtrip q{q}"] = (cv_ops.jpeg_roundtrip(g["image"], int(q)),
+                                          g[f"jpeg_{q}"])
+    for name in PNG_FIXTURES:
+        path = os.path.join(folder, "png", name + ".png")
+        checks[f"png {name}"] = (image_io.read_image(path),
+                                 np.load(os.path.join(folder, "png", name + ".npy")))
+    bad = [k for k, (got, want) in checks.items()
+           if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(got, want)]
+    noise = cv_ops.gaussian_blur5(g["noise"])
+    ulps = float((np.abs(noise - g["gaussian_noise"])
+                  / np.spacing(np.abs(g["gaussian_noise"]))).max())
+    if ulps > 2:
+        bad.append(f"gaussian_blur5 (float noise) {ulps} ulps")
+    if bad:
+        raise AssertionError(f"phase 14 (a): differ from cv2's outputs: {bad}")
+    try:
+        image_io.decode_image(np.frombuffer(b"\xff\xd8\xff\xe0" + bytes(40), np.uint8),
+                              "broken.jpg")
+    except image_io.UnreadableImage:
+        pass
+    else:
+        raise AssertionError("phase 14 (a): a broken JPEG decoded")
+    seconds = time.perf_counter() - t0
+    phase(14, f"(a) cv_ops and the PNG decode on numpy {np.__version__} equal cv2's outputs: "
+              f"{len(checks)} checks ({len(g['poly_counts'])} polygons, JPEG q "
+              f"{[int(q) for q in g['jpeg_qualities']]}, {len(PNG_FIXTURES)} PNG files), "
+              f"gaussian_blur5 on float noise within {ulps:.1f} ulps; a broken JPEG raises "
+              f"UnreadableImage through nvJPEG ({seconds:.2f} s)")
+    return dict(checks=sorted(checks), gaussian_noise_ulps=ulps, seconds=seconds)
+
+
+def run_preset_loaders(torch):
+    """Phase 14 (b): every registered train preset through the port's
+    ``DataLoader`` (4 reader threads, nvJPEG decode, the canvas buckets)
+    over the committed train split, one epoch of B=2, after one decode
+    that sets nvJPEG up: the wall time per image (collate's shrink of an
+    image larger than the largest bucket included, in the loader's one
+    batching thread) and the decode and transform time per image (summed
+    over the threads); every batch uint8, its boxes' centres in [0, 1] and sizes in
+    (0, 1]."""
+    import numpy as np
+
+    from relation_detr_tpu_torch.data import image_io, transforms
+    from relation_detr_tpu_torch.data import loader as port_loader
+    from relation_detr_tpu_torch.data.coco import CocoDetection
+
+    split = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    rows = {}
+    image_io.read_image(os.path.join(split, "train2017", "000000000000.jpg"))  # nvJPEG's set-up
+    for name, make in transforms.PRESETS.items():
+        dataset = CocoDetection(os.path.join(split, "train2017"),
+                                os.path.join(split, "annotations", "instances_train2017.json"),
+                                make(normalize_host=False), train=True, device="cuda")
+        loader = port_loader.DataLoader(dataset, batch_size=DATA_PATH_BATCH, shuffle=True,
+                                        seed=0, num_workers=4, drop_last=True)
+        t0 = time.perf_counter()
+        batches = list(loader)
+        wall = time.perf_counter() - t0
+        images = DATA_PATH_BATCH * len(batches)
+        for b in batches:
+            boxes = b["gt_boxes"][b["gt_valid"]]
+            if b["images"].dtype != np.uint8 or not (boxes[:, 2:] > 0).all() or \
+                    not (boxes[:, :2] >= 0).all() or not (boxes <= 1).all():
+                raise AssertionError(f"phase 14 (b) {name}: a batch out of range")
+        rows[name] = dict(images=images, wall_ms_per_image=1e3 * wall / images,
+                          decode_ms_per_image=1e3 * dataset.seconds["decode"] / images,
+                          transform_ms_per_image=1e3 * dataset.seconds["transform"] / images,
+                          canvases=sorted({tuple(b["images"].shape[1:3]) for b in batches}),
+                          boxes_per_image=float(sum(b["gt_valid"].sum() for b in batches)
+                                                / images))
+        phase(14, f"(b) {name}: {images} images through the loader (4 threads, nvJPEG) in "
+                  f"{1e3 * wall / images:.3f} ms an image wall; decode "
+                  f"{rows[name]['decode_ms_per_image']:.3f}, transform "
+                  f"{rows[name]['transform_ms_per_image']:.3f} ms an image (summed over the "
+                  f"threads); canvases {rows[name]['canvases']}, "
+                  f"{rows[name]['boxes_per_image']:.2f} boxes an image")
+    return rows
+
+
+def run_data_path_cli(torch, tmp, label, preset, ann, masks, canvas):
+    """Phase 14 (c): the train CLI on the flagship at full width, B=2, one
+    epoch of the committed split (DATA_PATH_STEPS steps, no evaluation)
+    under a train config whose dataset takes ``preset``: 18 msda_fwd, 18
+    msda_bwd and 5 relation_bias_v4_fwd launches a step, one ycc_to_rgb
+    at least an image of the split (a mosaic reads four, a copy-paste one
+    more); every loss finite. Returns the step p50 and range, the main
+    thread's wait for the next batch, the peak memory and the launches."""
+    from relation_detr_tpu_torch import train
+
+    config = os.path.join(tmp, f"train_config_{len(os.listdir(tmp))}.py")
+    with open(config, "w") as f:
+        f.write(DATA_PATH_CONFIG.format(ann=ann, transforms=preset, masks=masks))
+    out = os.path.join(tmp, os.path.basename(config)[:-3])
+    args = ["--config-file", config, "--coco-path", os.path.join(ROOT, EVAL_DATA, "synth_coco"),
+            "--output-dir", out, "--num-epochs", "1", "--max-steps", str(DATA_PATH_STEPS),
+            "--batch-size", str(DATA_PATH_BATCH), "--canvas", canvas, "--seed", "0",
+            "--device", "cuda"]
+    counters = train_cli_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    got = train.main(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = len(got["steps"])
+    per_image = 4 if "mosaic" in preset else 1
+    if steps != DATA_PATH_STEPS or launches["msda_fwd"] != 18 * steps or \
+            launches["msda_bwd"] != 18 * steps or launches["relation_bias_v4_fwd"] != 5 * steps \
+            or launches["ycc_to_rgb"] < per_image * DATA_PATH_BATCH * steps:
+        raise AssertionError(f"phase 14 (c) {label}: {steps} steps, launches {launches}")
+    losses = [s["total_loss"] for s in got["steps"]]
+    if not all(math.isfinite(v) for v in losses) or got["metrics"]["nonfinite_count"]:
+        raise AssertionError(f"phase 14 (c) {label}: non-finite losses {losses}")
+    timed_steps = got["steps"][DATA_PATH_SKIP:]
+    times = [s["step"] for s in timed_steps]
+    waits = [s["wait"] for s in timed_steps]
+    row = dict(canvas=canvas, steps=steps, step_ms_p50=statistics.median(times),
+               step_ms_range=[min(times), max(times)], wait_ms_p50=statistics.median(waits),
+               wait_ms_max=max(waits), wait_ms_all=[s["wait"] for s in got["steps"]],
+               peak_gib=peak, launches=launches, losses=losses)
+    phase(14, f"(c) train CLI, flagship B={DATA_PATH_BATCH} {canvas.replace(',', 'x')} fp32, "
+              f"{label}: {steps} steps, steps {DATA_PATH_SKIP}-{steps - 1}: step p50 "
+              f"{row['step_ms_p50']:.3f} ms (range {min(times):.3f}-{max(times):.3f}); the "
+              f"main thread's wait for the next batch p50 {row['wait_ms_p50']:.3f} ms (max "
+              f"{row['wait_ms_max']:.3f}; every step's {[round(w, 1) for w in row['wait_ms_all']]}"
+              f"); peak memory {peak:.3f} GiB; launches {launches}; losses finite")
+    return row
+
+
+def run_data_path(torch, kernels):
+    """Phase 14: (a) ``check_cv_golden``; (b) ``run_preset_loaders``; (c)
+    ``run_data_path_cli`` under each of DATA_PATH_RUNS."""
+    import tempfile
+
+    import numpy as np
+
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    result = dict(device=smi, golden=check_cv_golden(np), loaders=run_preset_loaders(torch))
+    result["train_cli"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, preset, ann, masks, canvas in DATA_PATH_RUNS:
+            row = run_data_path_cli(torch, tmp, label, preset, ann, masks, canvas)
+            result["train_cli"][label] = row
+            for key, name in (("msda_fwd", "msda"), ("msda_bwd", "msda_bwd"),
+                              ("relation_bias_v4_fwd", "relation"), ("ycc_to_rgb", "ycc_to_rgb")):
+                kernels[name].setdefault("data_path_launches", {})[label] = row["launches"][key]
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -4743,6 +4980,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     data_parallel = timed(13, run_data_parallel, torch, kernels)
+    data_path = timed(14, run_data_path, torch, kernels)
     phase(10, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     if FAILURES:
@@ -4764,6 +5002,7 @@ def main() -> int:
     print(json.dumps({"large_backbones": large}), flush=True)
     print(json.dumps({"vit_dcn": vit_dcn}), flush=True)
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
+    print(json.dumps({"data_path": data_path}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

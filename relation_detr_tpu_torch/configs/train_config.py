@@ -4,7 +4,13 @@ dataset (nvJPEG decode on ``device``, or a caller's ``decode`` on the CPU).
 Each factory takes the COCO root (``coco_path`` by default; the train CLI's
 ``--coco-path`` overrides it). The train preset is ``detr`` and the eval
 one ``EvalPreset``, both keeping uint8 pixels that are normalised on the
-card."""
+card. Another preset is picked by config, as in the JAX package: a train
+config (``--config-file``) whose ``train_dataset`` passes
+``transforms.<name>(normalize_host=False)`` (``data/transforms.py::PRESETS``:
+lsj, lsj_1536, strong_album, strong_album_1200_2000, multiscale, ssd,
+ssdlite, rtdetr_transform, mosaic_detr) or a ``transforms.Compose`` with the
+``data/mix_transforms.py`` transforms, and ``return_masks=True`` for the
+mask-based ``SimpleCopyPaste``."""
 import os
 
 from relation_detr_tpu_torch.data import transforms

@@ -1,4 +1,5 @@
-"""JPEG decode for the port's data path: nvJPEG on the card, EXIF on the host.
+"""Image decode for the port's data path: JPEG with nvJPEG on the card (EXIF
+on the host), PNG on the host with zlib and numpy.
 
 The counterpart of the JAX package's ``cv2.imdecode(data, IMREAD_COLOR)``
 followed by BGR->RGB (``relation_detr_tpu/data/coco.py:133-135``): JPEG
@@ -11,11 +12,20 @@ decode). For YCbCr at 4:4:4, 4:2:2 and 4:2:0 it returns the planes, and
 libjpeg-turbo's arithmetic, which cv2 decodes with. Other chroma
 subsamplings take nvJPEG's RGB; grayscale files come out as three equal
 channels, as cv2 gives them; a file nvJPEG cannot decode (CMYK, a broken
-stream) raises with its name. PNG and other formats are not ported.
+stream) raises ``UnreadableImage`` with its name.
 
-On the CPU there is no decoder: a caller passes ``decode=`` (a function of
-the file's bytes that returns the RGB array), and without it the call
-raises. A card is never bypassed for the CPU.
+PNG files decode on the host (``decode_png``: stdlib ``zlib`` and numpy) to
+what cv2's ``IMREAD_COLOR`` followed by BGR->RGB gives: 8-bit grey, RGB,
+RGBA (alpha dropped, not composited) and palette images, 1-, 2- and 4-bit
+grey and palette, 16-bit samples cut to their high byte, all five row
+filters. Adam7-interlaced files and PNG EXIF orientation are not ported:
+an interlaced file raises ``UnreadableImage`` with its name.
+
+On the CPU there is no JPEG decoder: a caller passes ``decode=`` (a function
+of the file's bytes that returns the RGB array), and without it a JPEG
+raises. A card is never bypassed for the CPU. A file that is neither JPEG
+nor PNG, or that its decoder cannot read, raises ``UnreadableImage`` (a
+``ValueError``); a CUDA error raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import ctypes
 import functools
 import struct
 import threading
+import zlib
 from contextlib import contextmanager
 from typing import Callable, Optional
 
@@ -41,6 +52,14 @@ _GRAY = 6
 _NVJPEG_RGB = (3, 4, 5, 7)
 _FORMAT_RGB, _FORMAT_Y, _FORMAT_YUV = 0, 1, 2  # jpeg_decode's output formats
 _ORIENTATION_TAG = 0x0112
+# nvjpegStatus_t values that mean the file, not the card or the library
+_NVJPEG_BAD_FILE = (3, 4)  # NVJPEG_STATUS_BAD_JPEG, NVJPEG_STATUS_JPEG_NOT_SUPPORTED
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+class UnreadableImage(ValueError):
+    """A file the port's decoders cannot read (broken, or a format or
+    variant they do not decode); the message names the file."""
 
 
 def exif_orientation(data) -> int:
@@ -210,8 +229,9 @@ class NvJpegDecoder:
 
     def _check(self, code: int, what: str) -> None:
         if code != 0:
-            msg = self._lib.jpeg_error_string(code).decode()
-            raise RuntimeError(f"{what}: JPEG decode failed (code {code}: {msg})")
+            msg = f"{what}: JPEG decode failed (code {code}: " \
+                  f"{self._lib.jpeg_error_string(code).decode()})"
+            raise UnreadableImage(msg) if code in _NVJPEG_BAD_FILE else RuntimeError(msg)
 
     @contextmanager
     def _state(self):
@@ -286,7 +306,7 @@ class NvJpegDecoder:
                 self._decode_into(state, data, name, _FORMAT_Y, [luma])
                 return np.repeat(luma.cpu().numpy()[..., None], 3, axis=2)
         if components != 3 or (subsampling not in _FANCY and subsampling not in _NVJPEG_RGB):
-            raise RuntimeError(f"{name}: JPEG with {components} components and chroma "
+            raise UnreadableImage(f"{name}: JPEG with {components} components and chroma "
                                f"subsampling {subsampling} is not decoded by nvJPEG here "
                                "(grayscale and YCbCr are)")
         with self._state() as state:
@@ -307,19 +327,21 @@ def nvjpeg_decoder(device: int) -> NvJpegDecoder:
 
 def decode_image(data: np.ndarray, name: str, device="cuda",
                  decode: Optional[Decode] = None) -> np.ndarray:
-    """JPEG bytes -> upright RGB (H, W, 3) uint8 on the host.
+    """JPEG or PNG bytes -> upright RGB (H, W, 3) uint8 on the host.
 
     ``decode`` replaces the decoder (the CPU tests pass cv2's); without it
-    the file decodes with nvJPEG on ``device``, which must be a card.
-    ``name`` labels every error."""
+    a PNG decodes on the host (``decode_png``) and a JPEG with nvJPEG on
+    ``device``, which must be a card. ``name`` labels every error."""
     if decode is not None:
         return decode(data)
+    if bytes(data[:8]) == PNG_SIGNATURE:
+        return decode_png(data, name)
+    if bytes(data[:2]) != b"\xff\xd8":
+        raise UnreadableImage(f"{name}: not a JPEG or PNG file")
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError(f"{name}: no JPEG decoder on {device}; decode on a card or pass "
                            "decode=")
-    if bytes(data[:2]) != b"\xff\xd8":
-        raise ValueError(f"{name}: not a JPEG file (PNG and other formats are not ported)")
     index = device.index if device.index is not None else torch.cuda.current_device()
     image = nvjpeg_decoder(index).decode(data, name)
     return apply_orientation(image, exif_orientation(data))
@@ -328,3 +350,96 @@ def decode_image(data: np.ndarray, name: str, device="cuda",
 def read_image(path: str, device="cuda", decode: Optional[Decode] = None) -> np.ndarray:
     """``decode_image`` of a file."""
     return decode_image(np.fromfile(path, np.uint8), path, device, decode)
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, name: str) -> np.ndarray:
+    """The (h, stride) bytes of PNG scanlines with their filters (None, Sub,
+    Up, Average, Paeth) undone; ``bpp`` is the filter's byte distance."""
+    raw = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int64)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:].astype(np.int64)
+        if kind == 0:
+            row = line
+        elif kind == 1:  # Sub: a running sum per byte of the pixel
+            row = np.zeros(stride, np.int64)
+            for k in range(bpp):
+                row[k::bpp] = np.cumsum(line[k::bpp])
+        elif kind == 2:  # Up
+            row = line + prior
+        elif kind in (3, 4):  # Average, Paeth: each byte depends on the one bpp left
+            row = line.tolist()
+            up = prior.tolist()
+            for i in range(stride):
+                a = row[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    row[i] = (row[i] + ((a + up[i]) >> 1)) & 255
+                    continue
+                b, c = up[i], (up[i - bpp] if i >= bpp else 0)
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                row[i] = (row[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 255
+            row = np.asarray(row, np.int64)
+        else:
+            raise UnreadableImage(f"{name}: PNG row filter {kind} is not one of 0-4")
+        prior = row & 255
+        out[y] = prior
+    return out
+
+
+def decode_png(data, name: str) -> np.ndarray:
+    """PNG bytes -> RGB (H, W, 3) uint8, as cv2's ``IMREAD_COLOR`` followed
+    by BGR->RGB decodes them: grey as three equal channels (1-, 2-, 4-bit
+    grey scaled to 0-255), palette entries looked up, the alpha channel and
+    ``tRNS`` dropped, 16-bit samples cut to their high byte."""
+    buf = bytes(memoryview(data))
+    if buf[:8] != PNG_SIGNATURE:
+        raise UnreadableImage(f"{name}: not a PNG file")
+    pos, idat, header, palette = 8, [], None, None
+    while pos + 8 <= len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        body = buf[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise UnreadableImage(f"{name}: PNG without IHDR or IDAT")
+    w, h, depth, color, _, _, interlace = header
+    if interlace:
+        raise UnreadableImage(f"{name}: Adam7-interlaced PNG is not decoded by the port")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
+    if channels is None or depth not in (1, 2, 4, 8, 16) or (color == 3 and palette is None):
+        raise UnreadableImage(f"{name}: PNG colour type {color} at {depth} bits is not valid")
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as exc:
+        raise UnreadableImage(f"{name}: PNG data does not inflate ({exc})") from None
+    bits = channels * depth
+    stride = (w * bits + 7) // 8
+    if raw.size < h * (stride + 1):
+        raise UnreadableImage(f"{name}: PNG data is short")
+    rows = _unfilter(raw[:h * (stride + 1)], h, stride, max(bits // 8, 1), name)
+    if depth == 16:
+        samples = rows.reshape(h, w * channels, 2)[..., 0]  # the high byte
+    elif depth == 8:
+        samples = rows
+    else:  # 1, 2 or 4 bits: unpack, most significant first
+        shifts = np.arange(8 - depth, -1, -depth)
+        samples = ((rows[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+        if color == 0:
+            samples = (samples * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    samples = samples.reshape(h, w, channels)
+    if color == 3:
+        index = samples[..., 0]
+        if index.max() >= len(palette):
+            raise UnreadableImage(f"{name}: PNG palette index past the palette")
+        return np.ascontiguousarray(palette[index])
+    if channels <= 2:  # grey (+ alpha)
+        return np.ascontiguousarray(np.repeat(samples[..., :1], 3, axis=2))
+    return np.ascontiguousarray(samples[..., :3])

@@ -6,13 +6,14 @@ Port of the root ``inference.py``:
         [--model-config relation_detr_tpu_torch/configs/relation_detr/...py] \\
         [--checkpoint weights.npz] [--device cuda]
 
-Images decode with nvJPEG on the card (``data/image_io.py``: EXIF
-orientation applied; a file that is not a JPEG raises with its name) and
-resize on the host by the port's ``data.transforms.EvalPreset`` onto the
+Images decode through ``data/image_io.py`` (JPEG with nvJPEG on the card,
+EXIF orientation applied; PNG on the host; a file of another format, a
+.bmp or .webp, raises ``UnreadableImage`` with its name) and resize on the
+host by the port's ``data.transforms.EvalPreset`` onto the
 fixed 800x1344 canvas; each keeps the config's
 ``select_box_nums_for_evaluation`` top-scored boxes before the
 ``--score-threshold``, as ``test.py`` does. ``--device cpu`` has no JPEG
-decoder: a caller of ``main`` passes ``decode=``. ``--checkpoint`` takes the JAX package's
+decoder: a caller of ``main`` passes ``decode=`` (PNG files need none). ``--checkpoint`` takes the JAX package's
 ``.npz`` weight files (``params/...`` and ``batch_stats/...`` arrays),
 loaded leniently as the root CLI loads them (``utils.weights.load_weights``:
 missing and shape-mismatched tensors keep their values and are reported).

@@ -111,7 +111,7 @@ def apply_msda_flags(args) -> None:
     Also takes the train CLI's arguments, which lack the eval-only flags."""
     if getattr(args, "show_dir", None) is not None or getattr(args, "show_conf", None) is not None:
         raise NotImplementedError("--show-dir / --show-conf are not ported "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 7)")
     if args.clamp_check == "on":
         raise NotImplementedError("--clamp-check on is not ported (no clamp gate: the "
                                   "port's tiled MSDA keeps the exact auto halos)")

@@ -94,13 +94,14 @@ def test_prepare_matches_jax_on_edge_boxes(synth_coco, tmp_path):
 
 def test_decode_needs_a_decoder_on_cpu(synth_coco):
     """The CPU has no JPEG decoder: without decode= the read raises, it
-    does not fall back; masks are not ported."""
+    does not fall back; with ``return_masks`` the read fails the same way
+    (masks are ported: ``tests/test_torch_mix_transforms.py``)."""
     folder = os.path.join(synth_coco, "val2017")
     ann = os.path.join(synth_coco, "annotations", "instances_val2017.json")
     with pytest.raises(RuntimeError, match="no JPEG decoder"):
         coco.CocoDetection(folder, ann, device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        coco.CocoDetection(folder, ann, return_masks=True)
+    with pytest.raises(RuntimeError, match="no JPEG decoder"):
+        coco.CocoDetection(folder, ann, return_masks=True, device="cpu")[0]
 
 
 @pytest.mark.parametrize("normalize_host", [True, False])

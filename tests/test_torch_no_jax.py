@@ -204,6 +204,52 @@ def evaluation_stream():
     assert image_io.exif_orientation(np.zeros(4, np.uint8)) == 1
 
 
+def data_path():
+    # the train presets, the mix transforms, masks and the PNG decode: a
+    # sample through mosaic_detr, strong_album and the mask copy-paste (a
+    # split of .npy bytes: no JPEG decoder on the CPU), the PNG fixtures
+    import io
+    import json
+    import os
+    import random
+
+    from relation_detr_tpu_torch.data import cv_ops, image_io, mix_transforms, transforms
+    from relation_detr_tpu_torch.data.coco import CocoDetection, Object365Detection
+
+    with tempfile.TemporaryDirectory() as tmp:
+        images, anns = [], []
+        for i, (h, w) in enumerate([(90, 120), (100, 80), (70, 110)]):
+            with open(f"{tmp}/{i}.jpg", "wb") as f:
+                np.save(f, rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+            images.append({"id": i + 1, "height": h, "width": w, "file_name": f"{i}.jpg"})
+            anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1, "iscrowd": 0,
+                         "bbox": [10, 10, 40, 30], "area": 1200,
+                         "segmentation": [[12, 12, 48, 14, 30, 38]]})
+        with open(f"{tmp}/ann.json", "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": 1, "name": "a"}]}, f)
+
+        def decode(data):
+            return np.load(io.BytesIO(data.tobytes()))
+
+        for name in ("mosaic_detr", "strong_album"):
+            preset = transforms.PRESETS[name](normalize_host=False)
+            ds = CocoDetection(tmp, f"{tmp}/ann.json", preset, train=True, device="cpu",
+                               decode=decode)
+            out = ds.read(0, random.Random(5))
+            assert out["image"].dtype == np.uint8 and out["boxes"].shape[1] == 4, name
+        ds = Object365Detection(tmp, f"{tmp}/ann.json", transforms.Compose(
+            transforms.mosaic_detr(normalize_host=False), mix_transforms.SimpleCopyPaste(p=1.0)),
+            train=True, return_masks=True, device="cpu", decode=decode)
+        out = ds.read(1, random.Random(2))
+        assert len(out["masks"]) == len(out["boxes"]) > 0
+    png = os.path.join("tests", "data", "torch_port", "png", "filters.png")
+    np.testing.assert_array_equal(image_io.read_image(png, device="cpu"),
+                                  np.load(png[:-4] + ".npy"))
+    assert cv_ops.jpeg_roundtrip(np.full((9, 17, 3), 77, np.uint8), 90).shape == (9, 17, 3)
+
+
+data_path()
 eval_and_train_step()
 # a gloo group of one process (parallel/mesh.py): no collective runs
 with tempfile.TemporaryDirectory() as tmp:
@@ -313,9 +359,11 @@ def test_port_imports_and_runs_without_jax_flax_cv2():
     group of one process (``parallel/mesh.py``) and under
     impl="tiled" with relation version 1; tiny detectors on the Swin (v1,
     v2), ConvNeXt, FocalNet, ViT, EVA-02 and DCN ResNet backbones; NMS, the
-    segmentation decode and the other bricks; and the evaluation path (collate,
+    segmentation decode and the other bricks; the evaluation path (collate,
     the loader, the detections function and stream, the evaluator, the CLI
-    module): no kernel launch, and nothing of jax, flax, cv2, PIL or
+    module); the data path's modules (a sample read through mosaic_detr,
+    strong_album and the mask copy-paste, a PNG decode, the JPEG round
+    trip): no kernel launch, and nothing of jax, flax, cv2, PIL or
     relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
@@ -886,7 +934,7 @@ def test_nvjpeg_decode_matches_cv2_on_card():
         np.testing.assert_array_equal(got, single[k % len(paths)])
     with pytest.raises(ValueError, match="x.png: not a JPEG"):
         image_io.decode_image(np.frombuffer(b"\x89PNG\r\n", np.uint8), "x.png")
-    with pytest.raises(RuntimeError, match="broken.jpg"):
+    with pytest.raises(image_io.UnreadableImage, match="broken.jpg"):
         image_io.decode_image(np.frombuffer(b"\xff\xd8\xff\xe0" + bytes(40), np.uint8),
                               "broken.jpg")
     assert image_io.ycc_to_rgb.launches == launches + 2 + 4 * 3  # none for a failed decode
