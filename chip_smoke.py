@@ -205,6 +205,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      split's segmentations, return_masks) and lsj on a 1024x1024 canvas,
      each through a train config of its own: step p50 and range, the main
      thread's wait for the next batch, peak memory, launches a step;
+ 15. the tools (run after 14): (a) the flagship fp32 (seeded weights,
+     B=1, 800x1344) through ``tools.export_model --verify`` (export, save
+     and load seconds, the round trip through the disk at rtol 1e-3 /
+     atol 1e-5 with labels equal, the exported detect's launches: 12
+     msda_fwd and 5 relation_bias_v4_fwd, and its p50 against the eager
+     detect's over 20 CUDA-event runs); (b) the tiny config exported and
+     verified under impl="tiled", "tiled_xla" with the separable kernel
+     and relation version 1, each exported detect launching its form's
+     kernel; (c) ``tools.benchmark_model`` on the flagship (parameters,
+     FLOPs with the ops' share, p50 / p90, queued rate); (d) host
+     microseconds a call of each ``torch.library`` op against the direct
+     ctypes launch and the wrapper (each kernel row's op_route_host_us);
+     (e) both CLIs' ``--show-dir`` (the eval CLI over the committed split,
+     the folder CLI with a weight file holding ``_classes_``), each written
+     JPEG the drawing's ``encode_jpeg`` and decoded back on the card
+     within phase 7's bar (mean 0.25 levels) of ``cv_ops.jpeg_roundtrip``;
+     its seconds printed;
  10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
@@ -239,8 +256,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      11's; vit_dcn_launches from each of phase 12's; dp_launches, each
      process's, from phase 13's steps; data_path_launches of msda_fwd,
      msda_bwd, relation_bias_v4_fwd and ycc_to_rgb from each of phase 14
-     (c)'s runs), after JSON lines of the precision profiles and phase 7's,
-     8's, 9's, 11's, 12's, 13's and 14's results,
+     (c)'s runs; op_route_host_us from phase 15 (d)), after JSON lines of
+     the precision profiles and phase 7's, 8's, 9's, 11's, 12's, 13's, 14's
+     and 15's results,
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -248,7 +266,7 @@ Bounds: bytes are each input read once and each output written once;
 operations count one per sin/cos and two per FMA, as each row's comment
 says.
 
-Imports neither jax, flax, cv2, PIL nor the JAX package. Exits non-zero,
+Imports neither jax, flax, cv2, PIL, matplotlib nor the JAX package. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
 repository.
 """
@@ -4910,6 +4928,341 @@ def run_data_path(torch, kernels):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15, the tools: torch.export through the ops, the model benchmark, the
+# op route's host cost, --show-dir in both CLIs
+
+TOOLS_P50_RUNS = 20  # detects a form (exported, eager) for each p50
+TOOLS_TINY_CANVAS = (256, 320)
+TOOLS_TINY_FORMS = (  # label: MSDA defaults, relation version, the counter it must move
+    ("tiled", dict(impl="tiled"), 4, ("msda_tiled", "tiled_matmul_core")),
+    ("tiled_xla+sep", dict(impl="tiled_xla", tiled_sep_kernel=True), 4,
+     ("msda_tiled", "sep_contract_fused")),
+    ("relation v1", {}, 1, ("relation_bias", "fused_relation_bias")),
+)
+HOST_US_CALLS = 300  # calls a turn for the op route's host cost
+TOOLS_TILED_LEVEL0 = (189, 128, 23, 19)  # the flagship level 0's tiles, slots, patch h, w
+TOL_DECODE_MEAN = 0.25  # phase 7's bar of nvJPEG's decode against libjpeg's (cv2's)
+
+
+def tools_counters():
+    from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias
+
+    return {"msda_fwd": msda.multi_scale_deformable_attention,
+            "relation_bias_v4_fwd": relation_bias.relation_bias_v4,
+            "relation_bias_rel_fwd": relation_bias.fused_relation_bias,
+            "tiled_core_fwd": msda_tiled.tiled_matmul_core,
+            "sep_contract_fwd": msda_tiled.sep_contract_fused}
+
+
+def launches_of(fn):
+    """The kernel launches of one call of ``fn``, by kernel (counters set to
+    0 just before it)."""
+    import torch
+
+    counters = tools_counters()
+    for c in counters.values():
+        c.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def event_p50s(torch, fns, n):
+    """p50 ms of each of ``fns`` over ``n`` calls, each between two CUDA
+    events and synchronised, in turns (a, b, b, a: n / 2 calls a turn)."""
+    times = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for key in order:
+        for _ in range(n // 2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[key]()
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+    return {k: [statistics.median(v), min(v), max(v)] for k, v in times.items()}
+
+
+def run_export_flagship(torch, tmp):
+    """Phase 15 (a): the flagship fp32 (seeded weights, B=1, 800x1344)
+    through ``tools.export_model --verify``: export, save and load seconds,
+    the verify differences, the exported call's launches (msda_fwd 12,
+    relation_bias_v4_fwd 5, nothing else) and the exported and eager detect
+    p50 over TOOLS_P50_RUNS CUDA-event runs each."""
+    import numpy as np
+
+    from relation_detr_tpu_torch.tools import export_model
+
+    out = os.path.join(tmp, "flagship.pt2")
+    got = export_model.main(["--output", out, "--verify", "--height", str(CANVAS[0]),
+                             "--width", str(CANVAS[1])])
+    program, serving, (images, mask, sizes) = got["program"], got["serving"], got["example"]
+    exported = program.module()
+    x = torch.from_numpy(np.random.RandomState(1).randn(*images.shape).astype(np.float32)).cuda()
+    with torch.no_grad():
+        launches = launches_of(lambda: exported(x, mask, sizes))
+        eager_launches = launches_of(lambda: serving(x, mask, sizes))
+        if launches != {"msda_fwd": 12, "relation_bias_v4_fwd": 5} or launches != eager_launches:
+            raise AssertionError(f"phase 15 (a): the exported detect launched {launches}, the "
+                                 f"eager one {eager_launches}")
+        p50 = event_p50s(torch, {"exported": lambda: exported(x, mask, sizes),
+                                 "eager": lambda: serving(x, mask, sizes)}, TOOLS_P50_RUNS)
+    row = dict(export_s=got["export_s"], save_s=got["save_s"], load_s=got["load_s"],
+               bytes=got["bytes"], verify=got["verify"], launches=launches, p50_ms=p50)
+    phase(15, f"(a) flagship exported in {got['export_s']:.3f} s, saved in {got['save_s']:.3f} "
+              f"s ({got['bytes']} bytes), loaded in {got['load_s']:.3f} s; verify through the "
+              f"disk (rtol 1e-3, atol 1e-5, labels equal): max abs diffs {got['verify']}; the "
+              f"exported detect launched {launches}; detect p50 (min-max) ms over "
+              f"{TOOLS_P50_RUNS} CUDA-event runs: exported {p50['exported'][0]:.3f} "
+              f"({p50['exported'][1]:.3f}-{p50['exported'][2]:.3f}), eager "
+              f"{p50['eager'][0]:.3f} ({p50['eager'][1]:.3f}-{p50['eager'][2]:.3f})")
+    del got, program, exported, serving
+    return row
+
+
+def run_export_tiny_forms(torch, tmp):
+    """Phase 15 (b): the tiny config exported under impl="tiled", under
+    "tiled_xla" with the separable kernel and under relation version 1,
+    each verified through the disk; each exported call must launch its
+    form's kernel."""
+    import numpy as np
+
+    from relation_detr_tpu_torch.ops import msda, relation_bias
+    from relation_detr_tpu_torch.tools import export_model
+
+    rows = {}
+    tiny = os.path.join(ROOT, "relation_detr_tpu_torch", "configs", "relation_detr",
+                        "relation_detr_resnet50_tiny_test.py")
+    for label, settings, version, _ in TOOLS_TINY_FORMS:
+        out = os.path.join(tmp, f"tiny_{label.replace(' ', '_')}.pt2")
+        relation_bias.set_fused_relation(version=version)
+        try:
+            with msda.msda_defaults(**settings):
+                got = export_model.main(["--model-config", tiny, "--output", out, "--verify",
+                                         "--height", str(TOOLS_TINY_CANVAS[0]),
+                                         "--width", str(TOOLS_TINY_CANVAS[1])])
+        finally:
+            relation_bias.set_fused_relation(version=4)
+        images, mask, sizes = got["example"]
+        exported = got["program"].module()
+        x = torch.from_numpy(
+            np.random.RandomState(2).randn(*images.shape).astype(np.float32)).cuda()
+        with torch.no_grad():
+            launches = launches_of(lambda: exported(x, mask, sizes))
+        want = {"tiled": "tiled_core_fwd", "tiled_xla+sep": "sep_contract_fwd",
+                "relation v1": "relation_bias_rel_fwd"}[label]
+        if not launches.get(want):
+            raise AssertionError(f"phase 15 (b) {label}: the exported detect launched {launches}")
+        rows[label] = dict(export_s=got["export_s"], load_s=got["load_s"],
+                           verify=got["verify"], launches=launches)
+    phase(15, "(b) tiny config exported and verified through the disk at "
+              f"{TOOLS_TINY_CANVAS}: " + "; ".join(
+                  f"{k}: export {v['export_s']:.3f} s, max abs diffs {v['verify']}, launches "
+                  f"{v['launches']}" for k, v in rows.items()))
+    return rows
+
+
+def run_benchmark_tool(torch):
+    """Phase 15 (c): ``tools.benchmark_model`` on the flagship."""
+    from relation_detr_tpu_torch.tools import benchmark_model
+
+    got = benchmark_model.main([])
+    phase(15, f"(c) benchmark_model (flagship fp32 B=1 800x1344): params {got['params']}, "
+              f"flops {got['flops']} ({100 * got['op_share']:.3f}% in the kernels' ops: "
+              f"{got['op_flops']}), p50 {got['p50_ms']:.3f} ms, p90 {got['p90_ms']:.3f} ms, "
+              f"queued {got['queued_ms']:.3f} ms/iter ({got['images_per_s']:.3f} images/s)")
+    return got
+
+
+def host_us(torch, fns, calls):
+    """Host microseconds a call of each of ``fns`` (host clock around
+    ``calls`` calls, the queue drained before; the device keeps up), in
+    turns a, b, b, a."""
+    got = {k: [] for k in fns}
+    for key in list(fns) + list(fns)[::-1]:
+        fns[key]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[key]()
+        got[key].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
+def run_op_route_cost(torch, kernels):
+    """Phase 15 (d): host microseconds a call of each op (the dispatcher to
+    its CUDA implementation), of the direct ctypes launch it wraps and of
+    its wrapper: msda_fwd at the flagship decoder's shape (Q=900 over
+    22,323 tokens), relation_bias_v4_fwd and relation_bias_rel_fwd at
+    N=900, tiled_core_fwd and sep_contract_fwd at level 0's operands (189
+    tiles of 128 slots, a 23x19 patch)."""
+    from relation_detr_tpu_torch.ops import library, msda, msda_tiled, relation_bias
+    from relation_detr_tpu_torch.models.relation import box_rel_encoding
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dev = gen.device
+    total = sum(h * w for h, w in LEVELS)
+    value = torch.randn(1, total, 8, 32, device=dev, generator=gen)
+    locs = torch.rand(1, 900, 8, 4, 4, 2, device=dev, generator=gen)
+    attn = torch.rand(1, 900, 8, 4, 4, device=dev, generator=gen)
+    flat = library.flat_levels(LEVELS)
+    boxes = torch.rand(1, 900, 4, device=dev, generator=gen) * 0.5 + 0.25
+    kernel = torch.randn(64, 8, device=dev, generator=gen)
+    bias = torch.randn(8, device=dev, generator=gen)
+    rel = box_rel_encoding(boxes, boxes).contiguous()
+    nt, slots, ph, pw = TOOLS_TILED_LEVEL0
+    m = torch.randint(0, ph * pw, (1, nt, 8, 16, slots), device=dev, generator=gen,
+                      dtype=torch.int32)
+    w = torch.rand(m.shape, device=dev, generator=gen)
+    patch = torch.randn(1, nt, ph * pw, 256, device=dev, generator=gen)
+    oy = torch.rand(1, nt, 8, 4, ph, slots, device=dev, generator=gen)
+    ox = torch.rand(1, nt, 8, 4, pw, slots, device=dev, generator=gen)
+    settings = (16, 10000.0, 100.0)
+    calls = {
+        "msda_fwd": (msda._msda_fwd, library.OPS.msda_fwd.default,
+                     (value, flat, locs, attn), msda.multi_scale_deformable_attention,
+                     (value, LEVELS, locs, attn)),
+        "relation_bias_v4_fwd": (relation_bias._relation_bias_v4_fwd,
+                                 library.OPS.relation_bias_v4_fwd.default,
+                                 (boxes, boxes, kernel, bias, *settings, 1e-5),
+                                 relation_bias.relation_bias_v4, (boxes, boxes, kernel, bias)),
+        "relation_bias_rel_fwd": (relation_bias._fused_relation_bias_fwd,
+                                  library.OPS.relation_bias_rel_fwd.default,
+                                  (rel, kernel, bias, *settings),
+                                  relation_bias.fused_relation_bias, (rel, kernel, bias)),
+        "tiled_core_fwd": (msda_tiled._tiled_core_fwd, library.OPS.tiled_core_fwd.default,
+                           (m, w, patch, 8, 32), msda_tiled.tiled_matmul_core,
+                           (m, w, patch, (8, 32))),
+        "sep_contract_fwd": (msda_tiled._sep_contract_fwd, library.OPS.sep_contract_fwd.default,
+                             (oy, ox, patch), msda_tiled.sep_contract_fused, (oy, ox, patch)),
+    }
+    rows = {}
+    with torch.no_grad():
+        for name, (direct, op, args, wrapper, wargs) in calls.items():
+            rows[name] = host_us(torch, {"direct": lambda: direct(*args),
+                                         "op": lambda: op(*args),
+                                         "wrapper": lambda: wrapper(*wargs)}, HOST_US_CALLS)
+    for name, key in (("msda_fwd", "msda"), ("relation_bias_v4_fwd", "relation"),
+                      ("relation_bias_rel_fwd", "relation_rel"),
+                      ("tiled_core_fwd", "tiled_core_fwd"),
+                      ("sep_contract_fwd", "sep_contract_fwd")):
+        kernels[key]["op_route_host_us"] = rows[name]
+    phase(15, "(d) host us a call (host clock over "
+              f"{HOST_US_CALLS} calls a turn, in turns): " + "; ".join(
+                  f"{k}: direct ctypes {v['direct']:.1f}, op {v['op']:.1f} (+"
+                  f"{v['op'] - v['direct']:.1f}), wrapper {v['wrapper']:.1f}"
+                  for k, v in rows.items()))
+    return rows
+
+
+def run_show_dir_clis(torch, tmp):
+    """Phase 15 (e): the eval CLI with ``--show-dir`` over the committed val
+    split and the folder CLI with ``--show-dir`` on two of its images with a
+    weight file that holds ``_classes_`` (flagship, seeded weights, every
+    detection drawn); each written JPEG is the drawing's ``encode_jpeg``,
+    and decodes on the card through ``decode_image`` to
+    ``cv_ops.jpeg_roundtrip`` of the drawing (cv2's decode of the file):
+    equal bytes, or within phase 7's bar of nvJPEG against libjpeg."""
+    import numpy as np
+
+    import shutil
+
+    from relation_detr_tpu_torch import inference
+    from relation_detr_tpu_torch import test as port_test
+    from relation_detr_tpu_torch.data import cv_ops, image_io
+    from relation_detr_tpu_torch.utils.class_names import encode_labels
+    from relation_detr_tpu_torch.utils.weights import save_weights
+
+    drawn = {}
+    write = image_io.write_image
+
+    def recording(path, img, quality=95):
+        drawn[path] = img.copy()
+        return write(path, img, quality)
+
+    coco = os.path.join(ROOT, "tests", "data", "torch_port", "synth_coco")
+    folder = os.path.join(tmp, "folder")
+    os.makedirs(folder)
+    val = sorted(os.listdir(os.path.join(coco, "val2017")))[:2]
+    for name in val:
+        shutil.copy(os.path.join(coco, "val2017", name), folder)
+    names = tuple(f"class {i}" for i in range(91))
+    checkpoint = os.path.join(tmp, "flagship.npz")
+    save_weights(checkpoint, importlib.import_module(CONFIGS + FLAGSHIP).build_model("cpu"),
+                 extra={"_classes_": encode_labels(names)})
+    port_test.write_image = inference.write_image = recording
+    try:
+        t0 = time.perf_counter()
+        run = port_test.main(["--coco-path", coco, "--batch-size", "2", "--show-dir",
+                              os.path.join(tmp, "show_eval"), "--show-conf", "0"])
+        eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        folder_run = inference.main(["--image-dir", folder, "--checkpoint", checkpoint,
+                                     "--show-dir", os.path.join(tmp, "show_folder"),
+                                     "--score-threshold", "0"])
+        folder_s = time.perf_counter() - t0
+    finally:
+        port_test.write_image = inference.write_image = write
+    written = sorted(run["shown"]) + sorted(folder_run["written"])
+    if sorted(drawn) != written or len(run["shown"]) != run["images"] or len(
+            folder_run["written"]) != len(val):
+        raise AssertionError(f"phase 15 (e): wrote {written}, drew {sorted(drawn)}")
+    diffs = []
+    for path in written:
+        data = np.fromfile(path, np.uint8)
+        if data.tobytes() != image_io.encode_jpeg(drawn[path]):
+            raise AssertionError(f"phase 15 (e): {path} is not the drawing's encode_jpeg")
+        got = image_io.decode_image(data, path).astype(np.int64)
+        want = cv_ops.jpeg_roundtrip(drawn[path], 95)[..., ::-1].astype(np.int64)
+        d = np.abs(got - want)
+        diffs.append((int((d != 0).sum()), float(d.mean()), int(d.max()), d.size))
+    equal = sum(1 for n, _, _, _ in diffs if n == 0)
+    worst_mean = max(m for _, m, _, _ in diffs)
+    row = dict(eval_images=run["images"], eval_s=eval_s, folder_images=len(val),
+               folder_s=folder_s, files=len(written), decoded_equal=equal,
+               differing_values=sum(n for n, _, _, _ in diffs),
+               values=sum(v for _, _, _, v in diffs), max_mean_abs=worst_mean,
+               max_abs=max(m for _, _, m, _ in diffs),
+               boxes_drawn=sum(len(d["scores"]) for d in folder_run["detections"].values()))
+    phase(15, f"(e) eval CLI --show-dir over {run['images']} images in {eval_s:.3f} s, folder "
+              f"CLI --show-dir over {len(val)} images ({row['boxes_drawn']} boxes, class names "
+              f"from the weight file) in {folder_s:.3f} s; {len(written)} JPEGs, each the "
+              f"drawing's encode_jpeg; decoded on the card by nvJPEG: {equal} of "
+              f"{len(written)} equal to cv_ops.jpeg_roundtrip byte for byte, "
+              f"{row['differing_values']} of {row['values']} values differ, mean |diff| at most "
+              f"{worst_mean:.4f} levels a file, max {row['max_abs']}")
+    if worst_mean > TOL_DECODE_MEAN:
+        raise AssertionError(f"phase 15 (e): a written JPEG decodes {worst_mean} levels from "
+                             f"libjpeg's on average (bar {TOL_DECODE_MEAN})")
+    return row
+
+
+def run_tools(torch, kernels):
+    """Phase 15: (a) ``run_export_flagship``; (b) ``run_export_tiny_forms``;
+    (c) ``run_benchmark_tool``; (d) ``run_op_route_cost``; (e)
+    ``run_show_dir_clis``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    result = {"device": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        result["export_flagship"] = run_export_flagship(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["export_tiny"] = run_export_tiny_forms(torch, tmp)
+        result["benchmark_model"] = {k: v for k, v in run_benchmark_tool(torch).items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["op_route_host_us"] = run_op_route_cost(torch, kernels)
+        result["show_dir"] = run_show_dir_clis(torch, tmp)
+    result["seconds"] = time.perf_counter() - t0
+    phase(15, f"[{smi}] done in {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -4981,11 +5334,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     data_parallel = timed(13, run_data_parallel, torch, kernels)
     data_path = timed(14, run_data_path, torch, kernels)
+    tools = timed(15, run_tools, torch, kernels)
     phase(10, "seconds per phase: " + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()))
 
     if FAILURES:
         raise AssertionError("; ".join(FAILURES))
-    leaked = [m for m in ("jax", "flax", "cv2", "PIL", "relation_detr_tpu") if m in sys.modules]
+    leaked = [m for m in ("jax", "flax", "cv2", "PIL", "matplotlib", "relation_detr_tpu")
+              if m in sys.modules]
     if leaked:
         raise AssertionError(f"the port's path imported {leaked}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -5003,6 +5358,7 @@ def main() -> int:
     print(json.dumps({"vit_dcn": vit_dcn}), flush=True)
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"data_path": data_path}), flush=True)
+    print(json.dumps({"tools": tools}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

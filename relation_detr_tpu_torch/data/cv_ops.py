@@ -20,15 +20,23 @@ rounding and fused multiply-adds, and gives its bytes:
 - ``fill_poly``: ``cv2.fillPoly(mask, polys, value)`` on int32 vertices;
 - ``jpeg_roundtrip``: ``cv2.imdecode(cv2.imencode(".jpg", img, quality),
   IMREAD_UNCHANGED)``, libjpeg's baseline 4:2:0 encode and decode in pixels
-  (the entropy coding is lossless and left out).
+  (the entropy coding is lossless and left out; ``jpeg_coefficients`` gives
+  the quantised blocks ``image_io.encode_jpeg`` codes);
+- the drawing of ``utils/visualize.py``: ``rectangle`` (filled, and outlined
+  at thickness 2), ``get_text_size`` and ``put_text``
+  (``FONT_HERSHEY_SIMPLEX`` at scale 0.5, thickness 1, ``LINE_AA``) and
+  ``add_weighted``.
 
 ``tests/data/torch_port/make_fixtures.py`` writes cv2's outputs of each as
 ``cv_ops_golden.npz``; ``tests/test_torch_data_presets.py`` and
-``chip_smoke.py`` phase 14 (a) hold these functions to them.
+``chip_smoke.py`` phase 14 (a) hold these functions to them
+(``tests/test_torch_visualize.py`` the drawing).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+import os
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -459,28 +467,29 @@ def _quantize(coef, qt):
     return np.where(coef < 0, -q, q)
 
 
+def _quantized_blocks(plane: np.ndarray, qt: np.ndarray, block: int = 8) -> np.ndarray:
+    """One component's quantised islow FDCT coefficients, (rows, cols, 8, 8)
+    blocks in natural order, the plane's last row and column replicated to
+    whole multiples of ``block`` pixels."""
+    p = np.pad(plane.astype(np.int64),
+               ((0, -plane.shape[0] % block), (0, -plane.shape[1] % block)), mode="edge") - 128
+    blocks = p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+    return _quantize(_fdct_1d(_fdct_1d(blocks, 3, False), 2, True), qt)
+
+
 def _codec_plane(plane: np.ndarray, qt: np.ndarray, h: int, w: int) -> np.ndarray:
     """One component through islow FDCT, quantisation, dequantisation and
     islow IDCT: its 8x8 blocks (the last row and column replicated to
     whole blocks), cropped to (h, w)."""
-    p = np.pad(plane.astype(np.int64), ((0, -plane.shape[0] % 8), (0, -plane.shape[1] % 8)),
-               mode="edge") - 128
-    blocks = p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
-    coef = _fdct_1d(_fdct_1d(blocks, 3, False), 2, True)
-    coef = _quantize(coef, qt) * qt
+    coef = _quantized_blocks(plane, qt) * qt
     pixels = _range_limit(_idct_1d(_idct_1d(coef, 2, False), 3, True))
-    return pixels.transpose(0, 2, 1, 3).reshape(p.shape)[:h, :w].astype(np.uint8)
+    rows, cols = pixels.shape[:2]
+    return pixels.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)[:h, :w].astype(np.uint8)
 
 
-def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
-    """``cv2.imdecode(cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY,
-    quality])[1], IMREAD_UNCHANGED)`` of an (H, W, 3) uint8 array, which cv2
-    reads as BGR and returns in the same channel order: libjpeg-turbo's
-    baseline 4:2:0 encode (fixed-point YCbCr, h2v2 downsampling with its
-    alternating bias, edge replication to whole blocks, islow FDCT,
-    reciprocal quantisation at the scaled standard tables) and its decode
-    (islow IDCT with the range limit, fancy upsampling and fixed-point RGB,
-    ``image_io.ycc_to_rgb_reference``)."""
+def _ycc_planes(img: np.ndarray):
+    """libjpeg-turbo's fixed-point YCbCr of a BGR uint8 image and its h2v2
+    downsampled chroma: (y (H, W), cb, cr (ceil(H / 2), 8 ceil(W / 16)))."""
     x = img.astype(np.int64)
     b, g, r = x[..., 0], x[..., 1], x[..., 2]
     half, offset = 1 << 15, 128 << 16
@@ -497,10 +506,146 @@ def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
         bias = np.where(np.arange(s.shape[1]) % 2 == 0, 1, 2)
         return (s + bias) >> 2
 
+    return y, down(cb), down(cr)
+
+
+def jpeg_coefficients(img: np.ndarray, quality: int):
+    """What libjpeg-turbo's baseline 4:2:0 encoder codes for a BGR uint8
+    image: (luma table, chroma table (8x8, natural order), [Y, Cb, Cr]
+    quantised coefficient blocks (rows, cols, 8, 8)), the luma's blocks
+    padded to whole 16x16 MCUs (the blocks past the image are decoded and
+    cropped, whatever they hold)."""
+    y, cb, cr = _ycc_planes(img)
+    luma_q = _quant_table(_STD_LUMA, quality)
+    chroma_q = _quant_table(_STD_CHROMA, quality)
+    return luma_q, chroma_q, [_quantized_blocks(y, luma_q, 16),
+                              _quantized_blocks(cb, chroma_q), _quantized_blocks(cr, chroma_q)]
+
+
+def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
+    """``cv2.imdecode(cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY,
+    quality])[1], IMREAD_UNCHANGED)`` of an (H, W, 3) uint8 array, which cv2
+    reads as BGR and returns in the same channel order: libjpeg-turbo's
+    baseline 4:2:0 encode (fixed-point YCbCr, h2v2 downsampling with its
+    alternating bias, edge replication to whole blocks, islow FDCT,
+    reciprocal quantisation at the scaled standard tables) and its decode
+    (islow IDCT with the range limit, fancy upsampling and fixed-point RGB,
+    ``image_io.ycc_to_rgb_reference``)."""
+    y, cb, cr = _ycc_planes(img)
+    h, w = y.shape
     luma_q = _quant_table(_STD_LUMA, quality)
     chroma_q = _quant_table(_STD_CHROMA, quality)
     ch, cw = -(-h // 2), -(-w // 2)
-    planes = [_codec_plane(y, luma_q, h, w), _codec_plane(down(cb), chroma_q, ch, cw),
-              _codec_plane(down(cr), chroma_q, ch, cw)]
+    planes = [_codec_plane(y, luma_q, h, w), _codec_plane(cb, chroma_q, ch, cw),
+              _codec_plane(cr, chroma_q, ch, cw)]
     rgb = ycc_to_rgb_reference(*(torch.from_numpy(p) for p in planes), 2, 2).numpy()
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+# --------------------------------------------------------------------------
+# drawing: rectangle, text, addWeighted (utils/visualize.py)
+
+FONT_HERSHEY_SIMPLEX = 0
+LINE_AA = 16
+FONT_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "font_simplex.npz")
+
+
+def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> np.ndarray:
+    """``cv2.rectangle(img, pt1, pt2, color, thickness)`` in place on an
+    (H, W) or (H, W, C) uint8 image, for ``thickness`` -1 (filled) and 2:
+    filled, the corners' box; at 2, cv2's thick polyline of the 4 sides,
+    each side a 3-pixel band from corner to corner (the corners' round caps
+    add nothing the other band does not cover). Clipped to the image."""
+    h, w = img.shape[:2]
+    (xa, xb), (ya, yb) = sorted((int(pt1[0]), int(pt2[0]))), sorted((int(pt1[1]), int(pt2[1])))
+
+    def fill(x0, y0, x1, y1):
+        x0, y0, x1, y1 = max(x0, 0), max(y0, 0), min(x1, w - 1), min(y1, h - 1)
+        if x0 <= x1 and y0 <= y1:
+            img[y0:y1 + 1, x0:x1 + 1] = color
+
+    if thickness < 0:
+        fill(xa, ya, xb, yb)
+    elif thickness == 2:
+        fill(xa, ya - 1, xb, ya + 1)
+        fill(xa, yb - 1, xb, yb + 1)
+        fill(xa - 1, ya, xa + 1, yb)
+        fill(xb - 1, ya, xb + 1, yb)
+    else:
+        raise NotImplementedError(f"rectangle: thickness {thickness} (the port draws -1 and 2)")
+    return img
+
+
+@functools.lru_cache(maxsize=None)
+def _font():
+    """The glyph table of ``FONT_HERSHEY_SIMPLEX`` at scale 0.5, thickness
+    1, ``LINE_AA`` (``make_fixtures.py`` renders it from cv2): per printable
+    ASCII character its coverage (0-255) in a box whose pen point (the
+    baseline's start) is ``origin`` (row, column), its advance, and
+    ``getTextSize``'s baseline; the text height."""
+    with np.load(FONT_TABLE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _check_font(font_face, font_scale, thickness, line_type=LINE_AA):
+    if (font_face, font_scale, thickness, line_type) != (FONT_HERSHEY_SIMPLEX, 0.5, 1, LINE_AA):
+        raise NotImplementedError(
+            "the port draws text in FONT_HERSHEY_SIMPLEX at scale 0.5, thickness 1, LINE_AA "
+            f"only; got font {font_face}, scale {font_scale}, thickness {thickness}, "
+            f"line type {line_type}")
+
+
+def _glyph_indices(text: str) -> np.ndarray:
+    codes = np.frombuffer(text.encode("utf-32-le"), np.uint32).astype(np.int64) - 32
+    if ((codes < 0) | (codes >= 95)).any():
+        raise ValueError(f"put_text / get_text_size: the font table holds printable ASCII "
+                         f"only, got {text!r}")
+    return codes
+
+
+def get_text_size(text: str, font_face: int = FONT_HERSHEY_SIMPLEX, font_scale: float = 0.5,
+                  thickness: int = 1) -> Tuple[Tuple[int, int], int]:
+    """``cv2.getTextSize``: ((width, height), baseline); the width is the
+    advances' sum plus one, the height the font's, the baseline the
+    characters' largest."""
+    _check_font(font_face, font_scale, thickness)
+    if not text:
+        return (0, 0), 0
+    font, idx = _font(), _glyph_indices(text)
+    return (int(font["advances"][idx].sum()) + 1, int(font["height"])), \
+        int(font["baselines"][idx].max())
+
+
+def put_text(img: np.ndarray, text: str, org, font_face: int = FONT_HERSHEY_SIMPLEX,
+             font_scale: float = 0.5, color=(255, 255, 255), thickness: int = 1,
+             line_type: int = LINE_AA) -> np.ndarray:
+    """``cv2.putText`` in place on an (H, W, 3) uint8 image: each glyph's
+    coverage a blended in turn at its pen position, dst + ((color - dst) a +
+    127) // 255 per channel, the pen advancing by the glyph's advance."""
+    _check_font(font_face, font_scale, thickness, line_type)
+    font = _font()
+    glyphs, advances = font["glyphs"], font["advances"]
+    (oy, ox), (gh, gw) = font["origin"], glyphs.shape[1:]
+    h, w = img.shape[:2]
+    col = np.asarray(color, np.int64)[:img.shape[2]]
+    x, y = int(org[0]) - int(ox), int(org[1]) - int(oy)
+    for i in _glyph_indices(text):
+        y0, x0 = max(y, 0), max(x, 0)
+        y1, x1 = min(y + gh, h), min(x + gw, w)
+        if y0 < y1 and x0 < x1:
+            a = glyphs[i, y0 - y:y1 - y, x0 - x:x1 - x].astype(np.int64)[..., None]
+            dst = img[y0:y1, x0:x1].astype(np.int64)
+            img[y0:y1, x0:x1] = np.where(a > 0, dst + ((col - dst) * a + 127) // 255, dst)
+        x += int(advances[i])
+    return img
+
+
+def add_weighted(src1: np.ndarray, alpha: float, src2: np.ndarray, beta: float,
+                 gamma: float = 0.0) -> np.ndarray:
+    """``cv2.addWeighted`` of two uint8 arrays: float32 src1 alpha + (src2
+    beta + gamma), each a fused multiply-add (one rounding), rounded to
+    nearest even and saturated."""
+    a32, b32, g32 = np.float32(alpha), np.float32(beta), np.float32(gamma)
+    t = (src2.astype(np.float64) * np.float64(b32) + np.float64(g32)).astype(np.float32)
+    v = (src1.astype(np.float64) * np.float64(a32) + t.astype(np.float64)).astype(np.float32)
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)

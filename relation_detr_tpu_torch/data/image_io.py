@@ -21,6 +21,12 @@ grey and palette, 16-bit samples cut to their high byte, all five row
 filters. Adam7-interlaced files and PNG EXIF orientation are not ported:
 an interlaced file raises ``UnreadableImage`` with its name.
 
+The writers are host code, the counterpart of ``cv2.imwrite`` of a BGR
+uint8 image (``write_image``, by the file's extension): ``encode_jpeg``,
+libjpeg's baseline 4:2:0 JFIF with its standard Huffman tables over the
+coefficients of ``cv_ops.jpeg_coefficients`` (cv2 decodes the file to
+``cv_ops.jpeg_roundtrip``'s pixels), and ``encode_png`` (8-bit RGB, zlib).
+
 On the CPU there is no JPEG decoder: a caller passes ``decode=`` (a function
 of the file's bytes that returns the RGB array), and without it a JPEG
 raises. A card is never bypassed for the CPU. A file that is neither JPEG
@@ -443,3 +449,204 @@ def decode_png(data, name: str) -> np.ndarray:
     if channels <= 2:  # grey (+ alpha)
         return np.ascontiguousarray(np.repeat(samples[..., :1], 3, axis=2))
     return np.ascontiguousarray(samples[..., :3])
+
+
+# --------------------------------------------------------------------------
+# writers: baseline JPEG (libjpeg's layout and standard tables) and PNG
+
+def _zigzag() -> np.ndarray:
+    """Natural (row-major 8x8) index of each zigzag position."""
+    order = sorted(((r + c, c if (r + c) % 2 == 0 else r, r * 8 + c)
+                    for r in range(8) for c in range(8)))
+    return np.asarray([k for _, _, k in order])
+
+
+ZIGZAG = _zigzag()
+# JPEG Annex K.3: (counts of the codes of each length 1-16, symbols)
+_DC_LUMA = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), tuple(range(12)))
+_DC_CHROMA = ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), tuple(range(12)))
+_AC_LUMA = ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d), (
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa))
+_AC_CHROMA = ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), (
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa))
+
+
+def _huffman_codes(table):
+    """(code, length) arrays indexed by symbol: the canonical codes of
+    Annex C."""
+    counts, symbols = table
+    code, codes, lengths, k = 0, np.zeros(256, np.int64), np.zeros(256, np.int64), 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            codes[symbols[k]], lengths[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes, lengths
+
+
+def _magnitude(v: np.ndarray):
+    """JPEG's size category and extra bits of each value."""
+    a = np.abs(v)
+    size = np.zeros_like(a)
+    for bit in range(16):
+        size += (a >> bit) > 0
+    return size, np.where(v < 0, v + (1 << size) - 1, v)
+
+
+def _entropy_code(blocks: np.ndarray, table_ids: np.ndarray, components: np.ndarray) -> bytes:
+    """Huffman-coded scan of quantised blocks (N, 64, zigzag order) in
+    stream order: DC differences per component, AC run lengths with ZRL
+    and EOB; byte-stuffed, the last byte filled with ones."""
+    n = len(blocks)
+    dc = blocks[:, 0]
+    diff = np.empty(n, np.int64)
+    for c in np.unique(components):
+        at = np.nonzero(components == c)[0]
+        diff[at] = np.diff(dc[at], prepend=0)
+    tables = [(_huffman_codes(_DC_LUMA), _huffman_codes(_AC_LUMA)),
+              (_huffman_codes(_DC_CHROMA), _huffman_codes(_AC_CHROMA))]
+
+    def symbol_codes(kind, symbol, tid):
+        code, length = np.zeros_like(symbol), np.zeros_like(symbol)
+        for t, pair in enumerate(tables):
+            at = tid == t
+            code[at], length[at] = pair[kind][0][symbol[at]], pair[kind][1][symbol[at]]
+        return code, length
+
+    items = []  # (block, key, value, bits): key orders the items of a block
+
+    def add(block, key, code, length, extra=None, size=None):
+        value = code if extra is None else (code << size) | extra
+        items.append((block, key, value, length if size is None else length + size))
+
+    size, extra = _magnitude(diff)
+    add(np.arange(n), np.zeros(n, np.int64), *symbol_codes(0, size, table_ids), extra, size)
+    b, k = np.nonzero(blocks[:, 1:])
+    k = k + 1
+    first = np.ones(len(b), bool)
+    first[1:] = b[1:] != b[:-1]
+    prev = np.where(first, 0, np.concatenate([[0], k[:-1]]))
+    run = k - prev - 1
+    zrl = run // 16
+    if zrl.any():  # runs of 16 zeros before the coefficient
+        at = np.repeat(np.arange(len(b)), zrl)
+        sub = np.arange(len(at)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+        add(b[at], k[at] * 32 + sub, *symbol_codes(1, np.full(len(at), 0xF0), table_ids[b[at]]))
+    size, extra = _magnitude(blocks[b, k])
+    add(b, k * 32 + 16, *symbol_codes(1, ((run % 16) << 4) | size, table_ids[b]), extra, size)
+    last = np.full(n, 0)
+    last[b] = k  # the last nonzero coefficient of each block
+    eob = np.nonzero(last < 63)[0]
+    add(eob, np.full(len(eob), 64 * 32), *symbol_codes(1, np.zeros(len(eob), np.int64),
+                                                          table_ids[eob]))
+    block, key, value, bits = (np.concatenate(x) for x in zip(*items))
+    order = np.lexsort((key, block))
+    value, bits = value[order], bits[order]
+    pos = np.arange(bits.max(initial=1))
+    stream = ((value[:, None] >> (bits[:, None] - 1 - pos)) & 1)[pos < bits[:, None]]
+    stream = np.concatenate([stream, np.ones(-len(stream) % 8, np.int64)]).astype(np.uint8)
+    data = np.packbits(stream)
+    return np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def encode_jpeg(bgr: np.ndarray, quality: int = 95) -> bytes:
+    """``cv2.imencode(".jpg", bgr, [IMWRITE_JPEG_QUALITY, quality])`` of an
+    (H, W, 3) uint8 BGR image, byte for byte: a baseline JFIF file at 4:2:0
+    with libjpeg's quality-scaled standard quantisation tables and its
+    standard Huffman tables, laid out as libjpeg writes it."""
+    from relation_detr_tpu_torch.data.cv_ops import jpeg_coefficients
+
+    if bgr.dtype != np.uint8 or bgr.ndim != 3 or bgr.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes an (H, W, 3) uint8 image, got {bgr.dtype} "
+                         f"{bgr.shape}")
+    h, w = bgr.shape[:2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"encode_jpeg: {h}x{w} is not a JPEG size")
+    luma_q, chroma_q, (y, cb, cr) = jpeg_coefficients(bgr, quality)
+    # libjpeg's dummy luma blocks past the image (jccoefct.c): zero AC, the
+    # DC of the block to the left, or in an MCU's bottom row its top-right
+    # block's; the decoder crops them, and cv2 writes the same bytes
+    real_rows, real_cols = -(-h // 8), -(-w // 8)
+    y = y.copy()
+    y[:real_rows, real_cols:] = 0
+    y[:real_rows, real_cols:, 0, 0] = y[:real_rows, real_cols - 1:real_cols, 0, 0]
+    y[real_rows:] = 0
+    y[real_rows:, :, 0, 0] = np.repeat(y[real_rows - 1:real_rows, 1::2, 0, 0], 2, axis=1)
+    rows, cols = cb.shape[:2]
+    y = y.reshape(rows, 2, cols, 2, 64).transpose(0, 2, 1, 3, 4).reshape(rows, cols, 4, 64)
+    mcus = np.concatenate([y, cb.reshape(rows, cols, 1, 64), cr.reshape(rows, cols, 1, 64)],
+                          axis=2)  # per MCU: Y00 Y01 Y10 Y11 Cb Cr
+    blocks = mcus.reshape(-1, 64)[:, ZIGZAG]
+    components = np.tile(np.asarray([0, 0, 0, 0, 1, 2]), rows * cols)
+    scan = _entropy_code(blocks, np.minimum(components, 1), components)
+    out = [b"\xff\xd8", _segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for tid, table in enumerate((luma_q, chroma_q)):
+        out.append(_segment(0xFFDB, bytes([tid]) + table.reshape(64)[ZIGZAG].astype(
+            np.uint8).tobytes()))
+    out.append(_segment(0xFFC0, struct.pack(">BHHB", 8, h, w, 3)
+                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for tclass, tid, (counts, symbols) in ((0, 0, _DC_LUMA), (1, 0, _AC_LUMA),
+                                           (0, 1, _DC_CHROMA), (1, 1, _AC_CHROMA)):
+        out.append(_segment(0xFFC4, bytes([tclass << 4 | tid, *counts, *symbols])))
+    out.append(_segment(0xFFDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out += [scan, b"\xff\xd9"]
+    return b"".join(out)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """``cv2.imencode(".png", img)`` of an (H, W, 3) uint8 BGR image (an 8-bit
+    RGB file) or an (H, W) one (8-bit grey): no row filter, zlib."""
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes an (H, W) or (H, W, 3) uint8 image, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    pixels = img if img.ndim == 2 else img[..., ::-1]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0, 0)
+    return b"".join([PNG_SIGNATURE, _png_chunk(b"IHDR", header),
+                     _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
+                     _png_chunk(b"IEND", b"")])
+
+
+def write_image(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """``cv2.imwrite(path, img)`` of a BGR uint8 image, the format by the
+    extension: ``.jpg`` / ``.jpeg`` (``encode_jpeg`` at ``quality``, cv2's
+    default 95) or ``.png``; any other raises ``ValueError``."""
+    ext = path.lower().rsplit(".", 1)[-1] if "." in path else ""
+    if ext in ("jpg", "jpeg"):
+        data = encode_jpeg(img, quality)
+    elif ext == "png":
+        data = encode_png(img)
+    else:
+        raise ValueError(f"{path}: the port writes .jpg, .jpeg and .png files only")
+    with open(path, "wb") as f:
+        f.write(data)

@@ -9,11 +9,14 @@ bounds it on the card), for the encoder (Q = S) and the decoder
 ``impl="tiled_xla"`` (the JAX package's ``--msda-impl``) sends the encoder's
 calls to the tiled one-hot forms of ``ops/msda_tiled.py`` instead.
 
-``multi_scale_deformable_attention`` is the wrapper: under the gather a CPU
-tensor takes ``msda_reference`` (autograd differentiates it); a CUDA tensor
-goes through ``MSDAFunction``, whose forward launches ``msda_fwd`` and whose
-backward launches ``msda_bwd`` (grads for value, sampling locations and
-attention weights), or raises. ``msda_backward`` is the backward's wrapper
+``multi_scale_deformable_attention`` is the wrapper. Under the gather a call
+that needs no gradient goes to the op ``relation_detr::msda_fwd``
+(``ops/library.py``): on a CUDA tensor it launches ``msda_fwd`` or raises, on
+a CPU tensor it computes ``msda_reference``. A call that needs a gradient
+takes ``msda_reference`` on a CPU tensor (autograd differentiates it) and
+goes through ``MSDAFunction`` on a CUDA tensor, whose forward calls the op
+and whose backward launches ``msda_bwd`` (grads for value, sampling
+locations and attention weights). ``msda_backward`` is the backward's wrapper
 and ``msda_backward_reference`` its plain version (autograd through
 ``msda_reference``).
 
@@ -32,6 +35,7 @@ from typing import Sequence, Tuple
 import torch
 
 from relation_detr_tpu_torch import _build
+from relation_detr_tpu_torch.ops import library
 from relation_detr_tpu_torch.ops.msda_tiled import msda_tiled
 
 # Framework-wide MSDA selection, the counterpart of the JAX package's
@@ -187,6 +191,7 @@ def _level_hw(spatial_shapes):
 
 
 def _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights):
+    """The op's CUDA implementation: ``spatial_shapes`` flat (h0, w0, h1, ...)."""
     lib = _build.load_library()
     bs, total, num_heads, head_dim = value.shape
     _, num_queries, _, num_levels, num_points, _ = sampling_locations.shape
@@ -195,7 +200,7 @@ def _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights):
     )
     bf16 = value.dtype == torch.bfloat16
     entry = lib.msda_fwd_bf16 if bf16 else lib.msda_fwd
-    level_hw = _level_hw(spatial_shapes)
+    level_hw = (ctypes.c_int64 * len(spatial_shapes))(*spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = entry(
@@ -208,6 +213,13 @@ def _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights):
     multi_scale_deformable_attention.launches += 1
     multi_scale_deformable_attention.bf16_launches += bf16
     return out
+
+
+library.impl("msda_fwd",
+             cpu=lambda value, spatial_shapes, locations, weights: msda_reference(
+                 value, library.levels(spatial_shapes), locations, weights),
+             cuda=_msda_fwd)
+_MSDA_FWD = library.OPS.msda_fwd.default
 
 
 def msda_backward_reference(value, spatial_shapes, sampling_locations,
@@ -277,7 +289,8 @@ class MSDAFunction(torch.autograd.Function):
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, sampling_locations, attention_weights)
-        return _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights)
+        return _MSDA_FWD(value, library.flat_levels(spatial_shapes), sampling_locations,
+                         attention_weights)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -299,19 +312,25 @@ def multi_scale_deformable_attention(
 
     Under a tiled impl an encoder-layout call (Q == S) goes to
     ``msda_tiled``; every other call, as under "gather", goes to the gather:
-    CPU tensors take ``msda_reference``, CUDA tensors go through
-    ``MSDAFunction`` (``csrc/msda.cu``) or raise. (The JAX package sends
-    those calls to ``corner_pack``, whose output equals the gather's.)"""
+    without a gradient the op ``relation_detr::msda_fwd`` (``msda_reference``
+    on CPU tensors, ``csrc/msda.cu`` on CUDA tensors, or raises); with one,
+    ``msda_reference`` on CPU tensors and ``MSDAFunction`` on CUDA tensors.
+    (The JAX package sends those calls to ``corner_pack``, whose output
+    equals the gather's.)"""
     impl = _MSDA_DEFAULTS["impl"]
     if impl != "gather" and sampling_locations.shape[1] == sum(h * w for h, w in spatial_shapes):
         return msda_tiled(value, spatial_shapes, sampling_locations, attention_weights,
                           use_pallas=impl == "tiled",
                           sep_kernel=_MSDA_DEFAULTS["tiled_sep_kernel"])
+    if value.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"MSDA: no kernel for device {value.device}")
+    if value.device.type == "cuda":
+        _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
+    if not library.needs_grad(value, sampling_locations, attention_weights):
+        return _MSDA_FWD(value, library.flat_levels(spatial_shapes), sampling_locations,
+                         attention_weights)
     if value.device.type == "cpu":
         return msda_reference(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type != "cuda":
-        raise ValueError(f"MSDA: no kernel for device {value.device}")
-    _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
     return MSDAFunction.apply(
         value, tuple(spatial_shapes), sampling_locations, attention_weights
     )

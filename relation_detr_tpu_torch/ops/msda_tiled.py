@@ -28,7 +28,10 @@ lies in its tile's patch (offsets within the halo of num_points + 1
 texels); a corner beyond it reads the patch border, as in the JAX package.
 
 Every kernel wrapper takes its plain version on CPU tensors, launches its
-kernel on CUDA tensors, or raises; each counts its launches.
+kernel on CUDA tensors, or raises; each counts its launches. The two
+forward kernels are ops of ``ops/library.py`` (``relation_detr::
+tiled_core_fwd``, ``::sep_contract_fwd``), called directly when no input
+needs a gradient.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from relation_detr_tpu_torch import _build
+from relation_detr_tpu_torch.ops import library
 from relation_detr_tpu_torch.ops.patch_scatter import window_accumulate
 from relation_detr_tpu_torch.ops.tile_geometry import MARGIN, TILE_TOKENS, _tile_geometry
 
@@ -49,8 +53,10 @@ def _device_index(geo, key, device):
     """The geometry's index constants on ``device``, made once per device:
     perm/inv/valid of the slots and each level's (by, bx) patch origins.
     Made outside inference mode, so that a train step may save them after
-    an eval forward cached them."""
-    cached = _DEVICE_INDEX.get((key, device))
+    an eval forward cached them. While ``torch.export`` traces, they are made
+    anew (the trace's constants) and not cached: they would be fake."""
+    tracing = torch.compiler.is_compiling()
+    cached = None if tracing else _DEVICE_INDEX.get((key, device))
     if cached is None:
         def put(a):
             with torch.inference_mode(False):
@@ -61,7 +67,8 @@ def _device_index(geo, key, device):
                    for y0s, x0s, _, _ in geo.patches]
         cached = (put(geo.perm.reshape(-1).astype(np.int64)), put(geo.inv.astype(np.int64)),
                   put(geo.slot_valid.reshape(-1)), origins)
-        _DEVICE_INDEX[(key, device)] = cached
+        if not tracing:
+            _DEVICE_INDEX[(key, device)] = cached
     return cached
 
 
@@ -234,7 +241,9 @@ def _check_core_args(m_all, w_all, patch, dims, g=None):
                          "memory, more than a Hopper block has")
 
 
-def _tiled_core_fwd(m_all, w_all, patch, dims):
+def _tiled_core_fwd(m_all, w_all, patch, num_heads, head_dim):
+    """The op's CUDA implementation."""
+    dims = (num_heads, head_dim)
     _check_core_args(m_all, w_all, patch, dims)
     lib = _build.load_library()
     bs, nt, num_heads, e, t = m_all.shape
@@ -247,6 +256,13 @@ def _tiled_core_fwd(m_all, w_all, patch, dims):
     _build.check(lib, code, "tiled_core_fwd")
     tiled_matmul_core.launches += 1
     return out
+
+
+library.impl("tiled_core_fwd",
+             cpu=lambda m_all, w_all, patch, num_heads, head_dim: tiled_core_reference(
+                 m_all, w_all, patch, (num_heads, head_dim)),
+             cuda=_tiled_core_fwd)
+_TILED_CORE_FWD = library.OPS.tiled_core_fwd.default
 
 
 def tiled_core_backward(m_all, w_all, patch, g, dims):
@@ -279,7 +295,7 @@ tiled_core_backward.launches = 0
 
 
 class TiledCoreFunction(torch.autograd.Function):
-    """``tiled_matmul_core``: forward ``tiled_core_fwd`` (or its plain
+    """``tiled_matmul_core``: forward the op ``tiled_core_fwd`` (its plain
     version on CPU), backward ``tiled_core_backward``; m_all gets no
     gradient."""
 
@@ -287,9 +303,7 @@ class TiledCoreFunction(torch.autograd.Function):
     def forward(ctx, m_all, w_all, patch, dims):
         ctx.dims = dims
         ctx.save_for_backward(m_all, w_all, patch)
-        if patch.device.type == "cpu":
-            return tiled_core_reference(m_all, w_all, patch, dims)
-        return _tiled_core_fwd(m_all, w_all, patch, dims)
+        return _TILED_CORE_FWD(m_all, w_all, patch, *dims)
 
     @staticmethod
     def backward(ctx, g):
@@ -303,6 +317,8 @@ def tiled_matmul_core(m_all, w_all, patch, dims: Tuple[int, int]):
     m_all (int32) and w_all (B, nt, H, E, T); dims = (H, D)."""
     if patch.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tiled core: no kernel for device {patch.device}")
+    if not library.needs_grad(w_all, patch):
+        return _TILED_CORE_FWD(m_all, w_all, patch, *dims)
     return TiledCoreFunction.apply(m_all, w_all, patch, tuple(dims))
 
 
@@ -380,6 +396,7 @@ _SEP_A_FLOATS = 2 * 40 * 128
 
 
 def _sep_contract_fwd(oy, ox, patch):
+    """The op's CUDA implementation."""
     tensors = (oy, ox, patch)
     if any(t.device != patch.device for t in tensors):
         raise ValueError("sep_contract_fused: all tensors must be on one device")
@@ -416,16 +433,18 @@ def _sep_contract_fwd(oy, ox, patch):
     return out
 
 
+library.impl("sep_contract_fwd", cpu=sep_contract_reference, cuda=_sep_contract_fwd)
+_SEP_FWD = library.OPS.sep_contract_fwd.default
+
+
 class SepContractFunction(torch.autograd.Function):
-    """``sep_contract_fused``: forward ``sep_contract_fwd`` (or its plain
-    version on CPU), backward ``_fused_bwd`` in plain torch."""
+    """``sep_contract_fused``: forward the op ``sep_contract_fwd`` (its
+    plain version on CPU), backward ``_fused_bwd`` in plain torch."""
 
     @staticmethod
     def forward(ctx, oy, ox, patch):
         ctx.save_for_backward(oy, ox, patch)
-        if patch.device.type == "cpu":
-            return sep_contract_reference(oy, ox, patch)
-        return _sep_contract_fwd(oy, ox, patch)
+        return _SEP_FWD(oy, ox, patch)
 
     @staticmethod
     def backward(ctx, g):
@@ -437,6 +456,8 @@ def sep_contract_fused(oy, ox, patch):
     """out (B, nt, T, C) = per-(b, tile, head) [sum_p oy_p (x) ox_p]^T patch."""
     if patch.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sep_contract_fused: no kernel for device {patch.device}")
+    if not library.needs_grad(oy, ox, patch):
+        return _SEP_FWD(oy, ox, patch)
     return SepContractFunction.apply(oy, ox, patch)
 
 

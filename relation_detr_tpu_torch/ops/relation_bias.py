@@ -31,6 +31,11 @@ Inf box CENTER gives a finite bias here, where the direct embedding
 version both keep the clamp. A NaN width or height still gives NaN through
 the wh features, as in the JAX kernel.
 
+Each forward kernel is an op of ``ops/library.py``
+(``relation_detr::relation_bias_v4_fwd``, ``::relation_bias_rel_fwd``):
+a wrapper calls it directly when neither ``kernel`` nor ``bias`` needs a
+gradient, the op computing the plain version on CPU tensors.
+
 Gradients: box gradients are zero by contract (the caller detaches the
 boxes, ``relation_pallas.py:304-309``); both paths of the wrapper treat the
 boxes as constants. ``kernel`` and ``bias`` gradients: on CPU autograd
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from relation_detr_tpu_torch import _build
+from relation_detr_tpu_torch.ops import library
 
 # Which bias ``models/relation.py`` computes on CUDA tensors (the JAX
 # package's ``_FUSED``; its ``v4_block`` is a TPU block size, not ported).
@@ -181,6 +187,10 @@ def _relation_bias_v4_fwd(src_boxes, tgt_boxes, kernel, bias, embed_dim,
     return out
 
 
+library.impl("relation_bias_v4_fwd", cpu=relation_bias_v4_reference, cuda=_relation_bias_v4_fwd)
+_V4_FWD = library.OPS.relation_bias_v4_fwd.default
+
+
 def relation_bias_v4_backward(src_boxes, tgt_boxes, kernel, bias, grad_out,
                               embed_dim=16, temperature=10000.0, scale=100.0, eps=1e-5):
     """(d kernel, d bias) of the bias: the plain separable version
@@ -202,8 +212,7 @@ class RelationBiasFunction(torch.autograd.Function):
     def forward(ctx, src_boxes, tgt_boxes, kernel, bias, embed_dim, temperature, scale, eps):
         ctx.save_for_backward(src_boxes, tgt_boxes, kernel, bias)
         ctx.settings = (embed_dim, temperature, scale, eps)
-        return _relation_bias_v4_fwd(src_boxes, tgt_boxes, kernel, bias, embed_dim,
-                                     temperature, scale, eps)
+        return _V4_FWD(src_boxes, tgt_boxes, kernel, bias, embed_dim, temperature, scale, eps)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -227,17 +236,23 @@ def relation_bias_v4(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Relation bias (B, H, N1, N2), differentiable in ``kernel`` and
-    ``bias``. CPU tensors take ``relation_bias_v4_reference`` (boxes
-    detached); CUDA tensors go through ``RelationBiasFunction``
-    (``csrc/relation_bias.cu``) or raise."""
+    ``bias``. Without a gradient the op ``relation_detr::relation_bias_v4_fwd``
+    (the plain version on CPU tensors, ``csrc/relation_bias.cu`` on CUDA
+    tensors, or raises); with one, CPU tensors take
+    ``relation_bias_v4_reference`` (boxes detached) and CUDA tensors go
+    through ``RelationBiasFunction``."""
+    if src_boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"relation bias: no kernel for device {src_boxes.device}")
+    if src_boxes.device.type == "cuda":
+        _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim)
+    if not library.needs_grad(kernel, bias):
+        return _V4_FWD(src_boxes.detach(), tgt_boxes.detach(), kernel, bias, embed_dim,
+                       temperature, scale, eps)
     if src_boxes.device.type == "cpu":
         return relation_bias_v4_reference(
             src_boxes.detach(), tgt_boxes.detach(), kernel, bias, embed_dim,
             temperature, scale, eps,
         )
-    if src_boxes.device.type != "cuda":
-        raise ValueError(f"relation bias: no kernel for device {src_boxes.device}")
-    _check_cuda_args(src_boxes, tgt_boxes, kernel, bias, embed_dim)
     return RelationBiasFunction.apply(
         src_boxes, tgt_boxes, kernel, bias, embed_dim, temperature, scale, eps
     )
@@ -263,7 +278,7 @@ def fused_relation_bias_reference(rel, kernel, bias, embed_dim=16, temperature=1
     return torch.relu(feats @ kernel + bias).permute(0, 3, 1, 2)
 
 
-def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
+def _check_rel_args(rel, kernel, bias, embed_dim):
     tensors = (rel, kernel, bias)
     if any(t.device != rel.device for t in tensors):
         raise ValueError("relation bias: all tensors must be on one device")
@@ -279,8 +294,13 @@ def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
                          f"{embed_dim} and {tuple(kernel.shape)}")
     if num_heads not in (4, 8, 16):
         raise ValueError(f"relation bias kernel takes 4, 8 or 16 heads, got {num_heads}")
+
+
+def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
+    """The op's CUDA implementation."""
     if rel.data_ptr() % 16:
         raise ValueError("relation bias kernel takes a 16-byte aligned rel only")
+    num_heads = bias.shape[0]
     lib = _build.load_library()
     bs, n1, n2, _ = rel.shape
     freqs_host = _freqs_host(embed_dim, temperature, scale)
@@ -295,19 +315,21 @@ def _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale):
     return out
 
 
+library.impl("relation_bias_rel_fwd", cpu=fused_relation_bias_reference,
+             cuda=_fused_relation_bias_fwd)
+_REL_FWD = library.OPS.relation_bias_rel_fwd.default
+
+
 class RelationBiasRelFunction(torch.autograd.Function):
-    """``fused_relation_bias``: forward ``relation_bias_rel_fwd`` (its plain
-    version on CPU), backward the plain version recomputed and
+    """``fused_relation_bias``: forward the op ``relation_bias_rel_fwd``
+    (its plain version on CPU), backward the plain version recomputed and
     differentiated for kernel and bias; rel gets zero (``_vjp_bwd``)."""
 
     @staticmethod
     def forward(ctx, rel, kernel, bias, embed_dim, temperature, scale):
         ctx.save_for_backward(rel, kernel, bias)
         ctx.settings = (embed_dim, temperature, scale)
-        if rel.device.type == "cpu":
-            return fused_relation_bias_reference(rel, kernel, bias, embed_dim, temperature,
-                                                 scale)
-        return _fused_relation_bias_fwd(rel, kernel, bias, embed_dim, temperature, scale)
+        return _REL_FWD(rel, kernel, bias, embed_dim, temperature, scale)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -326,10 +348,16 @@ def fused_relation_bias(rel: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
                         scale: float = 100.0) -> torch.Tensor:
     """relu(sine_embed(rel) @ kernel + bias) -> (B, H, N1, N2), the bias of
     relation versions 1 and 2, differentiable in ``kernel`` and ``bias``.
-    CPU tensors take the plain version inside ``RelationBiasRelFunction``;
-    CUDA tensors launch ``csrc/relation_bias_rel.cu`` or raise."""
+    The op ``relation_detr::relation_bias_rel_fwd`` computes it, directly
+    without a gradient, else inside ``RelationBiasRelFunction``: the plain
+    version on CPU tensors; on CUDA tensors ``csrc/relation_bias_rel.cu``
+    launches or the call raises."""
     if rel.device.type not in ("cpu", "cuda"):
         raise ValueError(f"relation bias: no kernel for device {rel.device}")
+    if rel.device.type == "cuda":
+        _check_rel_args(rel, kernel, bias, embed_dim)
+    if not library.needs_grad(rel, kernel, bias):
+        return _REL_FWD(rel, kernel, bias, embed_dim, temperature, scale)
     return RelationBiasRelFunction.apply(rel, kernel, bias, embed_dim, temperature, scale)
 
 

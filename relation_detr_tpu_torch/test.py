@@ -31,8 +31,13 @@ split; the main process (rank 0) alone logs them and writes
 ``--result-json`` (every image's predictions, in image and category
 order).
 
-Not ported, and raising: ``--show-dir`` / ``--show-conf``, and the JAX
-package's TPU-only settings (``--msda-halos`` other than ``auto``,
+``--show-dir out/`` draws each image's detections scoring at least
+``--show-conf`` (0.5) over the original image, decoded as the loader decodes
+it (EXIF applied), with the split's category names
+(``utils/visualize.py``), and writes it as a JPEG under the file's basename
+(``data/image_io.py::write_image``, cv2's bytes).
+
+Not ported, and raising: the JAX package's TPU-only settings (``--msda-halos`` other than ``auto``,
 ``--msda-dtype bf16``, ``--msda-int8-slab``, ``--clamp-check on``,
 ``--msda-profile fast``). ``--msda-profile auto`` and ``--clamp-check
 auto`` mean the exact default, as they do in the JAX package when no clamp
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from relation_detr_tpu_torch.data.coco import CocoDetection
-from relation_detr_tpu_torch.data.image_io import Decode
+from relation_detr_tpu_torch.data.image_io import Decode, read_image, write_image
 from relation_detr_tpu_torch.data.loader import DataLoader
 from relation_detr_tpu_torch.data.transforms import EvalPreset
 from relation_detr_tpu_torch.ops.msda import set_msda_defaults
@@ -65,6 +70,7 @@ from relation_detr_tpu_torch.utils.evaluation import (
     make_detections_fn,
 )
 from relation_detr_tpu_torch.utils.logging import MetricLogger, setup_logger
+from relation_detr_tpu_torch.utils.visualize import plot_bounding_boxes_on_image
 from relation_detr_tpu_torch.utils.weights import load_weights
 
 DEFAULT_CONFIG = os.path.join(
@@ -86,8 +92,10 @@ def parse_args(argv=None):
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--per-category", action="store_true",
                    help="print the per-category AP/AR table")
-    p.add_argument("--show-dir", default=None, help="not ported")
-    p.add_argument("--show-conf", type=float, default=None, help="not ported")
+    p.add_argument("--show-dir", default=None,
+                   help="draw the detections over each image and write it here")
+    p.add_argument("--show-conf", type=float, default=0.5,
+                   help="confidence threshold for --show-dir rendering")
     p.add_argument("--msda-impl", default=None, choices=("gather", "tiled", "tiled_xla"),
                    help="MSDA form (default: gather)")
     p.add_argument("--msda-halos", default=None, help="only 'auto' is ported")
@@ -109,9 +117,6 @@ def parse_args(argv=None):
 def apply_msda_flags(args) -> None:
     """The MSDA flags onto the port's defaults; the TPU-only ones raise.
     Also takes the train CLI's arguments, which lack the eval-only flags."""
-    if getattr(args, "show_dir", None) is not None or getattr(args, "show_conf", None) is not None:
-        raise NotImplementedError("--show-dir / --show-conf are not ported "
-                                  "(ROADMAP Queue 1 item 7)")
     if args.clamp_check == "on":
         raise NotImplementedError("--clamp-check on is not ported (no clamp gate: the "
                                   "port's tiled MSDA keeps the exact auto halos)")
@@ -137,6 +142,27 @@ def _category_names(ann_file):
         return None
 
 
+def render_prediction(dataset, image_id: int, det: np.ndarray, show_dir: str, conf: float,
+                      cat_names, decode: Optional[Decode] = None) -> str:
+    """Draw one image's (topk, 6) detections scoring at least ``conf`` over
+    the original image, as the JAX ``test.py:_render_prediction``; returns
+    the written file's path."""
+    os.makedirs(show_dir, exist_ok=True)
+    info = dataset.images[image_id]
+    path = os.path.join(dataset.img_folder, info["file_name"])
+    image = read_image(path, dataset.device, decode)[..., ::-1]  # BGR, upright
+    keep = det[:, 4] >= conf
+    names = None
+    if cat_names:
+        names = [cat_names.get(i, str(i)) for i in range(max(cat_names) + 1)]
+    out = plot_bounding_boxes_on_image(np.ascontiguousarray(image), det[keep, :4],
+                                       det[keep, 4], det[keep, 5].astype(np.int64),
+                                       class_names=names)
+    out_path = os.path.join(show_dir, os.path.basename(info["file_name"]))
+    write_image(out_path, out)
+    return out_path
+
+
 def predictions_of(image_id: int, det: np.ndarray):
     """COCO result dicts of one image's (topk, 6) detections; the box width
     and height in float64, as the evaluator computes them."""
@@ -151,7 +177,8 @@ STAGES = ("decode", "transform", "pin", "copy", "forward", "evaluator")
 
 
 def evaluate(det_fn, loader, ann_file: str, device, result_json: Optional[str] = None,
-             per_category: bool = False, logger=None) -> Dict:
+             per_category: bool = False, logger=None, show_dir: Optional[str] = None,
+             show_conf: float = 0.5, decode: Optional[Decode] = None) -> Dict:
     """``det_fn``'s detections over ``loader``'s batches
     (``detection_stream``) into a ``CocoEvaluator``; with ``result_json``
     their COCO result dicts into that file. Returns ``stats`` (the 12 COCO
@@ -160,8 +187,12 @@ def evaluate(det_fn, loader, ann_file: str, device, result_json: Optional[str] =
     ``ms_per_image`` by stage: decode and transform (host seconds summed
     over the loader's threads, from ``loader.dataset.seconds``), pin (host),
     copy and forward (spans on the card's stream, ``StageTimes``),
-    evaluator (host)."""
+    evaluator (host). With ``show_dir`` each image's detections are drawn
+    (``render_prediction``, ``decode`` reading the original) and ``shown``
+    lists the written files."""
     logger = logger or setup_logger("relation_detr_tpu_torch")
+    cat_names = _category_names(ann_file) if show_dir else None
+    shown = []
     evaluator = CocoEvaluator(ann_file)
     metric = MetricLogger(print_freq=50, logger=logger)
     times = StageTimes(device)
@@ -176,6 +207,9 @@ def evaluate(det_fn, loader, ann_file: str, device, result_json: Optional[str] =
             if image_id < 0:
                 continue  # tail padding
             images += 1
+            if show_dir:
+                shown.append(render_prediction(loader.dataset, int(image_id), det[i], show_dir,
+                                               show_conf, cat_names, decode))
             if result_json:
                 predictions.extend(predictions_of(int(image_id), det[i]))
     with times.span("evaluator", on_card=False):
@@ -198,7 +232,8 @@ def evaluate(det_fn, loader, ann_file: str, device, result_json: Optional[str] =
     logger.info(f"{images} images in {seconds:.3f} s ({images / seconds:.3f} images/s); ms "
                 "per image: " + ", ".join(f"{k} {v:.3f}" for k, v in per_image.items()))
     return {"stats": stats, "images": images, "canvases": sorted(canvases),
-            "seconds": seconds, "images_per_s": images / seconds, "ms_per_image": per_image}
+            "seconds": seconds, "images_per_s": images / seconds, "ms_per_image": per_image,
+            "shown": shown}
 
 
 def main(argv=None, decode: Optional[Decode] = None) -> Dict:
@@ -244,7 +279,7 @@ def _main(args, device, decode) -> Dict:
     loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=False)
     det_fn = make_detections_fn(model, cfg.get("select_box_nums_for_evaluation", 300))
     return evaluate(det_fn, loader, ann_file, device, args.result_json, args.per_category,
-                    logger)
+                    logger, args.show_dir, args.show_conf, decode)
 
 
 if __name__ == "__main__":

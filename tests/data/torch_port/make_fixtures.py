@@ -25,7 +25,16 @@ and PIL):
   in the file, with the shifts, sizes and qualities), on 400 seeded
   polygon masks (300 inside the image: convex, concave, self-intersecting,
   degenerate, several per mask in some; 100 leaving it or with vertices on
-  its border) and the JPEG round trip at quality 85, 90 and 95.
+  its border) and the JPEG round trip at quality 85, 90 and 95;
+- ``relation_detr_tpu_torch/data/font_simplex.npz``: the glyph table of
+  ``data/cv_ops.py::put_text`` / ``get_text_size``, cv2's text
+  (``FONT_HERSHEY_SIMPLEX``, scale 0.5, thickness 1, ``LINE_AA``): each
+  printable ASCII character's coverage, white drawn on black, its advance
+  (``getTextSize``'s width less one) and baseline, and the font's height.
+  OpenCV 5 draws this font from a TrueType outline (OpenCV 4 drew Hershey
+  strokes): the table holds what this cv2 draws, checked here by drawing
+  seeded strings both ways on noise, which must give equal bytes.
+  ``python tests/data/torch_port/make_fixtures.py --font`` writes it alone.
 """
 import json
 import os
@@ -311,6 +320,44 @@ def fill_poly_report(n=2000):
               "pixels at most")
 
 
+def write_font_table():
+    face, scale, thickness, line = cv2.FONT_HERSHEY_SIMPLEX, 0.5, 1, cv2.LINE_AA
+    chars = [chr(c) for c in range(32, 127)]
+    size, (ox, oy) = (64, 64), (24, 40)
+    ink = []
+    for ch in chars:
+        img = np.zeros((*size, 3), np.uint8)
+        cv2.putText(img, ch, (ox, oy), face, scale, (255, 255, 255), thickness, line)
+        assert (img == img[..., :1]).all()
+        ink.append(img[..., 0])
+    rows, cols = np.nonzero(np.max(ink, axis=0))
+    r0, r1, c0, c1 = rows.min(), rows.max() + 1, cols.min(), cols.max() + 1
+    assert 0 < r0 and r1 < size[0] and 0 < c0 and c1 < size[1]
+    sizes = [cv2.getTextSize(ch, face, scale, thickness) for ch in chars]
+    assert len({hw[1] for hw, _ in sizes}) == 1
+    table = dict(glyphs=np.stack([g[r0:r1, c0:c1] for g in ink]),
+                 origin=np.asarray([oy - r0, ox - c0]),
+                 advances=np.asarray([hw[0] - 1 for hw, _ in sizes]),
+                 baselines=np.asarray([b for _, b in sizes]), height=np.asarray(sizes[0][0][1]))
+    path = os.path.join(REPO, "relation_detr_tpu_torch", "data", "font_simplex.npz")
+    np.savez_compressed(path, **table)
+    sys.path.insert(0, REPO)
+    from relation_detr_tpu_torch.data import cv_ops
+
+    cv_ops._font.cache_clear()
+    rng = np.random.RandomState(16)
+    for i in range(200):
+        text = "".join(chars[j] for j in rng.randint(0, len(chars), rng.randint(1, 30)))
+        want = rng.randint(0, 256, (40, 160, 3)).astype(np.uint8)
+        got = want.copy()
+        org = (int(rng.randint(-20, 140)), int(rng.randint(-5, 50)))
+        color = tuple(int(v) for v in rng.randint(0, 256, 3))
+        cv2.putText(want, text, org, face, scale, color, thickness, line)
+        cv_ops.put_text(got, text, org, face, scale, color, thickness, line)
+        assert np.array_equal(got, want), (text, org, color)
+        assert cv_ops.get_text_size(text) == cv2.getTextSize(text, face, scale, thickness)
+
+
 SHIFTS = ((3, -2), (-7, 5), (0, 6), (-1, -1))
 NEAREST_SIZES = ((50, 71), (200, 300), (96, 129))
 JPEG_QUALITIES = (85, 90, 95)
@@ -326,6 +373,9 @@ def main_data_path():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--fill-poly-report"]:
         fill_poly_report()
+    elif sys.argv[1:] == ["--font"]:
+        write_font_table()
     else:
         main()
         main_data_path()
+        write_font_table()

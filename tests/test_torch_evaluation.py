@@ -196,7 +196,8 @@ def test_ground_truth_control_matches_jax(setup):
     np.testing.assert_equal(run["stats"], jax_eval.accumulate_and_summarize(verbose=False))
 
 
-@pytest.mark.parametrize("flags", [["--show-dir", "out"], ["--msda-halos", "4,3,2,2"],
+@pytest.mark.parametrize("flags", [["--msda-impl", "tiled", "--msda-profile", "fast"],
+                                   ["--msda-halos", "4,3,2,2"],
                                    ["--msda-dtype", "bf16"], ["--msda-int8-slab"],
                                    ["--clamp-check", "on"], ["--msda-profile", "fast"]])
 def test_cli_refuses_what_is_not_ported(setup, flags):

@@ -249,6 +249,24 @@ def data_path():
     assert cv_ops.jpeg_roundtrip(np.full((9, 17, 3), 77, np.uint8), 90).shape == (9, 17, 3)
 
 
+def tools_and_drawing():
+    # the op binding, the FLOP formulas, the drawing, the writers and every
+    # tool module: imported, and a box drawn and encoded both ways
+    from relation_detr_tpu_torch.data import image_io
+    from relation_detr_tpu_torch.ops import library  # noqa: F401
+    from relation_detr_tpu_torch.tools import (  # noqa: F401
+        benchmark_model, convert_torch_weights, export_model, make_synth_coco_scale,
+        mc_distribution, visualize_datasets)
+    from relation_detr_tpu_torch.utils import flops, visualize  # noqa: F401
+
+    img = visualize.plot_bounding_boxes_on_image(
+        np.zeros((40, 60, 3), np.uint8), np.array([[5.0, 12.0, 40.0, 30.0]]),
+        np.array([0.9]), np.array([1]), ["a", "b"])
+    assert image_io.encode_jpeg(img)[:2] == b"\xff\xd8"
+    assert image_io.encode_png(img)[:4] == b"\x89PNG"
+
+
+tools_and_drawing()
 data_path()
 eval_and_train_step()
 # a gloo group of one process (parallel/mesh.py): no collective runs
@@ -270,8 +288,9 @@ with msda.msda_defaults(impl="tiled"):
     eval_and_train_step()
 launches = [fn.launches for fn in counters]
 assert launches == [0] * len(counters), f"CPU run launched a kernel: {launches}"
-loaded = [m for m in sys.modules if m in ("jax", "flax", "cv2", "PIL") or m == "relation_detr_tpu"
-          or m.startswith(("jax.", "flax.", "PIL.", "relation_detr_tpu."))]
+loaded = [m for m in sys.modules if m in ("jax", "flax", "cv2", "PIL", "matplotlib")
+          or m == "relation_detr_tpu"
+          or m.startswith(("jax.", "flax.", "PIL.", "matplotlib.", "relation_detr_tpu."))]
 assert not loaded, loaded
 print("ok")
 """
@@ -363,7 +382,9 @@ def test_port_imports_and_runs_without_jax_flax_cv2():
     the loader, the detections function and stream, the evaluator, the CLI
     module); the data path's modules (a sample read through mosaic_detr,
     strong_album and the mask copy-paste, a PNG decode, the JPEG round
-    trip): no kernel launch, and nothing of jax, flax, cv2, PIL or
+    trip); the op binding, the FLOP formulas, the drawing, the image
+    writers and every module of ``relation_detr_tpu_torch/tools``: no kernel
+    launch, and nothing of jax, flax, cv2, PIL, matplotlib or
     relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
