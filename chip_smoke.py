@@ -222,6 +222,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      JPEG the drawing's ``encode_jpeg`` and decoded back on the card
      within phase 7's bar (mean 0.25 levels) of ``cv_ops.jpeg_roundtrip``;
      its seconds printed;
+ 16. (after phase 12, before 10) the JAX package's tiled MSDA settings and
+     the clamp gate: (a) tiled_core_fwd, tiled_core_bwd (two launches
+     bit-identical) and sep_contract_fwd on the operands msda_tiled builds
+     at every geometry of SETTINGS_GRID (tile tokens (10, 8), (12, 8),
+     (12, 10), (14, 8), (16, 8) and (24, 8) at auto halos and margin 1;
+     margin 2; halos (4, 3, 2, 2), (0, 0, 0, 0) and (8, 8, 8, 8)) on the
+     800x1344 and 1216x2016 canvases at B=1 and 2, against their plain
+     versions at every level, level 0 timed in turns with them beside its
+     bound (each kernel row's ``settings_grid``); (b) the flagship detect
+     under each of SETTING_GROUPS (fast halos + overflow 0, halos 2 +
+     overflow 8, tile (24, 8), t_major, slab xy and bm, patch gather, B=2
+     batch unroll, bf16 slab + dot through the separable kernel, int8
+     slab) against the gather's: pre-top-k heads (exact groups at
+     TOL_TILED_EVAL, bf16 at TOL_BF16_UNITS, the rest printed), the
+     encoder's corners off their patch and past the overflow capacity, the
+     p50 of SETTINGS_DETECTS detects, launches a detect; (c) one flagship
+     train forward + backward under impl="tiled" at tile (16, 8) (the
+     one-stage tiled_core_bwd) against the gather's with the kinks and
+     top-k pinned, 24 launches of each tiled kernel; (d) the eval CLI over
+     the split with the seeded weights as an .npz under --msda-impl tiled,
+     with --clamp-check on and with --msda-profile fast: the per-layer
+     clamp fraction and the profile;
  10. torch.profiler, after every timed phase (so that no profiler session
      runs before a p50): the MSDA kernels' device time per launch at each
      phase-3 shape and set, relation_bias_v4_fwd's at N=300, 500, 600,
@@ -256,9 +278,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      11's; vit_dcn_launches from each of phase 12's; dp_launches, each
      process's, from phase 13's steps; data_path_launches of msda_fwd,
      msda_bwd, relation_bias_v4_fwd and ycc_to_rgb from each of phase 14
-     (c)'s runs; op_route_host_us from phase 15 (d)), after JSON lines of
-     the precision profiles and phase 7's, 8's, 9's, 11's, 12's, 13's, 14's
-     and 15's results,
+     (c)'s runs; op_route_host_us from phase 15 (d); settings_grid of the
+     three tiled kernels from phase 16 (a)), after JSON lines of the
+     precision profiles and phase 7's, 8's, 9's, 11's, 12's, 13's, 14's,
+     15's and 16's results,
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -320,7 +343,12 @@ DETECT_RUNS = 15  # timed default detects (the p50 of the eval path)
 TINY_VARIANTS = (("gather", {}, None), ("tiled", dict(impl="tiled"), None),
                  ("tiled_xla + tiled_sep_kernel", dict(impl="tiled_xla", tiled_sep_kernel=True),
                   None),
-                 ("gather + relation v1", {}, 1))
+                 ("gather + relation v1", {}, 1),
+                 # the tiny canvas' patches are smaller than its levels at
+                 # halo 0, so the overflow channel engages
+                 ("tiled + halos 0 + overflow 8",
+                  dict(impl="tiled", tiled_halos=(0, 0, 0, 0), tiled_overflow=8), None),
+                 ("tiled_xla + t_major", dict(impl="tiled_xla", tiled_layout="t_major"), None))
 BOXES_PER_IMAGE = 7
 # the tiled forms' contraction kernels against their plain versions: the
 # forwards sum in another order than the dense one-hot product (1e-5 abs);
@@ -1117,21 +1145,21 @@ def relation_rel_calls(torch, rel, kernel, bias):
             relation_bias.fused_relation_bias(rel, kernel, bias)
 
 
-def tiled_inputs(torch, gen, bs, dev):
+def tiled_inputs(torch, gen, bs, dev, levels=LEVELS):
     """Encoder inputs in the tiled forms' regime: every token samples near
     its own raster position, up to num_points = 4 texels off on each level
     (the reach of the radial offset initialisation, inside the auto halos
     of 5)."""
-    total = sum(h * w for h, w in LEVELS)
+    total = sum(h * w for h, w in levels)
     value = torch.randn(bs, total, 8, 32, generator=gen, device=dev)
     refs = torch.cat([torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
                                                  (torch.arange(h, device=dev) + 0.5) / h,
                                                  indexing="xy"), -1).reshape(-1, 2)
-                      for h, w in LEVELS])
-    texel = torch.tensor([(w, h) for h, w in LEVELS], device=dev, dtype=torch.float32)
-    offs = torch.rand(bs, total, 8, len(LEVELS), 4, 2, generator=gen, device=dev) * 8 - 4
+                      for h, w in levels])
+    texel = torch.tensor([(w, h) for h, w in levels], device=dev, dtype=torch.float32)
+    offs = torch.rand(bs, total, 8, len(levels), 4, 2, generator=gen, device=dev) * 8 - 4
     locs = (refs[None, :, None, None, None] + offs / texel[:, None]).contiguous()
-    attn = torch.rand(bs, total, 8, len(LEVELS), 4, generator=gen, device=dev)
+    attn = torch.rand(bs, total, 8, len(levels), 4, generator=gen, device=dev)
     attn = attn / attn.sum(dim=(-2, -1), keepdim=True)
     return value, locs, attn
 
@@ -1599,7 +1627,11 @@ def check_tiny_train(torch, label, settings, version, family=None, n=4, backbone
     from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
     from relation_detr_tpu_torch.ops import msda
 
-    pin_layers = family is not None or backbone is not None
+    # a capacity-bound overflow channel jumps where a corner's side of its
+    # patch's border flips between the devices (the ranks of the entries
+    # after it shift): held as a family is, on the pinned run
+    pin_layers = family is not None or backbone is not None or bool(
+        settings.get("tiled_overflow"))
     if family is None:
         cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_tiny_test")
         args = cfg.model_args if backbone is None else dict(
@@ -2296,6 +2328,9 @@ def run_flagship_bf16(torch, model32, request, times32, peak32, kernels):
     return model
 
 
+RELATION_PROFILE_RETRIES = 4  # profiles taken again while one sees no device work
+
+
 def check_relation_calls(torch, model, kernels):
     """The flagship decoder's relation module on 900 boxes, 5 calls in
     inference mode under torch.profiler: its only device work must be
@@ -2327,7 +2362,11 @@ def check_relation_calls(torch, model, kernels):
         module(src, tgt)
         torch.cuda.synchronize()
     launches, device = five_calls()
-    if not device:  # a session now and then sees no device activity at all
+    for _ in range(RELATION_PROFILE_RETRIES):
+        if device:
+            break
+        # a session now and then sees no device activity at all (twice in
+        # a row after the train CLI's own profile, on the H100)
         launches, device = five_calls()
     phase(10, f"5 relation-bias calls of the flagship decoder (N = 900): {launches} "
              f"relation_bias_v4_fwd launches, device work {device}")
@@ -5263,6 +5302,387 @@ def run_tools(torch, kernels):
     return result
 
 
+# --- phase 16: the JAX package's tiled MSDA settings and the clamp gate ------
+
+# the documented tilings the three tiled kernels take (tile tokens, halos,
+# margin): the JAX package's tile-size sweep at auto halos and margin 1,
+# margin 2, and halos from the fast profile's to none and 8
+SETTINGS_GRID = tuple(((t, 8), "auto", 1) for t in (10, 12, 14, 16, 24)) + (
+    ((12, 10), "auto", 1), ((12, 8), "auto", 2), ((12, 8), (4, 3, 2, 2), 1),
+    ((12, 8), (0, 0, 0, 0), 1), ((12, 8), (8, 8, 8, 8), 1))
+SETTINGS_CANVASES = (CANVAS, LARGE_CANVAS)
+# flagship B=1 detects under each setting group: (label, settings, batch,
+# tolerance class: "exact" at TOL_TILED_EVAL, "bf16" in bf16 units (held at
+# TOL_BF16_UNITS), "measured": printed, not held)
+SETTING_GROUPS = (
+    ("fast halos + overflow 0", dict(impl="tiled", tiled_halos=(4, 3, 2, 2), tiled_overflow=0),
+     1, "measured"),
+    ("halos 2 + overflow 8", dict(impl="tiled", tiled_halos=(2, 2, 2, 2), tiled_overflow=8), 1,
+     "measured"),
+    ("tile (24, 8)", dict(impl="tiled", tiled_tile_tokens=(24, 8)), 1, "exact"),
+    ("t_major", dict(impl="tiled_xla", tiled_layout="t_major"), 1, "exact"),
+    ("slab xy", dict(impl="tiled_xla", tiled_slab_order="xy"), 1, "exact"),
+    ("slab bm", dict(impl="tiled_xla", tiled_slab_order="bm"), 1, "exact"),
+    ("patch gather", dict(impl="tiled_xla", tiled_patch_mode="gather"), 1, "exact"),
+    ("B=2 batch unroll", dict(impl="tiled_xla", tiled_batch_unroll=True,
+                              tiled_slab_order="auto"), 2, "exact"),
+    ("bf16 slab + dot", dict(impl="tiled_xla", tiled_dtype="bf16", tiled_dot_bf16=True,
+                             tiled_sep_kernel=True), 1, "bf16"),
+    ("int8 slab", dict(impl="tiled_xla", tiled_int8_slab=True), 1, "measured"),
+)
+TOL_BF16_UNITS = 8.0  # the heads after a bf16 contraction per level and layer
+SETTINGS_DETECTS = 10
+SETTINGS_TRAIN_TILES = (16, 8)
+CLAMP_CLI_IMAGES = 4  # (d): the split's first two batches
+
+
+def grid_geometry(torch, gen, canvas, bs, tiles, halos, margin):
+    """The tiled operands at one geometry: inputs in the tiled regime on
+    ``canvas``'s levels, and per level the entries, the soft one-hot axes,
+    the patch and a cotangent, as ``msda_tiled`` builds them."""
+    from relation_detr_tpu_torch.ops import msda, msda_tiled
+
+    levels = canvas_levels(canvas)
+    value, locs, attn = tiled_inputs(torch, gen, bs, "cuda", levels)
+    with torch.no_grad(), msda.msda_defaults(tiled_tile_tokens=tiles, tiled_halos=halos,
+                                             tiled_margin=margin):
+        consts, ops = msda_tiled.tiled_level_operands(value, levels, locs, attn)
+    out = []
+    for op in ops:
+        x0i, y0i, fx, fy, at, bx, by = op["sample"]
+        ph, pw, h, w = op["ph"], op["pw"], op["h"], op["w"]
+        with torch.no_grad():
+            m, wt = msda_tiled._tiled_entries(x0i, y0i, fx, fy, at, bx, by, ph, pw, h, w)
+            oy = msda_tiled._axis_soft(y0i, fy, by, ph, h, at).contiguous()
+            ox = msda_tiled._axis_soft(x0i, fx, bx, pw, w, None).contiguous()
+        g = torch.randn(bs, consts["nt"], consts["T"], 256, generator=gen, device="cuda")
+        out.append(dict(m=m, wt=wt, oy=oy, ox=ox, patch=op["patch"], g=g, ph=ph, pw=pw))
+    return consts, out
+
+
+def check_settings_kernels(torch, kernels):
+    """(a) tiled_core_fwd, tiled_core_bwd and sep_contract_fwd at every
+    geometry of SETTINGS_GRID on both canvases at B=1 and 2, on the operands
+    msda_tiled builds, against their plain versions at every level (fwd and
+    sep at TOL_TILED, bwd at TOL_BWD_REL of each max, two bwd launches
+    bit-identical); level 0, the largest patch, timed in turns with the
+    plain versions, with its bound (phase 3's rule)."""
+    from relation_detr_tpu_torch.ops import msda_tiled
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dims = (8, 32)
+    rows = {k: [] for k in ("tiled_core_fwd", "tiled_core_bwd", "sep_contract_fwd")}
+    for canvas in SETTINGS_CANVASES:
+        for bs in (1, 2):
+            for tiles, halos, margin in SETTINGS_GRID:
+                consts, ops = grid_geometry(torch, gen, canvas, bs, tiles, halos, margin)
+                nt, t = consts["nt"], consts["T"]
+                errs = {k: 0.0 for k in rows}
+                for lvl, op in enumerate(ops):
+                    m, wt, patch, g = op["m"], op["wt"], op["patch"], op["g"]
+                    with torch.no_grad():
+                        got = msda_tiled.tiled_matmul_core(m, wt, patch, dims)
+                        want = msda_tiled.tiled_core_reference(m, wt, patch, dims)
+                        errs["tiled_core_fwd"] = max(errs["tiled_core_fwd"],
+                                                     (got - want).abs().max().item())
+                        del got, want
+                        got = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
+                        again = msda_tiled.tiled_core_backward(m, wt, patch, g, dims)
+                        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                            raise AssertionError(f"tiled_core_bwd {canvas} B={bs} {tiles} "
+                                                 f"{halos} {margin} level {lvl}: two launches "
+                                                 "differ")
+                        want = msda_tiled.tiled_core_backward_reference(m, wt, patch, g, dims)
+                        errs["tiled_core_bwd"] = max(errs["tiled_core_bwd"], *(
+                            max_rel(a, b) for a, b in zip(got, want)))
+                        del got, again, want
+                        got = msda_tiled.sep_contract_fused(op["oy"], op["ox"], patch)
+                        want = msda_tiled.sep_contract_reference(op["oy"], op["ox"], patch)
+                        errs["sep_contract_fwd"] = max(errs["sep_contract_fwd"],
+                                                       (got - want).abs().max().item())
+                        del got, want
+                for name, tol in (("tiled_core_fwd", TOL_TILED), ("tiled_core_bwd", TOL_BWD_REL),
+                                  ("sep_contract_fwd", TOL_TILED)):
+                    if not (errs[name] <= tol):
+                        raise AssertionError(f"{name} {canvas} B={bs} tiles {tiles} halos "
+                                             f"{halos} margin {margin}: error {errs[name]}")
+                op = ops[0]
+                m, wt, patch, g, oy, ox = (op[k] for k in ("m", "wt", "patch", "g", "oy", "ox"))
+                ph, pw = op["ph"], op["pw"]
+                with torch.no_grad():
+                    times = {
+                        "tiled_core_fwd": in_turns(
+                            lambda: msda_tiled.tiled_core_reference(m, wt, patch, dims),
+                            lambda: msda_tiled.tiled_matmul_core(m, wt, patch, dims), 1, 3),
+                        "tiled_core_bwd": in_turns(
+                            lambda: msda_tiled.tiled_core_backward_reference(m, wt, patch, g,
+                                                                             dims),
+                            lambda: msda_tiled.tiled_core_backward(m, wt, patch, g, dims), 1, 3),
+                        "sep_contract_fwd": in_turns(
+                            lambda: msda_tiled.sep_contract_reference(oy, ox, patch),
+                            lambda: msda_tiled.sep_contract_fused(oy, ox, patch), 1, 3),
+                    }
+                out_bytes = size(g)
+                bounds = {
+                    # per entry and channel one FMA
+                    "tiled_core_fwd": bound(size(m, wt, patch) + out_bytes, 2 * m.numel() * 32),
+                    # dw and dpatch out; per entry and channel the dw product
+                    # and sum and the dpatch FMA
+                    "tiled_core_bwd": bound(size(m, wt, patch, g) + size(wt, patch),
+                                            4 * m.numel() * 32),
+                    # the A build (P FMAs per element) and the contraction
+                    "sep_contract_fwd": bound(size(oy, ox, patch) + out_bytes,
+                                              2 * bs * nt * 8 * ph * pw * t * (4 + 32)),
+                }
+                label = (f"{canvas[0]}x{canvas[1]} B={bs} tiles {tiles} halos {halos} margin "
+                         f"{margin}: level 0 M={ph * pw} ({ph}x{pw}) T={t} nt={nt}")
+                for name in rows:
+                    ms, plain_ms = times[name]
+                    b_ms, b_by = bounds[name]
+                    rows[name].append(dict(canvas=list(canvas), batch=bs, tiles=list(tiles),
+                                           halos=halos if halos == "auto" else list(halos),
+                                           margin=margin, level0_rows=ph * pw, level0_pw=pw,
+                                           slots=t, max_err=errs[name], ms=ms,
+                                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+                phase(16, f"(a) {label}: " + "; ".join(
+                    f"{name} err {errs[name]:.2e}, {times[name][0]:.4f} ms (plain "
+                    f"{times[name][1]:.4f}, bound {bounds[name][0]:.4f} {bounds[name][1]})"
+                    for name in rows))
+                del consts, ops, op, m, wt, patch, g, oy, ox
+    for name, grid in rows.items():
+        kernels[name]["settings_grid"] = grid
+    return rows
+
+
+def overflow_shares(levels, locs):
+    """Of the bilinear corners of the encoder call ``locs`` (B, S, H, L, P,
+    2) on the valid slots, at the settings' geometry: the share that leaves
+    its tile's patch inside the level, and the share of those past the
+    settings' overflow capacity per (tile, head, level) (all of them at
+    capacity 0), by the op's own flags and ranks."""
+    from relation_detr_tpu_torch.ops import msda_tiled
+
+    _, _, halos_auto = msda_tiled.tiled_geometry(levels, locs.shape[4])
+    k = msda_tiled.overflow_capacity(halos_auto)
+    valid, per_level = msda_tiled.off_patch_entries(levels, locs)
+    off = over = corners = 0
+    for bad, rank, _ in per_level:
+        bad = bad & valid
+        off += int(bad.sum())
+        over += int((bad & (rank >= k)).sum())
+        corners += int(valid.sum()) * bad.shape[0] * bad.shape[2] * bad.shape[3]
+    return off / corners, over / corners
+
+
+def run_settings_detects(torch, model, kernels):
+    """(b) the flagship detect under each of SETTING_GROUPS against the
+    gather's on the same full-canvas requests: the pre-top-k class logits
+    and boxes of every proposal, the encoder's corner shares off the patch
+    and past the overflow capacity, the p50 of SETTINGS_DETECTS detects and
+    the launches of one detect per kernel."""
+    from relation_detr_tpu_torch.inference import detect
+    from relation_detr_tpu_torch.models.attention import record_sampling
+    from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias
+
+    counted = {"msda_fwd": msda.multi_scale_deformable_attention,
+               "relation_bias_v4_fwd": relation_bias.relation_bias_v4,
+               "tiled_core_fwd": msda_tiled.tiled_matmul_core,
+               "sep_contract_fwd": msda_tiled.sep_contract_fused}
+    was_training = model.training
+    model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    h, w = REQUESTS[3]
+    images = torch.randn(2, *CANVAS, 3, generator=gen, device="cuda")
+    mask = torch.zeros(2, *CANVAS, dtype=torch.bool, device="cuda")
+    sizes = [[h, w]] * 2
+    dtypes = {"bf16": torch.bfloat16}
+    base, found = {}, {}
+    for label, settings, bs, tol in (("gather", {}, 1, None), ("gather B=2", {}, 2, None)) + \
+            SETTING_GROUPS:
+        settings = {k: dtypes.get(v, v) if k == "tiled_dtype" else v for k, v in settings.items()}
+        with msda.msda_defaults(**settings):
+            for fn in counted.values():
+                fn.launches = 0
+            with TopkRecorder() as rec, record_sampling() as records:
+                detect(model, images[:bs], mask[:bs], sizes[:bs], 100)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+            encoder = [r for r in records if r[1].shape[1] == sum(a * b for a, b in r[3])]
+            shares = overflow_shares(LEVELS, encoder[0][1]) if settings else (0.0, 0.0)
+            clamp = float(msda_tiled.tiled_clamp_fraction(LEVELS, *encoder[0][1:3])) \
+                if settings else 0.0
+            del records, encoder
+            times = []
+            for _ in range(SETTINGS_DETECTS):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                detect(model, images[:bs], mask[:bs], sizes[:bs], 100)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        proposals = rec.candidates[0]
+        if not settings:
+            base[bs] = proposals
+            phase(16, f"(b) [{label}] p50 {statistics.median(times):.3f} ms; launches {launches}")
+            continue
+        pre = []
+        for a, b in zip(proposals, base[bs]):
+            finite = torch.isfinite(b)
+            if not torch.equal(finite, torch.isfinite(a)):
+                raise AssertionError(f"(b) [{label}]: other proposals are invalid")
+            pre.append((a[finite] - b[finite]).abs().max().item())
+        units = max((a - b)[torch.isfinite(b)].abs().max().item() /
+                    (b[torch.isfinite(b)].abs().max().item() * BF16_EPS)
+                    for a, b in zip(proposals, base[bs]))
+        if tol == "exact" and not (max(pre) <= TOL_TILED_EVAL):
+            FAILURES.append(f"(b) [{label}]: pre-top-k differs from the gather by {pre}")
+        if tol == "bf16" and not (units <= TOL_BF16_UNITS):
+            FAILURES.append(f"(b) [{label}]: pre-top-k {units:.2f} bf16 units from the gather")
+        if not any(k in launches for k in ("tiled_core_fwd", "sep_contract_fwd")) and \
+                settings.get("impl") == "tiled":
+            raise AssertionError(f"(b) [{label}]: no tiled kernel launched")
+        found[label] = dict(pre_topk_abs=pre, bf16_units=units, off_patch_share=shares[0],
+                            over_capacity_share=shares[1], clamp_fraction_weighted=clamp,
+                            p50_ms=statistics.median(times), launches=launches, batch=bs,
+                            held=tol)
+        phase(16, f"(b) [{label}] flagship B={bs} detect vs gather: pre-top-k class logits "
+                  f"{pre[0]:.3e}, boxes {pre[1]:.3e} ({units:.2f} bf16 units of the max; held "
+                  f"{tol}); corners off the patch {shares[0]:.3e}, past the overflow capacity "
+                  f"{shares[1]:.3e}, attention-weighted clamp fraction {clamp:.3e}; p50 "
+                  f"{statistics.median(times):.3f} ms over {SETTINGS_DETECTS}; launches {launches}")
+    model.train(was_training)
+    return found
+
+
+def settings_train_step(torch, model, cfg, batch, settings, record=None, topk=None):
+    """One flagship train forward + backward outside the step (the same
+    denoising draws), its loss terms and gradients; ``record`` / ``topk``
+    pin the kinks and the two-stage top-k to another run's."""
+    from relation_detr_tpu_torch.losses.criterion import relation_detr_loss
+    from relation_detr_tpu_torch.ops import msda
+
+    b = batch
+    with TopkRecorder() if topk is None else PinnedTopk(topk) as rec, \
+            PinnedKinks(model, record, True) as pins, msda.msda_defaults(**settings):
+        outputs = model(b["images"], b["mask"], b["gt_labels"], b["gt_boxes"], b["gt_valid"],
+                        train=True, generator=torch.Generator(device="cuda").manual_seed(1))
+        total, losses = relation_detr_loss(cfg.build_criterion(), outputs, b["gt_labels"],
+                                           b["gt_boxes"], b["gt_valid"], cfg.hybrid_assign)
+        total.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return dict(losses={k: v.item() for k, v in losses.items()}, grads=grads, pins=pins,
+                topk=getattr(rec, "indices", None))
+
+
+def run_settings_train(torch, model, kernels):
+    """(c) one flagship train forward + backward under impl="tiled" at tile
+    SETTINGS_TRAIN_TILES (tiled_core_bwd's one-stage form at level 0)
+    against the gather's, the kinks and top-k pinned to the gather run's:
+    loss terms at TOL_TRAIN_LOSS, every gradient at TOL_TRAIN_GRAD of its
+    leaf's max; launches of the tiled kernels."""
+    from relation_detr_tpu_torch.ops import msda_tiled, patch_scatter
+
+    cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_800_1333")
+    was_training = model.training
+    model.train()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    batch = synthetic_batch(torch, gen, 1, 100, CANVAS, "cuda")
+    try:
+        gather = settings_train_step(torch, model, cfg, batch, {})
+        counters = (msda_tiled.tiled_matmul_core, msda_tiled.tiled_core_backward,
+                    patch_scatter.window_accumulate)
+        for fn in counters:
+            fn.launches = 0
+        tiled = settings_train_step(torch, model, cfg, batch,
+                                    dict(impl="tiled", tiled_tile_tokens=SETTINGS_TRAIN_TILES),
+                                    record=gather["pins"], topk=gather["topk"])
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in counters]
+    finally:
+        model.train(was_training)
+    if launches != [24, 24, 24]:
+        raise AssertionError(f"(c) tiled train step: tiled_core_fwd / tiled_core_bwd / "
+                             f"window_accumulate launches {launches}, expected 24 each")
+    loss_err = max(abs(tiled["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in gather["losses"].items())
+    ratios = {n: (tiled["grads"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+              for n, g in gather["grads"].items()}
+    name, err = max(ratios.items(), key=lambda kv: kv[1])
+    flips = tiled["pins"].flips
+    phase(16, f"(c) flagship train forward + backward B=1 under impl=tiled, tiles "
+              f"{SETTINGS_TRAIN_TILES}, against the gather's (kinks and top-k pinned; "
+              f"{flips['msda']} MSDA samples in another cell, {flips['relu']} ReLU inputs of "
+              f"another sign): {len(gather['losses'])} loss terms within {loss_err:.3e} rel, "
+              f"{len(ratios)} grads within {err:.3e} of each leaf's max ({name}); launches "
+              f"tiled_core_fwd / tiled_core_bwd / window_accumulate {launches}")
+    if loss_err > TOL_TRAIN_LOSS or err > TOL_TRAIN_GRAD:
+        FAILURES.append(f"(c) tiled train step at tiles {SETTINGS_TRAIN_TILES}: loss terms "
+                        f"{loss_err:.3e}, grad of {name} {err:.3e}")
+    kernels["tiled_core_bwd"]["settings_train_launches"] = launches[1]
+    return dict(loss_rel_err=loss_err, grad_rel_err=err, worst_leaf=name, launches=launches)
+
+
+def run_clamp_cli(torch):
+    """(d) the eval CLI over the committed split's first CLAMP_CLI_IMAGES
+    images with the seeded flagship weights (seed 0, the CLI's own) as an
+    .npz: --msda-impl tiled --clamp-check on (the per-layer
+    fraction logged), then --msda-profile fast (the fast halos forced:
+    the gate measures them, the threshold at 1 so that it logs)."""
+    import tempfile
+
+    from relation_detr_tpu_torch import test as eval_cli
+    from relation_detr_tpu_torch.ops import msda, msda_tiled
+    from relation_detr_tpu_torch.utils.weights import save_weights
+
+    coco = os.path.join(ROOT, EVAL_DATA, "synth_coco")
+    found = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "flagship.npz")
+        cfg = importlib.import_module(CONFIGS + "relation_detr_resnet50_800_1333")
+        save_weights(weights, cfg.build_model(device="cuda", seed=0))
+        base = ["--coco-path", coco, "--batch-size", str(EVAL_BATCH), "--device", "cuda",
+                "--max-images", str(CLAMP_CLI_IMAGES), "--checkpoint", weights,
+                "--msda-impl", "tiled"]
+        for label, extra in (("--clamp-check on", ["--clamp-check", "on"]),
+                             ("--msda-profile fast", ["--msda-profile", "fast",
+                                                      "--clamp-threshold", "1"])):
+            with msda.msda_defaults():
+                msda_tiled.tiled_matmul_core.launches = 0
+                got = eval_cli.main(base + extra)
+                halos = msda._MSDA_DEFAULTS["tiled_halos"]
+            clamp = got["clamp"]
+            if not clamp or not clamp.get("fractions") or \
+                    msda_tiled.tiled_matmul_core.launches == 0:
+                raise AssertionError(f"(d) eval CLI {label}: no clamp fraction logged or no "
+                                     "tiled_core_fwd launch")
+            if not all(math.isfinite(v) for v in got["stats"].values()):
+                raise AssertionError(f"(d) eval CLI {label}: non-finite stats")
+            found[label] = dict(fractions=clamp["fractions"], profile=clamp["profile"],
+                                halos=halos if halos == "auto" else list(halos),
+                                AP=got["stats"]["AP"], images=got["images"],
+                                tiled_core_fwd=msda_tiled.tiled_matmul_core.launches)
+            phase(16, f"(d) eval CLI {' '.join(base[-2:] + extra)} over {got['images']} images: "
+                      f"clamp fraction per layer {clamp['fractions']}, profile "
+                      f"{clamp['profile']}, halos {halos}; AP {got['stats']['AP']:.4f}; "
+                      f"{msda_tiled.tiled_matmul_core.launches} tiled_core_fwd launches")
+    return found
+
+
+def run_settings(torch, kernels, model):
+    """Phase 16: (a) the kernels over the settings grid, (b) the flagship
+    detect under each setting group, (c) a tiled train step at tile (16,
+    8), (d) the eval CLI's clamp gate."""
+    out = {"kernels": check_settings_kernels(torch, kernels)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["detects"] = run_settings_detects(torch, model, kernels)
+    out["train"] = run_settings_train(torch, model, kernels)
+    out["clamp_cli"] = run_clamp_cli(torch)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5323,6 +5743,7 @@ def main() -> int:
     families = timed(9, run_families, torch, kernels)
     large = timed(11, run_large_backbones, torch, kernels)
     vit_dcn = timed(12, run_vit_dcn, torch, kernels, model)
+    settings = timed(16, run_settings, torch, kernels, model)
     timed(10, run_profiles, torch)
     precision = timed(10, check_precision_profiles, torch, model, model16, step16)
     del model16, step16
@@ -5359,6 +5780,8 @@ def main() -> int:
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"data_path": data_path}), flush=True)
     print(json.dumps({"tools": tools}), flush=True)
+    print(json.dumps({"settings": {k: v for k, v in settings.items() if k != "kernels"}}),
+          flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,11 @@
 //     quarter-warp reads one whole 128-byte patch row, so the slice needs
 //     no swizzle to be free of bank conflicts.
 //   Shared memory 2 x (M D + 2 E T) floats: 144,640 bytes at level 0
-//   (M = 437), one block per SM; 98,048 at level 1, two. The design that
+//   (M = 437), one block per SM; 98,048 at level 1, two. A geometry whose
+//   two stages exceed a block's shared memory (none of the JAX package's
+//   documented tilings: tile (24, 8) on the 1216x2016 canvas needs 221,952
+//   bytes) takes one stage, staging the next item after the current one is
+//   computed. The design that
 //   gathers patch rows through L1 instead (no staging, one 256-thread
 //   block per item, entries in chunks of 8 with their loads in flight
 //   together) took 0.071 ms at level 0 against this one's 0.050, and
@@ -86,10 +90,15 @@
 //   (M = 437), so one block of 16 warps per SM. Three blocks per SM would
 //   need 75 KB each, less than one item's staging (88.7 KB at level 0);
 //   the second buffer's overlap of loads with compute is taken over the
-//   occupancy. (The port's tiling gives M <= 437 at every level: tiles of
-//   at most 12 x 8 tokens plus halos of 5 and a margin of 1.) D = C / H
-//   must be 4, 8, 16 or 32 (16-byte chunks, D / 4 lanes per dpatch row)
-//   and E x T a multiple of 4.
+//   occupancy. Where two stages do not fit (the larger tiles, halos and
+//   margins of the JAX package's settings: tile (16, 8) at M = 494, T = 160
+//   needs 260,608 bytes, halos of 8 at M = 725 314,048), the kernel takes
+//   one stage and stages the next item after the current one is computed,
+//   so its loads no longer overlap compute: 212,672 bytes at the largest,
+//   tile (24, 8) on the 1216x2016 canvas (M = 627, T = 240). A geometry
+//   that one stage does not fit raises. D = C / H must be 4, 8, 16 or 32
+//   (16-byte chunks, D / 4 lanes per dpatch row) and E x T a multiple of
+//   4.
 // - sep_contract_fwd: per (image, tile, head) the small GEMM out (T x D) =
 //   A^T (T x M) patch (M x D), K = M <= 437, with A = sum_p oy_p (x) ox_p
 //   built on the fly. Bound on the card: the operations (P + D FMAs per
@@ -104,7 +113,8 @@
 //   * the patch slice (M x D) is staged once with cp.async; ox for the
 //     block's 128 token slots sits in registers (two threads per slot,
 //     taking the even and the odd patch columns, at most 10 each, P <= 4
-//     points), and oy for the next chunk's patch rows is loaded into
+//     points; a patch wider than 20 takes the kernel's form with 16 each,
+//     one block per SM), and oy for the next chunk's patch rows is loaded into
 //     registers while the current chunk is contracted;
 //   * A is built in chunks of whole patch rows y (ky = 40 / pw rows, at
 //     most 4) into two shared buffers of 40 x 128: each element P FMAs
@@ -115,8 +125,9 @@
 //     channels, one float4 of A and one of the patch per row (two
 //     shared-memory wavefronts per warp for 16 FMAs), rows in ascending
 //     order. Shared memory 96,896 bytes at level 0 (M = 437, D = 32), two
-//     blocks per SM. D must be 4, 8, 16 or 32, pw <= 20 (the port's tiling
-//     gives pw <= 19: 8 columns per tile, halos of 5, a margin of 1).
+//     blocks per SM. D must be 4, 8, 16 or 32, pw <= 32 (the default tiling
+//     gives pw <= 19: 8 columns per tile, halos of 5, a margin of 1; tile
+//     (12, 10) gives 21, halos of 8 give 25).
 //
 // Every kernel launches on the caller's stream; the entries return
 // cudaGetLastError().
@@ -162,6 +173,7 @@ struct FwdShape {
   int64_t items;  // B * nt * H
   int H, E, T, M, C, ET;
   int ps_floats;  // the staged patch slice, M x D
+  int stages;     // stage buffers: 2 (prefetch the next item) or 1
 };
 
 constexpr int kFwdThreads = 512;
@@ -204,13 +216,19 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   fwd_stage<DQ>(smem, s, item, m, w, patch);  // the grid has at most s.items blocks
   cp_async_commit();
   for (int k = 0; item < s.items; item += gridDim.x, ++k) {
-    // prefetch the next item into the other buffer, then wait for this one
+    // two stages: prefetch the next item into the other buffer, then wait
+    // for this one; one stage: wait for this one, stage the next after it
     const int64_t next = item + gridDim.x;
-    if (next < s.items) fwd_stage<DQ>(smem + ((k + 1) & 1) * stage, s, next, m, w, patch);
-    cp_async_commit();
-    cp_async_wait<1>();
+    const bool two = s.stages == 2;
+    if (two) {
+      if (next < s.items) fwd_stage<DQ>(smem + ((k + 1) & 1) * stage, s, next, m, w, patch);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const float* buf = smem + (k & 1) * stage;
+    const float* buf = smem + (two ? (k & 1) * stage : 0);
     const float4* ps = reinterpret_cast<const float4*>(buf) + q;  // row r at ps[r * DQ]
     const int* ms = reinterpret_cast<const int*>(buf + s.ps_floats);
     const float* ws = buf + s.ps_floats + s.ET;
@@ -227,14 +245,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       }
       og[static_cast<int64_t>(t) * (s.C / 4)] = acc;
     }
-    __syncthreads();  // the buffer is free for the stage after next
+    __syncthreads();  // the buffer is free for the next stage
+    if (!two && next < s.items) {
+      fwd_stage<DQ>(smem, s, next, m, w, patch);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
 }
 
-// Two stage buffers of the patch slice, m and w.
+// The stage buffers of the patch slice, m and w.
 int64_t fwd_smem_bytes(const FwdShape& s) {
-  return 2 * (static_cast<int64_t>(s.ps_floats) + 2 * s.ET) * 4;
+  return s.stages * (static_cast<int64_t>(s.ps_floats) + 2 * s.ET) * 4;
 }
 
 // --- tiled_core_bwd ------------------------------------------------------------
@@ -259,6 +281,7 @@ struct BwdShape {
   int ps_floats, gs_floats;  // swizzled slices, whole 128-byte lines
   int stage_floats;          // patch slice, g slice, m, w
   int hist_ints;
+  int stages;                // stage buffers: 2 (prefetch the next item) or 1
 };
 
 BwdShape bwd_shape(int64_t B, int64_t nt, int64_t H, int64_t E, int64_t T, int64_t M,
@@ -276,12 +299,13 @@ BwdShape bwd_shape(int64_t B, int64_t nt, int64_t H, int64_t E, int64_t T, int64
   s.gs_floats = static_cast<int>(round_up(T * D, 32));
   s.stage_floats = s.ps_floats + s.gs_floats + 2 * s.ET;
   s.hist_ints = static_cast<int>(round_up(M * kBwdWarps, 4));  // then 32 ints of scan scratch
+  s.stages = 2;
   return s;
 }
 
-// Two stage buffers, the histogram, the scan scratch and the sorted entries.
+// The stage buffers, the histogram, the scan scratch and the sorted entries.
 int64_t bwd_smem_bytes(const BwdShape& s) {
-  return (2 * static_cast<int64_t>(s.stage_floats) + s.hist_ints + 32) * 4 +
+  return (s.stages * static_cast<int64_t>(s.stage_floats) + s.hist_ints + 32) * 4 +
          static_cast<int64_t>(s.ET) * sizeof(BwdEntry);
 }
 
@@ -468,22 +492,32 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                           const float* __restrict__ patch, const float* __restrict__ g,
                           float* __restrict__ dw, float* __restrict__ dpatch, BwdShape s) {
   extern __shared__ __align__(16) float smem[];  // stage buffers, hist, scan scratch, sorted
-  int* hist = reinterpret_cast<int*>(smem + 2 * s.stage_floats);
+  int* hist = reinterpret_cast<int*>(smem + s.stages * s.stage_floats);
   int* warp_sums = hist + s.hist_ints;
   BwdEntry* sorted = reinterpret_cast<BwdEntry*>(warp_sums + 32);
   int64_t item = blockIdx.x;
   bwd_stage<DQ>(smem, s, item, m, w, patch, g);  // the grid has at most s.items blocks
   cp_async_commit();
   for (int k = 0; item < s.items; item += gridDim.x, ++k) {
-    // prefetch the next item into the other buffer, then wait for this one
+    // two stages: prefetch the next item into the other buffer, then wait
+    // for this one; one stage: wait for this one, stage the next after it
     const int64_t next = item + gridDim.x;
-    if (next < s.items)
-      bwd_stage<DQ>(smem + ((k + 1) & 1) * s.stage_floats, s, next, m, w, patch, g);
-    cp_async_commit();
-    cp_async_wait<1>();
+    const bool two = s.stages == 2;
+    if (two) {
+      if (next < s.items)
+        bwd_stage<DQ>(smem + ((k + 1) & 1) * s.stage_floats, s, next, m, w, patch, g);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    bwd_compute<DQ>(smem + (k & 1) * s.stage_floats, hist, sorted, warp_sums, s, item, dw,
-                    dpatch);
+    bwd_compute<DQ>(smem + (two ? (k & 1) * s.stage_floats : 0), hist, sorted, warp_sums, s,
+                    item, dw, dpatch);  // ends synchronised: the buffer is free
+    if (!two && next < s.items) {
+      bwd_stage<DQ>(smem, s, next, m, w, patch, g);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
 }
@@ -494,7 +528,10 @@ constexpr int kSepThreads = 256;
 constexpr int kSepTokens = 128;     // token slots per pass, one per build thread pair
 constexpr int kSepChunkRows = 40;   // most A rows per chunk (whole patch rows y)
 constexpr int kSepMaxKy = 4;        // most patch rows y per chunk
-constexpr int kSepXSlots = 10;      // patch columns per build thread: pw <= 2 x 10
+// patch columns per build thread, a template argument: pw <= 2 x 10, or
+// pw <= 2 x 16 (the wider halos and tiles; one block per SM's registers)
+constexpr int kSepXSlotsNarrow = 10;
+constexpr int kSepXSlotsWide = 16;
 constexpr int kSepMaxP = 4;         // points per level
 
 struct SepShape {
@@ -518,15 +555,16 @@ __device__ __forceinline__ void sep_load_oy(float (&oyv)[kSepMaxKy][kSepMaxP], c
 
 // Builds A chunk rows (y - y0) pw + x for this thread's token slot and
 // columns x = xh, xh + 2, ...: A = sum_p oy[p, y, t] ox[p, x, t].
+template <int XS>
 __device__ __forceinline__ void sep_build(float* a, const float (&oyv)[kSepMaxKy][kSepMaxP],
-                                          const float (&oxv)[kSepMaxP][kSepXSlots],
+                                          const float (&oxv)[kSepMaxP][XS],
                                           const SepShape& s, int y0, int tl, int xh) {
   const int ny = min(s.ky, s.ph - y0);
 #pragma unroll
   for (int yy = 0; yy < kSepMaxKy; ++yy) {
     if (yy >= ny) break;
 #pragma unroll
-    for (int i = 0; i < kSepXSlots; ++i) {
+    for (int i = 0; i < XS; ++i) {
       const int x = xh + 2 * i;
       if (x >= s.pw) break;
       float v = oyv[yy][0] * oxv[0][i];
@@ -539,8 +577,8 @@ __device__ __forceinline__ void sep_build(float* a, const float (&oyv)[kSepMaxKy
 
 // One block per (image, tile, head): out (T x D) = A^T (T x M) patch (M x D)
 // as a small GEMM over K = M, A built chunk by chunk (see the header).
-template <int DQ>
-__global__ void __launch_bounds__(kSepThreads, 2)
+template <int DQ, int XS>
+__global__ void __launch_bounds__(kSepThreads, XS <= kSepXSlotsNarrow ? 2 : 1)
     sep_contract_fwd_kernel(const float* __restrict__ oy, const float* __restrict__ ox,
                             const float* __restrict__ patch, float* __restrict__ out,
                             SepShape s) {
@@ -568,18 +606,18 @@ __global__ void __launch_bounds__(kSepThreads, 2)
   for (int t0 = 0; t0 < s.T; t0 += kSepTokens) {
     const int t = t0 + tl;
     const bool tv = t < s.T;
-    float oxv[kSepMaxP][kSepXSlots];
+    float oxv[kSepMaxP][XS];
 #pragma unroll
     for (int p = 0; p < kSepMaxP; ++p)
 #pragma unroll
-      for (int i = 0; i < kSepXSlots; ++i) {
+      for (int i = 0; i < XS; ++i) {
         const int x = xh + 2 * i;
         oxv[p][i] = (tv && x < s.pw && p < s.P)
                         ? oxr[(static_cast<int64_t>(p) * s.pw + x) * s.T + t] : 0.f;
       }
     float oyv[kSepMaxKy][kSepMaxP];
     sep_load_oy(oyv, oyr, s, 0, t, tv);
-    sep_build(as, oyv, oxv, s, 0, tl, xh);
+    sep_build<XS>(as, oyv, oxv, s, 0, tl, xh);
     float4 acc[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -606,7 +644,7 @@ __global__ void __launch_bounds__(kSepThreads, 2)
         }
       }
       if (more)
-        sep_build(as + ((k + 1) & 1) * kSepChunkRows * kSepTokens, oyv, oxv, s,
+        sep_build<XS>(as + ((k + 1) & 1) * kSepChunkRows * kSepTokens, oyv, oxv, s,
                   (k + 1) * s.ky, tl, xh);
       __syncthreads();
     }
@@ -686,16 +724,24 @@ int launch_tiled_core_bwd(const int* m, const float* w, const float* patch, cons
   RDETR_RETURN_LAUNCH_STATUS();
 }
 
+template <int DQ, int XS>
+int launch_sep_contract_xs(const float* oy, const float* ox, const float* patch, float* out,
+                           int64_t items, const SepShape& s, cudaStream_t stream) {
+  const int64_t smem = (s.ps_floats + 2 * kSepChunkRows * kSepTokens) * 4;
+  const int code =
+      allow_smem(reinterpret_cast<const void*>(sep_contract_fwd_kernel<DQ, XS>), smem);
+  if (code != 0) return code;
+  sep_contract_fwd_kernel<DQ, XS><<<static_cast<unsigned>(items), kSepThreads, smem, stream>>>(
+      oy, ox, patch, out, s);
+  RDETR_RETURN_LAUNCH_STATUS();
+}
+
 template <int DQ>
 int launch_sep_contract(const float* oy, const float* ox, const float* patch, float* out,
                         int64_t items, const SepShape& s, cudaStream_t stream) {
-  const int64_t smem = (s.ps_floats + 2 * kSepChunkRows * kSepTokens) * 4;
-  const int code =
-      allow_smem(reinterpret_cast<const void*>(sep_contract_fwd_kernel<DQ>), smem);
-  if (code != 0) return code;
-  sep_contract_fwd_kernel<DQ><<<static_cast<unsigned>(items), kSepThreads, smem, stream>>>(
-      oy, ox, patch, out, s);
-  RDETR_RETURN_LAUNCH_STATUS();
+  if (s.pw <= 2 * kSepXSlotsNarrow)
+    return launch_sep_contract_xs<DQ, kSepXSlotsNarrow>(oy, ox, patch, out, items, s, stream);
+  return launch_sep_contract_xs<DQ, kSepXSlotsWide>(oy, ox, patch, out, items, s, stream);
 }
 
 }  // namespace
@@ -721,6 +767,8 @@ extern "C" int tiled_core_fwd(const int* m, const float* w, const float* patch, 
   s.C = static_cast<int>(C);
   s.ET = static_cast<int>(E * T);
   s.ps_floats = static_cast<int>(round_up(M * (C / H), 4));
+  s.stages = 2;
+  if (fwd_smem_bytes(s) > kMaxSmem) s.stages = 1;
   if (fwd_smem_bytes(s) > kMaxSmem) return RDETR_INVALID;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C / H) {
@@ -746,7 +794,8 @@ extern "C" int tiled_core_bwd(const int* m, const float* w, const float* patch,
                         static_cast<const void*>(patch), static_cast<const void*>(g),
                         static_cast<const void*>(dpatch)})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return RDETR_INVALID;
-  const BwdShape s = bwd_shape(B, nt, H, E, T, M, C);
+  BwdShape s = bwd_shape(B, nt, H, E, T, M, C);
+  if (bwd_smem_bytes(s) > kMaxSmem) s.stages = 1;
   if (bwd_smem_bytes(s) > kMaxSmem) return RDETR_INVALID;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C / H) {
@@ -760,13 +809,13 @@ extern "C" int tiled_core_bwd(const int* m, const float* w, const float* patch,
 
 // oy (B, nt, H, P, ph, T), ox (B, nt, H, P, pw, T), patch (B, nt, ph * pw, C);
 // out (B, nt, T, C), written whole. D = C / H must be 4, 8, 16 or 32, P at
-// most 4, pw at most 20, and patch and out 16-byte aligned.
+// most 4, pw at most 32, and patch and out 16-byte aligned.
 extern "C" int sep_contract_fwd(const float* oy, const float* ox, const float* patch,
                                 float* out, int64_t B, int64_t nt, int64_t H, int64_t P,
                                 int64_t ph, int64_t pw, int64_t T, int64_t C, void* stream) {
   if (B * nt * T == 0) return 0;
   if (H < 1 || C % H != 0 || P < 1 || P > kSepMaxP || ph < 1 || pw < 1 ||
-      pw > 2 * kSepXSlots || T > (1 << 24) || ph > (1 << 24))
+      pw > 2 * kSepXSlotsWide || T > (1 << 24) || ph > (1 << 24))
     return RDETR_INVALID;
   const int64_t items = B * nt * H;
   if (items > 2147483647) return RDETR_INVALID;

@@ -21,6 +21,10 @@ the class names it carries (``_classes_``, ``utils/class_names.py``) label
 the detections. ``--show-dir`` draws the kept detections over each original
 image (``utils/visualize.py``) and writes it there under the file's name
 (``data/image_io.py::write_image``: .jpg / .jpeg with cv2's bytes, .png).
+With ``--checkpoint``, the clamp gate (``utils/clamp_check.py``) measures
+the checkpoint's tiled-MSDA clamp fraction on the first image and logs it
+(warning past ``--clamp-threshold``): under a tiled impl, or under any with
+``--clamp-check on``.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from relation_detr_tpu_torch.data.image_io import Decode, read_image, write_image
 from relation_detr_tpu_torch.data.transforms import EvalPreset
 from relation_detr_tpu_torch.models.post_process import post_process
+from relation_detr_tpu_torch.utils import clamp_check
 from relation_detr_tpu_torch.utils.class_names import load_class_names
 from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.visualize import plot_bounding_boxes_on_image
@@ -73,13 +78,18 @@ def parse_args(argv=None):
     p.add_argument("--score-threshold", type=float, default=0.5)
     p.add_argument("--show-dir", default=None,
                    help="draw the kept detections over each image and write it here")
+    p.add_argument("--clamp-check", default="auto", choices=("auto", "on", "off"),
+                   help="measure the checkpoint's tiled-MSDA clamp fraction on the first "
+                        "image (logged; warns past the threshold)")
+    p.add_argument("--clamp-threshold", type=float, default=1e-3)
     return p.parse_args(argv)
 
 
 def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     """Runs the folder inference; returns each file's kept detections
-    (``scores``, ``labels``, ``boxes`` arrays) by name, and ``written``, the
-    files ``--show-dir`` wrote."""
+    (``scores``, ``labels``, ``boxes`` arrays) by name, ``written``, the
+    files ``--show-dir`` wrote, and ``clamp``, the clamp gate's worst
+    per-layer fraction (None where it did not measure)."""
     args = parse_args(argv)
     cfg = Config(args.model_config)
     model = cfg.build_model(device=args.device)
@@ -92,7 +102,8 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     preset = EvalPreset(cfg.get("min_size", 800), cfg.get("max_size", 1333))
     select_box_nums = cfg.get("select_box_nums_for_evaluation", 300)
     files = sorted(f for f in os.listdir(args.image_dir) if f.lower().endswith(IMAGE_EXTS))
-    result = {"detections": {}, "written": []}
+    result = {"detections": {}, "written": [], "clamp": None}
+    clamp_pending = bool(args.checkpoint) and args.clamp_check != "off"
     for fname in files:
         rgb = read_image(os.path.join(args.image_dir, fname), args.device, decode)
         sample = preset({
@@ -107,6 +118,11 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
         mask = np.ones((1, *CANVAS), bool)
         images[0, :h, :w] = sample["image"]
         mask[0, :h, :w] = False
+        if clamp_pending:  # once, on the first image
+            result["clamp"] = clamp_check.check_checkpoint_clamp(
+                model, images, mask, threshold=args.clamp_threshold,
+                force=args.clamp_check == "on")
+            clamp_pending = False
         det = detect(model, images, mask, [rgb.shape[:2]], select_box_nums)
         keep = det["scores"][0] > args.score_threshold
         kept = {k: det[k][0][keep].cpu().numpy() for k in ("scores", "labels", "boxes")}

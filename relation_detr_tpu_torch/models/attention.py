@@ -11,6 +11,7 @@ compute-dtype value and returns its dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -19,6 +20,26 @@ from torch import nn
 
 from relation_detr_tpu_torch.models.layers import Linear, linear, xavier_
 from relation_detr_tpu_torch.ops.msda import multi_scale_deformable_attention
+
+
+# (module, sampling_locations, attention_weights, spatial_shapes) of every
+# MultiScaleDeformableAttention call while ``record_sampling`` is active,
+# else None: what the JAX package's ``sow("intermediates", "msda_sampling")``
+# keeps for ``utils/clamp_check.py``
+_SAMPLING_RECORD = None
+
+
+@contextlib.contextmanager
+def record_sampling():
+    """Inside the block every ``MultiScaleDeformableAttention`` call appends
+    (module, locations, weights, spatial_shapes) to the yielded list, in
+    call order; outside it nothing is kept."""
+    global _SAMPLING_RECORD
+    saved, _SAMPLING_RECORD = _SAMPLING_RECORD, []
+    try:
+        yield _SAMPLING_RECORD
+    finally:
+        _SAMPLING_RECORD = saved
 
 
 class _Fp32Logits(torch.autograd.Function):
@@ -182,6 +203,8 @@ class MultiScaleDeformableAttention(nn.Module):
             raise ValueError(
                 f"reference_points last dim must be 2 or 4, got {reference_points.shape[-1]}"
             )
+        if _SAMPLING_RECORD is not None:
+            _SAMPLING_RECORD.append((self, locations, weights, tuple(spatial_shapes)))
         output = multi_scale_deformable_attention(
             value.contiguous(), tuple(spatial_shapes), locations.contiguous(),
             weights.contiguous(),

@@ -9,6 +9,10 @@ bounds it on the card), for the encoder (Q = S) and the decoder
 ``impl="tiled_xla"`` (the JAX package's ``--msda-impl``) sends the encoder's
 calls to the tiled one-hot forms of ``ops/msda_tiled.py`` instead.
 
+The settings (``set_msda_defaults``, ``msda_defaults``,
+``apply_msda_cli_flags``, ``_MSDA_DEFAULTS``) are those of
+``ops/msda_settings.py``, with the JAX package's 16 keywords.
+
 ``multi_scale_deformable_attention`` is the wrapper. Under the gather a call
 that needs no gradient goes to the op ``relation_detr::msda_fwd``
 (``ops/library.py``): on a CUDA tensor it launches ``msda_fwd`` or raises, on
@@ -28,7 +32,6 @@ goes to the kernels' bf16-value forms (``msda_fwd_bf16``,
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Sequence, Tuple
 
@@ -36,68 +39,13 @@ import torch
 
 from relation_detr_tpu_torch import _build
 from relation_detr_tpu_torch.ops import library
+from relation_detr_tpu_torch.ops.msda_settings import (  # noqa: F401
+    _MSDA_DEFAULTS,
+    apply_msda_cli_flags,
+    msda_defaults,
+    set_msda_defaults,
+)
 from relation_detr_tpu_torch.ops.msda_tiled import msda_tiled
-
-# Framework-wide MSDA selection, the counterpart of the JAX package's
-# ``_MSDA_DEFAULTS`` limited to what the port serves: ``impl`` "gather" (the
-# port's default), "tiled" (the entry kernels) or "tiled_xla" (the separable
-# build; ``tiled_sep_kernel`` contracts it with a kernel).
-_MSDA_DEFAULTS = {"impl": "gather", "tiled_sep_kernel": False}
-_IMPLS = ("gather", "tiled", "tiled_xla")
-_IMPLS_NOT_PORTED = ("auto", "auto_xla", "auto_pallas", "pair", "corner_pack")
-# The JAX package's other tiled settings: the port takes only the value it
-# implements (the JAX default where it has one) and raises on any other.
-_SETTINGS_NOT_PORTED = {
-    "tiled_halos": ("auto",),
-    "tiled_overflow": ("auto", 0),
-    "tiled_layout": ("t_minor",),
-    "tiled_slab_order": ("yx",),
-    "tiled_patch_mode": ("slices",),
-    "tiled_int8_slab": (False,),
-    "tiled_dtype": ("auto", torch.float32),
-    "tiled_dot_bf16": (False,),
-    "tiled_batch_unroll": (False,),
-    "tiled_tile_tokens": ((12, 8),),
-    "tiled_margin": (1,),
-}
-
-
-def set_msda_defaults(impl: str = None, tiled_sep_kernel: bool = None, **settings) -> None:
-    """Select the MSDA form for every later call: ``impl`` in "gather",
-    "tiled", "tiled_xla"; ``tiled_sep_kernel`` for "tiled_xla". The JAX
-    package's other tiled settings are accepted at the one value the port
-    implements and raise ``NotImplementedError`` at any other."""
-    for name, value in settings.items():
-        if name not in _SETTINGS_NOT_PORTED:
-            raise TypeError(f"set_msda_defaults: unknown setting {name!r}")
-        value = tuple(value) if isinstance(value, list) else value
-        allowed = _SETTINGS_NOT_PORTED[name]
-        if value is not None and not any(value == a and type(value) is type(a)
-                                         for a in allowed):
-            raise NotImplementedError(
-                f"MSDA setting {name}={value!r} is not ported (the port implements "
-                f"{' or '.join(repr(a) for a in allowed)})")
-    if impl is not None:
-        if impl in _IMPLS_NOT_PORTED:
-            raise NotImplementedError(f"MSDA impl {impl!r} is not ported (the port has "
-                                      f"{', '.join(_IMPLS)})")
-        if impl not in _IMPLS:
-            raise ValueError(f"unknown MSDA impl {impl!r}; the port has {', '.join(_IMPLS)}")
-        _MSDA_DEFAULTS["impl"] = impl
-    if tiled_sep_kernel is not None:
-        _MSDA_DEFAULTS["tiled_sep_kernel"] = bool(tiled_sep_kernel)
-
-
-@contextlib.contextmanager
-def msda_defaults(impl: str = None, tiled_sep_kernel: bool = None, **settings):
-    """``set_msda_defaults`` for the duration of a ``with`` block."""
-    saved = dict(_MSDA_DEFAULTS)
-    try:
-        set_msda_defaults(impl, tiled_sep_kernel, **settings)
-        yield
-    finally:
-        _MSDA_DEFAULTS.update(saved)
-
 
 def msda_reference(
     value: torch.Tensor,
@@ -311,29 +259,37 @@ def multi_scale_deformable_attention(
     (B, Q, H * D).
 
     Under a tiled impl an encoder-layout call (Q == S) goes to
-    ``msda_tiled``; every other call, as under "gather", goes to the gather:
-    without a gradient the op ``relation_detr::msda_fwd`` (``msda_reference``
-    on CPU tensors, ``csrc/msda.cu`` on CUDA tensors, or raises); with one,
+    ``msda_tiled``; every other call goes to the gather (the JAX package
+    sends the auto impls there to corner_pack off a TPU, and corner_pack's
+    and pair's outputs equal the gather's): without a gradient the op
+    ``relation_detr::msda_fwd`` (``msda_reference`` on CPU tensors,
+    ``csrc/msda.cu`` on CUDA tensors, or raises); with one,
     ``msda_reference`` on CPU tensors and ``MSDAFunction`` on CUDA tensors.
-    (The JAX package sends those calls to ``corner_pack``, whose output
-    equals the gather's.)"""
+    A bf16 ``gather_dtype`` rounds an fp32 value to bf16 first (and, through
+    autograd, its gradient), which the fp32 forms then sample in fp32; the
+    output keeps the value's dtype."""
     impl = _MSDA_DEFAULTS["impl"]
-    if impl != "gather" and sampling_locations.shape[1] == sum(h * w for h, w in spatial_shapes):
+    if impl in ("tiled", "tiled_xla") and \
+            sampling_locations.shape[1] == sum(h * w for h, w in spatial_shapes):
         return msda_tiled(value, spatial_shapes, sampling_locations, attention_weights,
-                          use_pallas=impl == "tiled",
-                          sep_kernel=_MSDA_DEFAULTS["tiled_sep_kernel"])
+                          use_pallas=impl == "tiled")
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"MSDA: no kernel for device {value.device}")
+    in_dtype = value.dtype
+    if _MSDA_DEFAULTS["gather_dtype"] == torch.bfloat16 and in_dtype == torch.float32:
+        value = value.to(torch.bfloat16).float()
     if value.device.type == "cuda":
         _check_cuda_args(value, spatial_shapes, sampling_locations, attention_weights)
     if not library.needs_grad(value, sampling_locations, attention_weights):
-        return _MSDA_FWD(value, library.flat_levels(spatial_shapes), sampling_locations,
-                         attention_weights)
-    if value.device.type == "cpu":
-        return msda_reference(value, spatial_shapes, sampling_locations, attention_weights)
-    return MSDAFunction.apply(
-        value, tuple(spatial_shapes), sampling_locations, attention_weights
-    )
+        out = _MSDA_FWD(value, library.flat_levels(spatial_shapes), sampling_locations,
+                        attention_weights)
+    elif value.device.type == "cpu":
+        out = msda_reference(value, spatial_shapes, sampling_locations, attention_weights)
+    else:
+        out = MSDAFunction.apply(
+            value, tuple(spatial_shapes), sampling_locations, attention_weights
+        )
+    return out.to(in_dtype)
 
 
 multi_scale_deformable_attention.launches = 0

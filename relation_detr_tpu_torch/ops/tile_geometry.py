@@ -13,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 
 # The JAX package's default tiling (``_MSDA_DEFAULTS``: tiled_tile_tokens,
-# tiled_margin), the only one the port serves; halos are "auto", i.e.
-# num_points + 1 texels on every level.
+# tiled_margin; ``ops/msda_settings.py`` sets the tiling the tiled forms
+# take); halos "auto" are num_points + 1 texels on every level.
 TILE_TOKENS = (12, 8)
 MARGIN = 1
 

@@ -37,11 +37,16 @@ it (EXIF applied), with the split's category names
 (``utils/visualize.py``), and writes it as a JPEG under the file's basename
 (``data/image_io.py::write_image``, cv2's bytes).
 
-Not ported, and raising: the JAX package's TPU-only settings (``--msda-halos`` other than ``auto``,
-``--msda-dtype bf16``, ``--msda-int8-slab``, ``--clamp-check on``,
-``--msda-profile fast``). ``--msda-profile auto`` and ``--clamp-check
-auto`` mean the exact default, as they do in the JAX package when no clamp
-gate is in play.
+The MSDA flags set what the JAX package's ``apply_msda_cli_flags`` sets
+(``ops/msda_settings.py``): ``--msda-impl``, ``--msda-halos`` (per-level
+radii, or ``auto``), ``--msda-dtype``, ``--msda-int8-slab``. With
+``--checkpoint``, ``--msda-profile fast`` takes the fast halos (4, 3, 2, 2)
+with no overflow channel, and the clamp gate (``utils/clamp_check.py``)
+runs one captured forward on the first batch: it logs each encoder layer's
+clamp fraction at the active halos, raises past ``--clamp-threshold`` when
+the halos were forced, and under ``--msda-profile auto`` switches to the
+fast halos where the checkpoint's fraction at them is at most 1e-6. It
+measures under a tiled impl (``--clamp-check on`` forces it under any).
 """
 from __future__ import annotations
 
@@ -52,14 +57,15 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from relation_detr_tpu_torch.data.coco import CocoDetection
 from relation_detr_tpu_torch.data.image_io import Decode, read_image, write_image
 from relation_detr_tpu_torch.data.loader import DataLoader
 from relation_detr_tpu_torch.data.transforms import EvalPreset
-from relation_detr_tpu_torch.ops.msda import set_msda_defaults
+from relation_detr_tpu_torch.ops.msda import apply_msda_cli_flags, set_msda_defaults
+from relation_detr_tpu_torch.ops.msda_settings import IMPLS
 from relation_detr_tpu_torch.parallel import mesh
+from relation_detr_tpu_torch.utils import clamp_check
 from relation_detr_tpu_torch.utils.coco_eval import CocoEvaluator
 from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.evaluation import (
@@ -96,17 +102,13 @@ def parse_args(argv=None):
                    help="draw the detections over each image and write it here")
     p.add_argument("--show-conf", type=float, default=0.5,
                    help="confidence threshold for --show-dir rendering")
-    p.add_argument("--msda-impl", default=None, choices=("gather", "tiled", "tiled_xla"),
-                   help="MSDA form (default: gather)")
-    p.add_argument("--msda-halos", default=None, help="only 'auto' is ported")
-    p.add_argument("--msda-dtype", default=None, choices=("auto", "fp32", "bf16"),
-                   help="only auto / fp32 are ported")
-    p.add_argument("--msda-int8-slab", action="store_true", help="not ported")
-    p.add_argument("--clamp-check", default="auto", choices=("auto", "on", "off"),
-                   help="auto / off: no clamp gate (the port's tiled form is exact); "
-                        "on is not ported")
+    add_msda_flags(p)
+    p.add_argument("--msda-int8-slab", action="store_true",
+                   help="eval only: the tiled_xla slab as int8 with a per-channel scale")
     p.add_argument("--msda-profile", default="auto", choices=("auto", "exact", "fast"),
-                   help="auto / exact: the exact default; fast is not ported")
+                   help="auto: measure the checkpoint's clamp fraction and take the fast "
+                        "halos (4,3,2,2), no overflow, where it is at most 1e-6; exact: "
+                        "never; fast: always")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                    help="under torch.distributed.run: the process group's backend (default "
@@ -114,24 +116,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def apply_msda_flags(args) -> None:
-    """The MSDA flags onto the port's defaults; the TPU-only ones raise.
-    Also takes the train CLI's arguments, which lack the eval-only flags."""
-    if args.clamp_check == "on":
-        raise NotImplementedError("--clamp-check on is not ported (no clamp gate: the "
-                                  "port's tiled MSDA keeps the exact auto halos)")
-    if getattr(args, "msda_profile", "auto") == "fast":
-        raise NotImplementedError("--msda-profile fast is not ported (reduced halos)")
-    if args.msda_impl:
-        set_msda_defaults(impl=args.msda_impl)
-    if args.msda_halos:
-        set_msda_defaults(tiled_halos="auto" if args.msda_halos == "auto"
-                          else tuple(int(v) for v in args.msda_halos.split(",")))
-    if args.msda_dtype:
-        set_msda_defaults(tiled_dtype={"auto": "auto", "fp32": torch.float32,
-                                       "bf16": torch.bfloat16}[args.msda_dtype])
-    if getattr(args, "msda_int8_slab", False):
-        set_msda_defaults(tiled_int8_slab=True)
+def add_msda_flags(p) -> None:
+    """The MSDA and clamp-gate flags the eval and train CLIs share."""
+    p.add_argument("--msda-impl", default=None, choices=IMPLS,
+                   help="MSDA form (default: gather; the auto impls, pair and corner_pack "
+                        "take the gather, as corner_pack off a TPU)")
+    p.add_argument("--msda-halos", default=None,
+                   help="the tiled forms' per-level halo radii, comma-separated (e.g. "
+                        "4,3,2,2), or 'auto' (num_points + 1 on every level)")
+    p.add_argument("--msda-dtype", default=None, choices=("auto", "fp32", "bf16"),
+                   help="dtype the tiled forms build and contract their operands in "
+                        "(auto: fp32)")
+    p.add_argument("--clamp-check", default="auto", choices=("auto", "on", "off"),
+                   help="measure the loaded checkpoint's tiled-MSDA clamp fraction on the "
+                        "first batch (auto: under a tiled impl; on: under any); raises past "
+                        "--clamp-threshold if --msda-halos was forced")
+    p.add_argument("--clamp-threshold", type=float, default=1e-3)
+
+
+def halos_forced(args) -> bool:
+    return bool(args.msda_halos) and args.msda_halos != "auto"
 
 
 def _category_names(ann_file):
@@ -240,7 +244,7 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     """Runs the evaluation; returns ``stats`` after ``--eval-json``, else
     ``evaluate``'s result."""
     args = parse_args(argv)
-    apply_msda_flags(args)
+    apply_msda_cli_flags(args)
     device, created = mesh.join_from_env(args.device, args.dist_backend)
     try:
         return _main(args, device, decode)
@@ -265,6 +269,8 @@ def _main(args, device, decode) -> Dict:
     model = cfg.build_model(device=device)
     if args.checkpoint:
         load_weights(model, args.checkpoint)
+        if args.msda_profile == "fast":
+            set_msda_defaults(tiled_halos=clamp_check.FAST_HALOS, tiled_overflow=0)
     dataset = CocoDetection(
         img_folder=os.path.join(args.coco_path, args.split),
         ann_file=ann_file,
@@ -277,9 +283,23 @@ def _main(args, device, decode) -> Dict:
         dataset.ids = dataset.ids[: args.max_images]
     # adaptive canvas buckets: portrait images resize up to (1333, 800)
     loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=False)
+    clamp = None
+    if args.checkpoint and args.clamp_check != "off" and \
+            clamp_check.gate_active(args.clamp_check == "on"):
+        # one captured forward on the first batch: log the checkpoint's
+        # clamp fraction, raise if forced halos clamp it, and take the fast
+        # profile where this checkpoint's offsets fit it
+        first = next(iter(loader), None)
+        if first is not None:
+            clamp = clamp_check.check_and_select_profile(
+                model, first["images"], first["mask"], threshold=args.clamp_threshold,
+                halos_forced=halos_forced(args) or args.msda_profile == "fast",
+                allow_fast=args.msda_profile == "auto", force=args.clamp_check == "on")
     det_fn = make_detections_fn(model, cfg.get("select_box_nums_for_evaluation", 300))
-    return evaluate(det_fn, loader, ann_file, device, args.result_json, args.per_category,
-                    logger, args.show_dir, args.show_conf, decode)
+    result = evaluate(det_fn, loader, ann_file, device, args.result_json, args.per_category,
+                      logger, args.show_dir, args.show_conf, decode)
+    result["clamp"] = clamp
+    return result
 
 
 if __name__ == "__main__":

@@ -41,6 +41,14 @@ resolve_remat_policy``); unset, nothing is recomputed, also under bf16
 (where the JAX CLI picks "dots"). A ``--resume`` of a directory must use
 the run's ``--mixed-precision``; the checkpoint records it.
 
+The MSDA flags (``--msda-impl``, ``--msda-halos``, ``--msda-dtype``) set
+what the JAX package's ``apply_msda_cli_flags`` sets. After a weight load
+(``--resume``), the clamp gate (``utils/clamp_check.py``) measures the
+weights' tiled-MSDA clamp fraction on the first batch's first image under
+a tiled impl (``--clamp-check on``: under any), and raises past
+``--clamp-threshold`` when ``--msda-halos`` was forced: training on
+halos that clamp bakes the clamp into the gradients.
+
 ``--device cpu`` runs on the CPU (the kernels' plain versions), for tests;
 the CPU has no JPEG decoder, so a caller of ``main`` passes ``decode=``.
 
@@ -84,7 +92,9 @@ from relation_detr_tpu_torch.data.image_io import Decode
 from relation_detr_tpu_torch.data.loader import DataLoader, device_prefetch
 from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.parallel.train_step import BATCH_KEYS, make_train_step
-from relation_detr_tpu_torch.test import apply_msda_flags
+from relation_detr_tpu_torch.ops.msda import apply_msda_cli_flags
+from relation_detr_tpu_torch.test import add_msda_flags, halos_forced
+from relation_detr_tpu_torch.utils import clamp_check
 from relation_detr_tpu_torch.utils.checkpoint import CheckpointManager
 from relation_detr_tpu_torch.utils.class_names import encode_labels
 from relation_detr_tpu_torch.utils.collect_env import collect_env_info
@@ -112,9 +122,6 @@ def parse_args(argv=None):
                    help="checkpoint directory = resume training (a run's output dir or "
                         "its checkpoints/); weight FILE (.npz) = load those weights and "
                         "fine-tune")
-    p.add_argument("--clamp-check", default="auto", choices=("auto", "on", "off"),
-                   help="auto / off: no clamp gate (the port's tiled MSDA is exact); on is "
-                        "not ported")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--canvas", default="800,1344",
                    help="fixed train canvas 'h,w', or 'buckets' for aspect-ratio-grouped "
@@ -140,11 +147,7 @@ def parse_args(argv=None):
                    help="recompute each transformer layer in the backward: none = all of "
                         "it, dots = all but the matmul outputs, dots_no_batch = all but "
                         "the unbatched ones, save_all = nothing (as when unset)")
-    p.add_argument("--msda-impl", default=None, choices=("gather", "tiled", "tiled_xla"),
-                   help="MSDA form (default: gather)")
-    p.add_argument("--msda-halos", default=None, help="only 'auto' is ported")
-    p.add_argument("--msda-dtype", default=None, choices=("auto", "fp32", "bf16"),
-                   help="only auto / fp32 are ported")
+    add_msda_flags(p)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                    help="under torch.distributed.run: the process group's backend (default "
@@ -258,11 +261,13 @@ def main(argv=None, decode: Optional[Decode] = None) -> Dict:
     ``total_loss``, ``start`` (the host clock when it began, s) and host ms
     of ``step`` (the step call), ``wait`` (the wait for the batch) and
     ``pin`` (its copy into pinned memory)), ``upload_ms``
-    (the side stream's spans of the uploads, summed), ``images`` and
-    ``profile`` (``DeviceProfile.result`` with ``--profile-steps``)."""
+    (the side stream's spans of the uploads, summed), ``images``,
+    ``profile`` (``DeviceProfile.result`` with ``--profile-steps``) and
+    ``clamp`` (the clamp gate's measurement of the loaded weights, or
+    None)."""
     args = parse_args(argv)
     check_ported(args)
-    apply_msda_flags(args)
+    apply_msda_cli_flags(args)
     device, created = mesh.join_from_env(args.device, args.dist_backend)
     try:
         return _main(args, device, decode)
@@ -340,6 +345,7 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
     ema = ema_init(dict(model.named_parameters())) if args.ema_decay > 0.0 else None
 
     resume_from = args.resume or cfg.get("resume_from_checkpoint")
+    loaded_weights = bool(resume_from)
     if isinstance(resume_from, str) and os.path.isfile(resume_from):
         # a weight FILE: load and fine-tune (reference main.py:143-148)
         load_weights(model, resume_from)
@@ -363,6 +369,21 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
         start_epoch = saved["epoch"] + 1
         logger.info(f"resumed from epoch {saved['epoch']} ({src.directory}), saved by "
                     f"{saved.get('world_size', 1)} process(es), resumed by {world_size}")
+
+    clamp = None
+    if loaded_weights and args.clamp_check != "off" and \
+            clamp_check.gate_active(args.clamp_check == "on"):
+        # training on halos that clamp this checkpoint's offsets bakes the
+        # clamp into the gradients: one captured forward on the first
+        # batch's first image, raising if forced halos clamp past the
+        # threshold (the loader's samples depend on (seed, epoch, index)
+        # alone, so the look ahead changes no batch)
+        with closing(iter(loader)) as batches:
+            first = next(batches, None)
+        if first is not None:
+            clamp = clamp_check.check_checkpoint_clamp(
+                model, first["images"][:1], first["mask"][:1], threshold=args.clamp_threshold,
+                halos_forced=halos_forced(args), force=args.clamp_check == "on")
 
     tb_writer = None
     if args.tensorboard and mesh.is_main():
@@ -482,7 +503,7 @@ def _train(args, cfg, model_cfg, coco_path, output_dir, device, decode, logger) 
     upload = times.totals().get("upload", 0.0)
     return {"metrics": metrics, "paths": paths, "evals": evals, "lrs": lrs, "steps": steps,
             "upload_ms": upload, "images": images,
-            "profile": None if profile is None else profile.result}
+            "profile": None if profile is None else profile.result, "clamp": clamp}
 
 
 if __name__ == "__main__":

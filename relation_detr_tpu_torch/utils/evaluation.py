@@ -29,6 +29,7 @@ import torch
 
 from relation_detr_tpu_torch.data.loader import DataLoader, Normalizer
 from relation_detr_tpu_torch.models.post_process import post_process
+from relation_detr_tpu_torch.ops.msda_settings import msda_defaults
 from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.utils.coco_eval import CocoEvaluator
 
@@ -44,11 +45,14 @@ def make_detections_fn(model: torch.nn.Module, topk: int):
     A uint8 canvas (``EvalPreset(normalize_host=False)``) is normalised here
     with the host's math (``data/loader.py::Normalizer``), its padding an
     exact 0, as the host path pads after normalising.
-    Boxes are in pixels of ``orig_sizes`` (B, 2) (h, w)."""
+    Boxes are in pixels of ``orig_sizes`` (B, 2) (h, w). The tiled encoder
+    forms run image by image (``tiled_batch_unroll``), as the JAX package's
+    single-device eval runs them (``relation_detr_tpu/utils/evaluation.py:36,
+    58``): a process here holds its whole batch, never a shard of it."""
     normalize = Normalizer(model_device(model))
 
     def det_fn(images: torch.Tensor, mask: torch.Tensor, orig_sizes: torch.Tensor):
-        with torch.inference_mode():
+        with torch.inference_mode(), msda_defaults(tiled_batch_unroll=True):
             if images.dtype == torch.uint8:
                 images = normalize(images, mask)
             out = model(images, mask)

@@ -79,7 +79,9 @@ TILED_FWD_CASES = [(1, 2, 2, 32, 16, 128, 437), (2, 3, 2, 16, 8, 45, 60),
 REL_CASES = [(1, 1, 1, 8), (2, 37, 300, 4), (3, 9, 129, 16), (1, 130, 33, 8), (1, 900, 900, 8)]
 SEP_CASES = [(1, 3, 2, 32, 4, 23, 19, 128, False), (2, 2, 4, 16, 3, 7, 20, 131, True),
              (1, 2, 8, 8, 1, 5, 1, 13, False), (1, 1, 1, 4, 2, 1, 5, 4, True),
-             (1, 2, 2, 32, 4, 13, 11, 100, True)]
+             (1, 2, 2, 32, 4, 13, 11, 100, True),
+             # wider than 20: the kernel's form with 16 columns a build thread
+             (1, 2, 2, 32, 4, 9, 25, 70, False)]
 
 
 def relation_boxes(rng, batch, n1, n2, heads):

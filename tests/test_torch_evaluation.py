@@ -201,5 +201,38 @@ def test_ground_truth_control_matches_jax(setup):
                                    ["--msda-dtype", "bf16"], ["--msda-int8-slab"],
                                    ["--clamp-check", "on"], ["--msda-profile", "fast"]])
 def test_cli_refuses_what_is_not_ported(setup, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_test.main(["--coco-path", setup["coco"], "--device", "cpu", *flags])
+    """The JAX package's MSDA and clamp-gate flags, once refused, now set
+    what its ``apply_msda_cli_flags`` sets and the eval CLI runs under them
+    with the weights file (torch on one thread): --msda-profile fast takes
+    the fast halos without the overflow channel, --clamp-check on measures
+    a fraction. (The forced fast halos clamp these weights' corners past
+    1e-3, where the gate raises, as JAX's does: the threshold is 1 here.
+    tests/test_torch_tiled_settings.py holds the tiled forms under each
+    setting against JAX.)"""
+    from relation_detr_tpu.ops import msda as jmsda
+    from relation_detr_tpu_torch.ops import msda
+
+    args = ["--coco-path", setup["coco"], "--model-config", TINY_PATH, "--checkpoint",
+            setup["weights"], "--batch-size", "1", "--max-images", "1", "--device", "cpu",
+            "--clamp-threshold", "1", *flags]
+    jdtypes = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with msda.msda_defaults(), jmsda.msda_defaults():
+        parsed = port_test.parse_args(args)
+        msda.apply_msda_cli_flags(parsed)
+        jmsda.apply_msda_cli_flags(parsed)
+        for key, want in jmsda._MSDA_DEFAULTS.items():
+            if key not in ("impl", "gather_dtype"):
+                assert msda._MSDA_DEFAULTS[key] == jdtypes.get(want, want), key
+        assert msda._MSDA_DEFAULTS["impl"] == (parsed.msda_impl or "gather")
+        try:
+            run = port_test.main(args, decode=cv2_decode)
+        finally:
+            torch.set_num_threads(threads)
+        if "fast" in flags:
+            assert msda._MSDA_DEFAULTS["tiled_halos"] == (4, 3, 2, 2)
+            assert msda._MSDA_DEFAULTS["tiled_overflow"] == 0
+    assert run["images"] == 1 and np.isfinite(run["stats"]["AP"])
+    if "on" in flags:
+        assert run["clamp"]["fractions"] and run["clamp"]["profile"] in ("exact", "fast")

@@ -215,7 +215,9 @@ def emulate_sep_contract(oy, ox, patch):
     c = patch.shape[3]
     d = c // heads
     slots, chunk_rows, max_ky = K["kSepTokens"], K["kSepChunkRows"], K["kSepMaxKy"]
-    assert points <= K["kSepMaxP"] and pw <= 2 * K["kSepXSlots"] and d % 4 == 0
+    # the kernel's form for the patch width: 10 columns a build thread, or 16
+    x_slots = K["kSepXSlotsNarrow"] if pw <= 2 * K["kSepXSlotsNarrow"] else K["kSepXSlotsWide"]
+    assert points <= K["kSepMaxP"] and pw <= 2 * x_slots and d % 4 == 0
     ky = max(1, min(max_ky, chunk_rows // pw))
     oy_i = oy.reshape(-1, points, ph, t)
     ox_i = ox.reshape(-1, points, pw, t)
@@ -234,7 +236,7 @@ def emulate_sep_contract(oy, ox, patch):
             ny = min(ky, ph - y0)
             a = np.zeros((len(oy_i), ny * pw, slots), F32)
             for xh in range(2):  # the build threads' even and odd columns
-                for i in range(K["kSepXSlots"]):
+                for i in range(x_slots):
                     x = xh + 2 * i
                     if x >= pw:
                         break
@@ -259,7 +261,8 @@ def test_sep_contract_schedule_matches_plain_and_jax(batch, nt, heads, head_dim,
                                                      pw, tokens, dense):
     """The emulated kernel on the card tests' edge shapes (odd M, T not a
     multiple of the tile and past one pass, 1 to 4 points, D 4 to 32,
-    patches 1 high, 1 wide, 20 wide): every A element built once per item
+    patches 1 high, 1 wide, 20 wide and 25 wide (the 16-column form)):
+    every A element built once per item
     and pass, every output stored once, within 1e-5 abs of the plain
     version and of the JAX kernel."""
     oy, ox, patch = sep_operands(np.random.RandomState(ph * pw), batch, nt, heads, head_dim,
@@ -386,12 +389,13 @@ def test_tiled_core_fwd_schedule_matches_plain_and_jax(batch, nt, heads, head_di
 def test_tiled_core_fwd_wrapper_checks():
     """The CUDA wrapper's checks of tiled_core_fwd, run on CPU tensors: its
     two stages at the flagship's level 0 take 144,640 bytes (one block per
-    SM), every level of the flagship fits, and a head dim the kernel does
-    not take, E * T not a multiple of 4 and a patch too large for the
-    stages raise."""
+    SM), every level of the flagship fits, a patch whose two stages do not
+    fit takes one (1500 rows), and a head dim the kernel does not take,
+    E * T not a multiple of 4 and a patch too large for one stage raise."""
     assert msda_tiled._fwd_smem_bytes(437, 32, 16, 128) == 144640
     for rows in (437, 255, 182, 156):
         assert msda_tiled._fwd_smem_bytes(rows, 32, 16, 128) <= 232448
+    assert msda_tiled._fwd_smem_bytes(1500, 32, 16, 128) == (1500 * 32 + 2 * 16 * 128) * 4
 
     def check(rows, heads, head_dim, t=8):
         m = torch.zeros(1, 2, heads, 16 if t % 4 == 0 else 3, t, dtype=torch.int32)
@@ -404,5 +408,6 @@ def test_tiled_core_fwd_wrapper_checks():
         check(20, 2, 64)
     with pytest.raises(ValueError, match="multiple of 4"):
         check(20, 2, 32, 5)
+    check(1500, 8, 32, 128)
     with pytest.raises(ValueError, match="shared memory"):
-        check(1500, 8, 32, 128)
+        check(2000, 8, 32, 128)

@@ -34,6 +34,7 @@ from relation_detr_tpu_torch.parallel.train_step import make_train_step
 from relation_detr_tpu_torch.utils.config import Config
 from relation_detr_tpu_torch.utils.param_groups import build_optimizer
 
+torch.set_num_threads(1)  # beside other test processes, one thread is the quickest
 cfgs = [Config("relation_detr_tpu_torch/configs/relation_detr/" + name) for name in
         ("relation_detr_resnet50_800_1333.py", "relation_detr_resnet50_tiny_test.py")]
 # the model families' and SA-Det's configs
@@ -266,8 +267,36 @@ def tools_and_drawing():
     assert image_io.encode_png(img)[:4] == b"\x89PNG"
 
 
+def clamp_gate_and_settings():
+    # the clamp gate (utils/clamp_check.py) on the tiny model, forced and
+    # under a tiled impl, and its fast-profile selection; the tiny eval
+    # under each group of the JAX package's tiled settings
+    from relation_detr_tpu_torch.utils import clamp_check
+
+    model = cfgs[1].build_model(device="cpu")
+    with msda.msda_defaults(impl="tiled_xla", tiled_halos=(0, 0, 0, 0), tiled_overflow=0):
+        found = clamp_check.check_checkpoint_clamp(model, images, mask, threshold=1.0)
+        assert found is not None and found["worst"] > 0.0, found
+    with msda.msda_defaults():
+        assert clamp_check.check_and_select_profile(model, images, mask, force=True)[
+            "profile"] in ("exact", "fast")
+    assert clamp_check.check_checkpoint_clamp(model, images, mask) is None  # the gather
+    for settings in (dict(impl="tiled", tiled_halos=(1, 1, 0, 0), tiled_overflow=8),
+                     dict(impl="tiled_xla", tiled_layout="t_major", tiled_tile_tokens=(24, 8)),
+                     dict(impl="tiled_xla", tiled_slab_order="bm", tiled_patch_mode="gather",
+                          tiled_margin=2),
+                     dict(impl="tiled_xla", tiled_dtype=torch.bfloat16, tiled_dot_bf16=True,
+                          tiled_sep_kernel=True, gather_dtype=torch.bfloat16),
+                     dict(impl="tiled_xla", tiled_int8_slab=True, tiled_slab_order="xy"),
+                     dict(impl="auto_pallas", decoder_prepack=False, dense_level_rows=10)):
+        with msda.msda_defaults(**settings):
+            det = inference.detect(model, images, mask, [[96, 160]], 30)
+        assert bool(torch.isfinite(det["boxes"]).all()), settings
+
+
 tools_and_drawing()
 data_path()
+clamp_gate_and_settings()
 eval_and_train_step()
 # a gloo group of one process (parallel/mesh.py): no collective runs
 with tempfile.TemporaryDirectory() as tmp:
@@ -360,6 +389,32 @@ def train_cli():
                           decode=decode)
         assert len(bf16["steps"]) == 3 and len(bf16["evals"]) == 1
         assert np.isfinite(bf16["metrics"]["total_loss"])
+        # the clamp gate in the three CLIs, on the weights of the first run
+        from relation_detr_tpu_torch import inference, test
+        from relation_detr_tpu_torch.utils import clamp_check
+
+        weights = first["paths"]["latest"]
+        with msda.msda_defaults():
+            # forced under the gather (the CPU's cheapest form; the tiled
+            # forms run in clamp_gate_and_settings of the other script)
+            tuned = train.main(args + ["--num-epochs", "1", "--output-dir", tmp + "/d",
+                                       "--resume", weights, "--max-steps", "1",
+                                       "--eval-every-epochs", "0", "--clamp-check", "on"],
+                               decode=decode)
+            assert np.isfinite(tuned["metrics"]["total_loss"])
+            assert tuned["clamp"]["fractions"]
+        with msda.msda_defaults():
+            evaluated = test.main(["--coco-path", tmp + "/coco", "--model-config", args[3],
+                                   "--checkpoint", weights, "--device", "cpu", "--max-images",
+                                   "1", "--msda-profile", "fast", "--clamp-check", "on",
+                                   "--clamp-threshold", "1"], decode=decode)
+            assert evaluated["clamp"]["fractions"] and evaluated["images"] == 1
+        os.makedirs(tmp + "/one")  # the folder CLI's 800x1344 canvas: one image
+        os.symlink(tmp + "/coco/train2017/0.jpg", tmp + "/one/0.jpg")
+        found = inference.main(["--image-dir", tmp + "/one", "--model-config", args[3],
+                                "--checkpoint", weights, "--device", "cpu", "--clamp-check",
+                                "on"], decode=decode)
+        assert found["clamp"] is not None and len(found["detections"]) == 1
 
 
 train_cli()
@@ -378,7 +433,9 @@ def test_port_imports_and_runs_without_jax_flax_cv2():
     group of one process (``parallel/mesh.py``) and under
     impl="tiled" with relation version 1; tiny detectors on the Swin (v1,
     v2), ConvNeXt, FocalNet, ViT, EVA-02 and DCN ResNet backbones; NMS, the
-    segmentation decode and the other bricks; the evaluation path (collate,
+    segmentation decode and the other bricks; the clamp gate
+    (``utils/clamp_check.py``) and the eval forward under each group of the
+    JAX package's tiled settings; the evaluation path (collate,
     the loader, the detections function and stream, the evaluator, the CLI
     module); the data path's modules (a sample read through mosaic_detr,
     strong_album and the mask copy-paste, a PNG decode, the JPEG round
@@ -396,9 +453,10 @@ def test_train_cli_runs_without_jax_flax_cv2():
     """The train CLI on the CPU (the detr preset, the loader's per-sample
     generators, device_prefetch, accumulation, the EMA, an evaluation,
     checkpoints, a resume, the weight files with class names; then an epoch
-    under ``--mixed-precision bf16 --remat-policy dots``) over 3 images
-    stored as .npy: no kernel launch, and nothing of jax, flax, cv2, PIL or
-    relation_detr_tpu imported."""
+    under ``--mixed-precision bf16 --remat-policy dots``; then the clamp gate
+    of the train, eval and folder CLIs on the first run's weights) over 3
+    images stored as .npy: no kernel launch, and nothing of jax, flax, cv2,
+    PIL or relation_detr_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -810,9 +868,10 @@ def test_sep_contract_kernel_edge_shapes_on_card(batch, nt, heads, head_dim, poi
                                                  tokens, dense):
     """sep_contract_fwd against its plain version at 1e-5 abs: odd M, T
     not a multiple of the 4-token tile and above one 128-slot pass, 1 to 4
-    points, D of 4 to 32, a patch one row high, one column wide and 20
-    wide (the most the kernel takes); and the wrapper's refusals (a
-    21-wide patch, D = 64) raise before any launch."""
+    points, D of 4 to 32, a patch one row high, one column wide, 20 wide
+    (the most the kernel's 10-column form takes) and 25 wide (its
+    16-column form, up to 32); and the wrapper's refusals (a 33-wide
+    patch, D = 64) raise before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
     from relation_detr_tpu_torch.ops import msda_tiled
@@ -826,10 +885,10 @@ def test_sep_contract_kernel_edge_shapes_on_card(batch, nt, heads, head_dim, poi
         want = msda_tiled.sep_contract_reference(oy, ox, patch)
     assert msda_tiled.sep_contract_fused.launches == launches + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    wide = torch.zeros(1, 1, 1, 1, 21, 8, device="cuda")
-    with pytest.raises(ValueError, match="20 wide"):
+    wide = torch.zeros(1, 1, 1, 1, 33, 8, device="cuda")
+    with pytest.raises(ValueError, match="32 wide"):
         msda_tiled.sep_contract_fused(torch.zeros(1, 1, 1, 1, 2, 8, device="cuda"), wide,
-                                      torch.zeros(1, 1, 42, 4, device="cuda"))
+                                      torch.zeros(1, 1, 66, 4, device="cuda"))
     with pytest.raises(ValueError, match="D = C / H"):
         msda_tiled.sep_contract_fused(torch.zeros(1, 1, 1, 1, 2, 8, device="cuda"),
                                       torch.zeros(1, 1, 1, 1, 3, 8, device="cuda"),

@@ -177,27 +177,43 @@ def test_tiled_msda_matches_jax(impl, sep):
 
 
 def test_msda_settings_not_ported_raise():
-    """Only "gather", "tiled" and "tiled_xla" are served; the JAX package's
-    other tiled settings are taken at the one value the port implements;
-    the defaults come back after the context."""
+    """Every setting the port once refused is now taken and set as the JAX
+    package sets it (the port's impl default aside), and a tiled call under
+    it runs; an unknown impl still raises; the defaults come back after the
+    context."""
+    saved = dict(msda._MSDA_DEFAULTS)
     with msda.msda_defaults(impl="tiled", tiled_halos="auto", tiled_slab_order="yx",
                             tiled_dtype=torch.float32, tiled_margin=1,
                             tiled_tile_tokens=(12, 8)):
         assert msda._MSDA_DEFAULTS["impl"] == "tiled"
-    assert msda._MSDA_DEFAULTS == {"impl": "gather", "tiled_sep_kernel": False}
+    assert msda._MSDA_DEFAULTS == saved and saved["impl"] == "gather"
+    value, locs, attn, _ = _encoder_inputs(3, heads=2)
+    args = (_t(value), ENCODER_SHAPES, _t(locs), _t(attn))
+    jdtypes = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # beside other test processes, one thread is the quickest
     for settings in (dict(impl="corner_pack"), dict(tiled_halos=(2, 2, 2, 2)),
                      dict(tiled_overflow=8), dict(tiled_layout="t_major"),
                      dict(tiled_slab_order="bm"), dict(tiled_patch_mode="gather"),
                      dict(tiled_int8_slab=True), dict(tiled_dtype=torch.bfloat16),
                      dict(tiled_dot_bf16=True), dict(tiled_batch_unroll=True),
                      dict(tiled_margin=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            msda.set_msda_defaults(**settings)
+        jsettings = {k: jdtypes.get(v, v) if k == "tiled_dtype" else v
+                     for k, v in settings.items()}
+        with msda.msda_defaults(**settings), jmsda.msda_defaults(**jsettings):
+            for key, setting in settings.items():
+                want = jmsda._MSDA_DEFAULTS[key]
+                assert msda._MSDA_DEFAULTS[key] == (setting if key == "tiled_dtype" else want)
+            with msda.msda_defaults(impl=None if "impl" in settings else "tiled_xla"), \
+                    torch.no_grad():
+                out = msda.multi_scale_deformable_attention(*args)
+            assert out.shape == (2, value.shape[1], 16) and torch.isfinite(out).all()
+    torch.set_num_threads(threads)
     with pytest.raises(ValueError):
         msda.set_msda_defaults(impl="tiles")
-    with pytest.raises(TypeError):
-        msda.set_msda_defaults(gather_dtype=torch.float32)
-    assert msda._MSDA_DEFAULTS == {"impl": "gather", "tiled_sep_kernel": False}
+    with msda.msda_defaults(gather_dtype=torch.bfloat16):
+        assert msda._MSDA_DEFAULTS["gather_dtype"] == torch.bfloat16
+    assert msda._MSDA_DEFAULTS == saved
 
 
 @pytest.mark.parametrize("version", [1, 2])

@@ -156,11 +156,29 @@ def test_latest_weights_load_into_the_jax_model(runs):
         np.testing.assert_array_equal(np.asarray(leaf), flat[key], err_msg=key)
 
 
-def test_not_ported_flags_raise(coco, tmp_path):
-    for extra, item in ((["--clamp-check", "on"], "not ported"),
-                        (["--msda-dtype", "bf16"], "not ported")):
-        with pytest.raises(NotImplementedError, match=item):
-            train.main(_args(coco, tmp_path, 1, *extra), decode=cv2_decode)
+def test_not_ported_flags_raise(coco, runs, tmp_path):
+    """--clamp-check on and --msda-dtype bf16, once refused, set what the
+    JAX package's flags set and train (torch on one thread), fine-tuning
+    the straight run's weights for a step: the clamp gate, forced,
+    measures the loaded weights on the first image."""
+    from relation_detr_tpu.ops import msda as jmsda
+    from relation_detr_tpu_torch.ops import msda
+
+    weights = str(runs["straight"][0] / "latest.npz")
+    args = _args(coco, tmp_path, 1, "--resume", weights, "--max-steps", "1",
+                 "--eval-every-epochs", "0", "--clamp-check", "on", "--msda-dtype", "bf16")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with msda.msda_defaults(), jmsda.msda_defaults():
+        jmsda.apply_msda_cli_flags(train.parse_args(args))
+        try:
+            got = train.main(args, decode=cv2_decode)
+        finally:
+            torch.set_num_threads(threads)
+        assert jmsda._MSDA_DEFAULTS["tiled_dtype"] == jax.numpy.bfloat16
+        assert msda._MSDA_DEFAULTS["tiled_dtype"] == torch.bfloat16
+    assert np.isfinite(got["metrics"]["total_loss"])
+    assert got["clamp"]["fractions"]
 
 
 def _bf16_args(coco, out, epochs, *extra):
