@@ -81,12 +81,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      finite;
   7. the COCO evaluation path on the committed synthetic val split
      (tests/data/torch_port/): (a) nvJPEG decodes the fixtures (4:4:4,
-     4:2:0, grayscale, EXIF Orientation 6) against cv2's decodes, shapes
-     exact and mean |difference| within TOL_DECODE_MEAN (max, mean and the
-     share more than 8 levels off printed), and the split's 8 JPEGs at
-     their annotated sizes; (b) ``relation_detr_tpu_torch.test`` on the
-     flagship config (seeded weights, B=2) over the split, twice: every
-     canvas one that phase 3 held msda_fwd on, 12 msda_fwd and 5
+     4:2:0, grayscale, EXIF Orientation 6, 4:2:2, 4:4:0, 4:1:1, Adobe CMYK
+     and YCCK) against cv2's decodes, shapes exact and mean |difference|
+     within TOL_DECODE_MEAN (max, mean and the share more than 8 levels off
+     printed), and the split's 8 JPEGs at their annotated sizes; (b)
+     ``relation_detr_tpu_torch.test`` on the flagship config (seeded
+     weights, B=2) over the split, twice: every canvas one that phase 3
+     held msda_fwd on, 12 msda_fwd and 5
      relation_bias_v4_fwd launches per batch and one ycc_to_rgb per image,
      300 finite detections per image, stats equal to the --eval-json
      re-score of its own results JSON; (c) the same CLI over the split
@@ -163,16 +164,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      (the DCN's sampling points pinned too); (b) the flagship config on
      ``VIT_DCN_MODELS`` (ViT-B, ViT-L, EVA-02-B, EVA-02-L, ResNet-50 with
      DCN in layer2-4) at full width as phase 11 (b) runs its configs,
-     every gradient of a step finite and the DCN offsets' non-zero; one
+     every gradient of a step finite and the DCN offsets' non-zero (the
+     R50-DCN: 13 bilinear_sample_fwd launches a detect, 13 and 13
+     bilinear_sample_bwd a train step); one
      R50-DCN detect under the bf16 policy (every DCN fed and computing in
      fp32, the other convs in bf16) and one EVA-02-L detect (backbone
-     outputs the fp32 run's bit for bit); (c) the plain-PyTorch ops of
-     these paths timed on the card: ``bilinear_sample`` forward and
-     backward at the R50-DCN's conv2 shapes (beside ``F.grid_sample``,
-     with bounds and their share of the DCN detect and step), and
-     ``nms_mask`` at N=300, B=1 and 2, on the flagship's detect outputs
-     through ``post_process(nms_iou_threshold=0.7)``, its keep mask the
-     CPU's exactly;
+     outputs the fp32 run's bit for bit); (c) the DCN sampler's kernels
+     (csrc/grid_sample.cu: bilinear_sample_fwd and bilinear_sample_bwd)
+     against their plain versions at the R50-DCN's conv2 shapes, output
+     and both gradients, timed in turns with them and beside
+     ``F.grid_sample`` and the bounds, and their share of the DCN detect
+     and step; and ``nms_mask`` (plain PyTorch) at N=300, B=1 and 2, on
+     the flagship's detect outputs through
+     ``post_process(nms_iou_threshold=0.7)``, its keep mask the CPU's
+     exactly;
  13. (run after phase 10, the flagship model freed) data parallelism on
      the flagship (``parallel/mesh.py``, seeded weights, 800x1344): (a) in
      this process, a NCCL group of one process against no group: an eval
@@ -195,7 +200,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      counterparts of cv2 (``data/cv_ops.py``: HSV both ways, grey, box and
      median blur, the Gaussian blur, shifts, nearest resize, fillPoly on
      400 polygon masks, the JPEG round trip at quality 85, 90 and 95) and the PNG
-     decode on this machine's numpy against cv2's outputs committed by
+     decode (every PNG fixture, the Adam7 files of every colour type and
+     depth and the eXIf-oriented ones among them) on this machine's numpy
+     against cv2's outputs committed by
      tests/data/torch_port/make_fixtures.py, equal bytes; a broken JPEG
      raises UnreadableImage through nvJPEG; (b) every registered train
      preset through the loader (4 threads, nvJPEG) over the committed train
@@ -268,7 +275,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      msda_fwd, msda_bwd and relation_bias_v4_fwd from the default train
      step, tiled_core_fwd/bwd and window_accumulate from the tiled train
      step, sep_contract_fwd from the sep-kernel eval, relation_bias_rel_fwd
-     from the version-1 and version-2 evals; ycc_to_rgb, and
+     from the version-1 and version-2 evals; bilinear_sample_fwd and
+     bilinear_sample_bwd from phase 12 (b)'s R50-DCN train steps (their
+     eval_launches from its detects, their times summed over a forward's
+     13 DCN shapes); ycc_to_rgb, and
      eval_cli_launches of msda_fwd and relation_bias_v4_fwd, from phase
      7 (b)'s second CLI run; train_cli_launches of msda_fwd, msda_bwd,
      relation_bias_v4_fwd and ycc_to_rgb from phase 8 (a); msda_fwd_bf16
@@ -391,7 +401,8 @@ EVAL_CYCLES = 50
 # (ycc_to_rgb) only the inverse DCT's rounding differs: 0.02-0.05 on the
 # H100, against 4.78 at 4:2:0 with nvJPEG's own RGB output (saturated
 # rectangles on noise, the synthetic split's worst case)
-DECODE_FIXTURES = ("decode_444", "decode_gray", "decode_420", "decode_exif6")
+DECODE_FIXTURES = ("decode_444", "decode_gray", "decode_420", "decode_exif6", "decode_422",
+                   "decode_440", "decode_411", "decode_cmyk", "decode_ycck")
 TOL_DECODE_MEAN = 0.25
 STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs", "ARm", "ARl")
 
@@ -2718,8 +2729,8 @@ def check_ycc_kernel(torch, rows):
 
 def check_decode():
     """Phase 7 (a): nvJPEG on the card against cv2's decode of each fixture
-    (shapes exact, mean |difference| within TOL_DECODE_MEAN), and the
-    split's JPEGs at their annotated sizes. Returns {fixture: [max, mean,
+    (shapes exact, mean |difference| within TOL_DECODE_MEAN, one
+    ``ycc_to_rgb`` launch a YCbCr or YCCK file), and the split's JPEGs at their annotated sizes. Returns {fixture: [max, mean,
     share more than 8 levels off]}."""
     import numpy as np
 
@@ -2729,15 +2740,20 @@ def check_decode():
     found = {}
     tol = TOL_DECODE_MEAN
     for name in DECODE_FIXTURES:
+        launches = image_io.ycc_to_rgb.launches
         got = image_io.read_image(os.path.join(folder, name + ".jpg"))
+        launches = image_io.ycc_to_rgb.launches - launches
         want = np.load(os.path.join(folder, name + ".npy"))
         if got.shape != want.shape or got.dtype != np.uint8:
             raise AssertionError(f"decode {name}: {got.shape} {got.dtype}, cv2 {want.shape}")
+        if launches != (name not in ("decode_gray", "decode_cmyk")):
+            raise AssertionError(f"decode {name}: {launches} ycc_to_rgb launches, expected one "
+                                 "for a YCbCr or YCCK file, none for grey or CMYK")
         diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
         found[name] = [int(diff.max()), float(diff.mean()), float((diff > 8).mean())]
         phase(7, f"decode {name}.jpg {got.shape}: |nvJPEG - cv2| max {diff.max()}, mean "
                  f"{diff.mean():.4f} (tolerance {tol}), share > 8 levels off "
-                 f"{(diff > 8).mean():.4f}")
+                 f"{(diff > 8).mean():.4f}; {launches} ycc_to_rgb launches")
         if not (diff.mean() <= tol):
             raise AssertionError(f"decode {name}: mean |diff| {diff.mean()} > {tol}")
     with open(os.path.join(folder, "synth_coco", "annotations", "instances_val2017.json")) as f:
@@ -3923,16 +3939,21 @@ def run_large_model(torch, label, kernels, overrides=None, n=11):
     """Phase ``n`` (b): a large config (phase 12: the flagship config with
     ``overrides``) at full width, fp32, seeded weights. 4
     requests through ``inference.detect`` after one warm-up (12 msda_fwd and
-    5 relation_bias_v4_fwd launches each; 300 finite detections), the p50 and
+    5 relation_bias_v4_fwd launches each, and with a DCN backbone one
+    bilinear_sample_fwd a DCN; 300 finite detections), the p50 and
     range of their CUDA-event times and the peak memory above what earlier
     phases keep resident; STAGE_RUNS detects timed by stage (``StageTimer``);
     then LARGE_TRAIN_RUN's train steps (18 msda_fwd, 18 msda_bwd and 5
-    relation_bias_v4_fwd a step; every loss term and the gradient norm
+    relation_bias_v4_fwd a step, and one bilinear_sample_fwd and one
+    bilinear_sample_bwd a DCN; every loss term and the gradient norm
     finite; a DCN's offset convs must get a non-zero gradient). Returns the
     numbers, the model and the first request."""
     from relation_detr_tpu_torch.configs import build_detector
     from relation_detr_tpu_torch.inference import detect
     from relation_detr_tpu_torch.parallel.train_step import make_train_step
+
+    from relation_detr_tpu_torch.models.deform_conv import DeformConv2dPack
+    from relation_detr_tpu_torch.ops import grid_sample
 
     cfg, canvas, model_args = large_model_spec(label, overrides)
     field = "large_backbone_launches" if overrides is None else "vit_dcn_launches"
@@ -3943,6 +3964,15 @@ def run_large_model(torch, label, kernels, overrides=None, n=11):
     raw = {}
     hook = model.register_forward_hook(lambda mod, args, out: raw.update(out))
     counters = family_kernels()
+    # a DCN backbone's samplers: one bilinear_sample_fwd launch a DCN a
+    # forward, one bilinear_sample_bwd a DCN a backward
+    dcns = sum(isinstance(m, DeformConv2dPack) for m in model.modules())
+    if dcns:
+        counters.update(bilinear_sample_fwd=grid_sample.bilinear_sample,
+                        bilinear_sample_bwd=grid_sample.bilinear_sample_backward)
+    per_detect = {"msda_fwd": 12, "msda_bwd": 0, "relation_bias_v4_fwd": 5}
+    if dcns:
+        per_detect.update(bilinear_sample_fwd=dcns, bilinear_sample_bwd=0)
     gen = torch.Generator(device="cuda").manual_seed(15)
     topk = cfg.select_box_nums_for_evaluation
     requests, sizes = zip(*large_requests(torch, gen, canvas))
@@ -3962,9 +3992,8 @@ def run_large_model(torch, label, kernels, overrides=None, n=11):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
         got = {k: fn.launches - before[k] for k, fn in counters.items()}
-        if got != {"msda_fwd": 12, "msda_bwd": 0, "relation_bias_v4_fwd": 5}:
-            raise AssertionError(f"{label} request {i}: launches {got}, expected 12 msda_fwd "
-                                 "and 5 relation_bias_v4_fwd")
+        if got != per_detect:
+            raise AssertionError(f"{label} request {i}: launches {got}, expected {per_detect}")
         if raw["pred_logits"].shape != (1, 900, 91) or det["boxes"].shape != (1, topk, 4):
             raise AssertionError(f"{label} request {i}: logits {raw['pred_logits'].shape}, "
                                  f"detections {det['boxes'].shape}")
@@ -4000,6 +4029,8 @@ def run_large_model(torch, label, kernels, overrides=None, n=11):
     bs, cap, warmup, timed = LARGE_TRAIN_RUN
     batch = synthetic_batch(torch, gen, bs, cap, canvas, "cuda", sizes[0])
     per_step = {"msda_fwd": 18, "msda_bwd": 18, "relation_bias_v4_fwd": 5}
+    if dcns:
+        per_step.update(bilinear_sample_fwd=dcns, bilinear_sample_bwd=dcns)
     for fn in counters.values():
         fn.launches = 0
     last = {}
@@ -4036,8 +4067,8 @@ def run_large_model(torch, label, kernels, overrides=None, n=11):
                 step_ms_p50=statistics.median(train_times), step_ms=train_times,
                 step_peak_gib=train_peak, resident_gib=resident / 2**30,
                 grad_norm=last["grad_norm"], eval_launches=eval_launches,
-                train_launches=train_launches, dcn_offset_grad_min=offset_grad), model, \
-        requests[0]
+                train_launches=train_launches, dcn_offset_grad_min=offset_grad, dcns=dcns),\
+        model, requests[0]
 
 
 def check_bf16_backbone(torch, label, model32, request, overrides=None, n=11):
@@ -4153,6 +4184,11 @@ DCN_SAMPLERS = (
     ("layer4.1-2", (25, 42, 512), (25, 42), 1, 2),
 )
 SAMPLER_ITERS = 20
+SAMPLER_PLAIN_ITERS = 5
+# the sampler's gradients against the plain backward, each in units of its
+# max: the map gradient's float atomics add in another order than
+# scatter_add_, and the point gradient sums C products in another order
+TOL_SAMPLER_GRAD = 1e-5
 NMS_THRESHOLD = 0.7
 NMS_ITERS = 20
 
@@ -4169,70 +4205,123 @@ def sampler_inputs(torch, gen, hwc, out_hw, stride):
     return feat, grid + torch.randn(grid.shape, device="cuda", generator=gen) * 1.5
 
 
-def check_bilinear_sample(torch, dcn):
-    """Phase 12 (c): ``ops.grid_sample.bilinear_sample`` (plain PyTorch, no
-    hand kernel) at each of the R50-DCN's conv2 shapes (DCN_SAMPLERS): the
-    card's output against the CPU's, CUDA-event times of the forward and
-    of the backward (map and points), beside one ``F.grid_sample`` call
-    (align_corners=True on the pixel grid: the same function, NCHW) and the
-    bounds; then their sum over a forward's 13 DCNs as a share of the
-    R50-DCN detect p50, and forward + backward of the step p50. Bytes: the
-    map, points and output once (backward: the output gradient, map and
-    points read, their gradients written); operations: 4 corners x C FMAs a
-    sample forward, 3x that backward."""
+def check_bilinear_sample(torch, kernels, dcn):
+    """Phase 12 (c): ``csrc/grid_sample.cu``'s ``bilinear_sample_fwd`` and
+    ``bilinear_sample_bwd`` against their plain versions
+    (``bilinear_sample_reference``, ``bilinear_sample_backward_reference``)
+    on the card at each of the R50-DCN's conv2 shapes (DCN_SAMPLERS): the
+    output within TOL_KERNEL of its max, each gradient (map and points)
+    within TOL_SAMPLER_GRAD of its max; CUDA-event times of the kernel and
+    the plain version in turns with one ``F.grid_sample`` call
+    (align_corners=True on the pixel grid: the same function, NCHW),
+    forward and backward, beside the bounds; then the kernels' sum over a
+    forward's 13 DCNs as a share of the R50-DCN detect p50, and forward +
+    backward of its step p50 (``dcn``: run_large_model's numbers, whose
+    launches fill the kernel rows). Bytes: the map, points and output once
+    (backward: the output gradient, map and points read, their gradients
+    written); operations: 4 corners x C FMAs a sample forward, 3x that
+    backward."""
     import torch.nn.functional as F
 
-    from relation_detr_tpu_torch.ops.grid_sample import bilinear_sample
+    from relation_detr_tpu_torch.ops import grid_sample as gs
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     rows = []
+    work = dict(fwd_bytes=0, fwd_ops=0, bwd_bytes=0, bwd_ops=0)  # a forward's DCNs, summed
     for label, hwc, out_hw, stride, count in DCN_SAMPLERS:
         feat, points = sampler_inputs(torch, gen, hwc, out_hw, stride)
-        out = bilinear_sample(feat, points)
-        err = (out.cpu() - bilinear_sample(feat.cpu(), points.cpu())).abs().max().item()
-        if not err <= TOL_KERNEL * max(out.abs().max().item(), 1.0):
-            raise AssertionError(f"bilinear_sample {label}: card vs CPU max abs err {err}")
+        grad_out = torch.randn(points.shape[:2] + hwc[2:], device="cuda", generator=gen)
+        out = gs.bilinear_sample(feat, points)
+        want = gs.bilinear_sample_reference(feat, points)
+        grads = gs.bilinear_sample_backward(feat, points, grad_out)
+        want_grads = gs.bilinear_sample_backward_reference(feat, points, grad_out)
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        if not err <= TOL_KERNEL * max(want.abs().max().item(), 1.0):
+            raise AssertionError(f"bilinear_sample_fwd {label}: max abs err {err}")
+        grad_err, grad_rel = [], []
+        for name, got, ref in zip(("map", "points"), grads, want_grads):
+            grad_err.append((got - ref).abs().max().item())
+            grad_rel.append(grad_err[-1] / ref.abs().max().item())
+            if not grad_rel[-1] <= TOL_SAMPLER_GRAD:
+                raise AssertionError(f"bilinear_sample_bwd {label}: {name} gradient off by "
+                                     f"{grad_rel[-1]} of its max")
         h, w, c = hwc
         nchw = feat.permute(0, 3, 1, 2).contiguous()
         grid = (points / torch.tensor([w - 1, h - 1], device="cuda") * 2 - 1)[:, :, None]
         lib = F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True)
         lib_err = (lib[..., 0].permute(0, 2, 1) - out).abs().max().item()
-        fwd_ms = cuda_ms(lambda: bilinear_sample(feat, points), SAMPLER_ITERS)
-        lib_ms = cuda_ms(lambda: F.grid_sample(nchw, grid, "bilinear", "zeros",
-                                               align_corners=True), SAMPLER_ITERS)
-        feat_g, points_g = feat.requires_grad_(True), points.requires_grad_(True)
-        out = bilinear_sample(feat_g, points_g)
-        grad_out = torch.randn(out.shape, device="cuda", generator=gen)
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (feat_g, points_g), grad_out,
-                                                     retain_graph=True), SAMPLER_ITERS)
+        fwd_ms, plain_ms, lib_ms = in_turns(
+            lambda: gs.bilinear_sample_reference(feat, points),
+            lambda: gs.bilinear_sample(feat, points), SAMPLER_PLAIN_ITERS, SAMPLER_ITERS,
+            lambda: F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True))
         nchw_g, grid_g = nchw.requires_grad_(True), grid.requires_grad_(True)
         lib_out = F.grid_sample(nchw_g, grid_g, "bilinear", "zeros", align_corners=True)
-        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (nchw_g, grid_g), grad_out.permute(0, 2, 1)[..., None],
-            retain_graph=True), SAMPLER_ITERS)
+        lib_grad = grad_out.permute(0, 2, 1)[..., None]
+        bwd_ms, plain_bwd_ms, lib_bwd_ms = in_turns(
+            lambda: gs.bilinear_sample_backward_reference(feat, points, grad_out),
+            lambda: gs.bilinear_sample_backward(feat, points, grad_out), SAMPLER_PLAIN_ITERS,
+            SAMPLER_ITERS,
+            lambda: torch.autograd.grad(lib_out, (nchw_g, grid_g), lib_grad, retain_graph=True))
         n = points.shape[1]
-        fwd_bound = bound(size(feat, points, out), 8 * n * c)
-        bwd_bound = bound(size(grad_out, feat, points) + size(feat, points), 24 * n * c)
+        fwd_work = (size(feat, points, out), 8 * n * c)
+        bwd_work = (size(grad_out, feat, points) + size(feat, points), 24 * n * c)
+        fwd_bound, bwd_bound = bound(*fwd_work), bound(*bwd_work)
+        for key, value in zip(work, fwd_work + bwd_work):
+            work[key] += value * count
         rows.append(dict(shape=label, map=list(hwc), samples=n, count=count, max_abs_err=err,
-                         fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound[0],
-                         fwd_bound_by=fwd_bound[1], bwd_bound_ms=bwd_bound[0],
-                         bwd_bound_by=bwd_bound[1], library_fwd_ms=lib_ms,
-                         library_bwd_ms=lib_bwd_ms, library_max_abs_diff=lib_err))
+                         grad_max_abs_err=grad_err, grad_rel_err=grad_rel, fwd_ms=fwd_ms,
+                         plain_fwd_ms=plain_ms, bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+                         library_fwd_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
+                         library_max_abs_diff=lib_err))
         phase(12, f"bilinear_sample {label} ({h}x{w}x{c} at {n} points, {count} a forward): "
-                  f"card vs CPU max abs err {err:.3e}; forward {fwd_ms:.4f} ms (bound "
-                  f"{fwd_bound[0]:.4f}, {fwd_bound[1]}; F.grid_sample {lib_ms:.4f}, max abs "
-                  f"diff {lib_err:.3e}), backward {bwd_ms:.4f} ms (bound {bwd_bound[0]:.4f}, "
-                  f"{bwd_bound[1]}; F.grid_sample's {lib_bwd_ms:.4f})")
-        del feat, points, feat_g, points_g, out, nchw, grid, lib, lib_out, nchw_g, grid_g
-    fwd = sum(r["fwd_ms"] * r["count"] for r in rows)
-    bwd = sum(r["bwd_ms"] * r["count"] for r in rows)
+                  f"forward max abs err {err:.3e}, kernel {fwd_ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, F.grid_sample {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound "
+                  f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); backward max abs err map "
+                  f"{grad_err[0]:.3e} points {grad_err[1]:.3e} (of their max: {grad_rel[0]:.2e}, "
+                  f"{grad_rel[1]:.2e}), kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, "
+                  f"F.grid_sample's {lib_bwd_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms "
+                  f"({bwd_bound[1]})")
+        del feat, points, out, want, grads, want_grads, nchw, grid, lib, lib_out, nchw_g, grid_g
+    totals = {key: sum(r[key] * r["count"] for r in rows)
+              for key in ("fwd_ms", "plain_fwd_ms", "library_fwd_ms", "bwd_ms", "plain_bwd_ms",
+                          "library_bwd_ms")}
+    fwd_bound = bound(work["fwd_bytes"], work["fwd_ops"])
+    bwd_bound = bound(work["bwd_bytes"], work["bwd_ops"])
+    fwd, bwd = totals["fwd_ms"], totals["bwd_ms"]
     shares = dict(forward_ms_per_detect=fwd, detect_share=fwd / dcn["detect_ms_p50"],
                   fwd_bwd_ms_per_step=fwd + bwd, step_share=(fwd + bwd) / dcn["step_ms_p50"])
-    phase(12, f"bilinear_sample over a forward's {sum(r['count'] for r in rows)} DCNs: "
-              f"{fwd:.3f} ms, {100 * shares['detect_share']:.2f}% of the R50-DCN detect p50 "
-              f"{dcn['detect_ms_p50']:.3f} ms; forward + backward {fwd + bwd:.3f} ms, "
+    common = dict(route="cuda", source="relation_detr_tpu_torch/csrc/grid_sample.cu",
+                  replaces="relation_detr_tpu/ops/grid_sample.py:11",
+                  shape=f"the R50-DCN forward's {sum(r['count'] for r in rows)} DCN samplers "
+                        "(DCN_SAMPLERS), each shape's time times its count, summed",
+                  library="F.grid_sample(align_corners=True) on the NCHW map")
+    # launches: the R50-DCN train steps'; eval_launches: its detects'
+    kernels["bilinear_sample"] = dict(
+        common, name="bilinear_sample_fwd",
+        launches=dcn["train_launches"]["bilinear_sample_fwd"],
+        eval_launches=dcn["eval_launches"]["bilinear_sample_fwd"],
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=fwd, plain_ms=totals["plain_fwd_ms"],
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=totals["library_fwd_ms"])
+    kernels["bilinear_sample_bwd"] = dict(
+        common, name="bilinear_sample_bwd",
+        launches=dcn["train_launches"]["bilinear_sample_bwd"],
+        eval_launches=dcn["eval_launches"]["bilinear_sample_bwd"],
+        max_abs_err=max(max(r["grad_max_abs_err"]) for r in rows), ms=bwd,
+        plain_ms=totals["plain_bwd_ms"], bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        library_ms=totals["library_bwd_ms"])
+    phase(12, f"bilinear_sample over a forward's {sum(r['count'] for r in rows)} DCNs "
+              f"({dcn['dcns']} DCN modules; launches: detects {dcn['eval_launches']}, train "
+              f"steps {dcn['train_launches']}): forward {fwd:.3f} ms (plain "
+              f"{totals['plain_fwd_ms']:.3f}, F.grid_sample {totals['library_fwd_ms']:.3f}, "
+              f"bound {fwd_bound[0]:.4f}), {100 * shares['detect_share']:.2f}% of the R50-DCN "
+              f"detect p50 {dcn['detect_ms_p50']:.3f} ms; backward {bwd:.3f} ms (plain "
+              f"{totals['plain_bwd_ms']:.3f}, F.grid_sample's {totals['library_bwd_ms']:.3f}, "
+              f"bound {bwd_bound[0]:.4f}); forward + backward {fwd + bwd:.3f} ms, "
               f"{100 * shares['step_share']:.2f}% of its step p50 {dcn['step_ms_p50']:.3f} ms")
-    return dict(rows=rows, **shares)
+    return dict(rows=rows, totals=totals, **shares)
 
 
 def check_nms(torch, model):
@@ -4306,7 +4395,7 @@ def run_vit_dcn(torch, kernels, flagship):
                                                          overrides, n=12)
         del model, request
         torch.cuda.empty_cache()
-    results["bilinear_sample"] = check_bilinear_sample(torch, results["r50_dcn"])
+    results["bilinear_sample"] = check_bilinear_sample(torch, kernels, results["r50_dcn"])
     results["nms_mask"] = check_nms(torch, flagship)
     phase(12, f"[{smi}] " + "; ".join(
         f"{k}: detect p50 {results[k]['detect_ms_p50']:.3f} ms, "
@@ -4753,7 +4842,10 @@ DATA_PATH_BATCH = 2
 DATA_PATH_STEPS = 8  # one epoch of the 16-image train split at B=2
 DATA_PATH_SKIP = 2  # steps left out of the numbers (model and loader warm-up)
 PNG_FIXTURES = ("gray", "rgb", "rgba", "rgb16", "gray16", "palette", "palette4", "gray1",
-                "gray_alpha", "filters")
+                "gray_alpha", "filters") + tuple(
+    f"adam7_c{color}_{depth}" for color, depths in (
+        (0, (1, 2, 4, 8, 16)), (2, (8, 16)), (3, (1, 2, 4, 8)), (4, (8, 16)), (6, (8, 16)))
+    for depth in depths) + ("adam7_tiny", "exif3", "exif6", "exif8")
 # (label, train config's transforms, annotation file, return_masks, canvas)
 DATA_PATH_RUNS = (
     ("strong_album", "transforms.strong_album(normalize_host=False)",

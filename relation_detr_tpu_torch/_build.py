@@ -201,6 +201,13 @@ def load_library() -> ctypes.CDLL:
     # int sep_contract_fwd(oy, ox, patch, out, B, nt, H, P, ph, pw, T, C, stream)
     lib.sep_contract_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.sep_contract_fwd.restype = ctypes.c_int
+    # int bilinear_sample_fwd(feat, points, out, B, H, W, C, N, stream)
+    lib.bilinear_sample_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.bilinear_sample_fwd.restype = ctypes.c_int
+    # int bilinear_sample_bwd(feat, points, grad_out, grad_feat, grad_points,
+    #                         B, H, W, C, N, stream)
+    lib.bilinear_sample_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.bilinear_sample_bwd.restype = ctypes.c_int
     lib.rdetr_error_string.argtypes = [ctypes.c_int]
     lib.rdetr_error_string.restype = ctypes.c_char_p
     return lib
@@ -219,14 +226,15 @@ def load_jpeg_library() -> ctypes.CDLL:
     # int jpeg_state_create(handle, device, state out)
     lib.jpeg_state_create.argtypes = [_P, _I, ctypes.POINTER(_P)]
     lib.jpeg_state_destroy.argtypes = [_P]
-    # int jpeg_image_info(handle, data, length, info (host int32 [6]))
+    # int jpeg_image_info(handle, data, length, info (host int32 [10]))
     lib.jpeg_image_info.argtypes = [_P, _P, _I, _P]
     # void *jpeg_state_stream(state)
     lib.jpeg_state_stream.argtypes = [_P]
     lib.jpeg_state_stream.restype = _P
     # int jpeg_decode(handle, state, data, length, format, plane 0, pitch 0,
-    #                 plane 1, pitch 1, plane 2, pitch 2)  (device planes)
-    lib.jpeg_decode.argtypes = [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I]
+    #                 plane 1, pitch 1, plane 2, pitch 2, plane 3, pitch 3)
+    #                 (device planes)
+    lib.jpeg_decode.argtypes = [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I]
     # int ycc_to_rgb(y, cb, cr, out, height, width, chroma height, chroma width,
     #                hf, vf, stream)
     lib.ycc_to_rgb.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]

@@ -5,15 +5,18 @@
 // libjpeg in csrc/dataplane.cpp. Not a TPU kernel port. nvJPEG's own kernels
 // run the inverse DCT (the Huffman decode runs on the calling host thread
 // with the default, hybrid backend, which is why the loader decodes in
-// several threads). For YCbCr files at 4:4:4, 4:2:2 and 4:2:0, nvJPEG
-// returns the planes and ycc_to_rgb_kernel below upsamples the chroma and
-// converts to RGB as libjpeg-turbo does (cv2's decoder): its "fancy"
-// triangle filter (jdsample.c h2v1/h2v2_fancy_upsample, edges replicated)
-// and its fixed-point colour conversion (jdcolor.c ycc_rgb_convert). On a
-// saturated 4:2:0 test image, mean |difference| from cv2 is 0.04 levels
-// this way (what is left is the inverse DCT's rounding) against 4.78 with
-// nvJPEG's own RGB output (measured on the H100). Other subsamplings take
-// nvJPEG's RGB; grayscale its luma plane.
+// several threads). For YCbCr files at 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1
+// and 4:1:0, nvJPEG returns the planes and ycc_to_rgb_kernel below
+// upsamples the chroma and converts to RGB as libjpeg-turbo does (cv2's
+// decoder): its "fancy" triangle filter where it has one (jdsample.c
+// h2v1/h2v2/h1v2_fancy_upsample, edges replicated), plain replication
+// (int_upsample) for 4:1:1 and 4:1:0, and its fixed-point colour conversion
+// (jdcolor.c ycc_rgb_convert). On a saturated 4:2:0 test image, mean
+// |difference| from cv2 is 0.04 levels this way (what is left is the
+// inverse DCT's rounding) against 4.78 with nvJPEG's own RGB output
+// (measured on the H100). nvJPEG's 4:1:0V takes nvJPEG's RGB; grayscale its
+// luma plane; a four-component file (CMYK, YCCK) its four planes as stored,
+// which the caller converts on the host (data/image_io.py::cmyk_to_rgb).
 //
 // ycc_to_rgb_kernel: one thread per output pixel; it reads ~1 luma and 4
 // chroma bytes and writes 3, so it is bound by bytes (a few microseconds
@@ -58,10 +61,19 @@ __device__ __forceinline__ unsigned char clamp255(int v) {
 }
 
 // Chroma of output pixel (x, y) from a (ch, cw) plane upsampled by (hf, vf)
-// in {1, 2}, as libjpeg-turbo's fancy upsampling gives it.
+// = (1, 1), (2, 1), (2, 2), (1, 2), (4, 1) or (4, 2), as libjpeg-turbo's
+// upsampling gives it.
 __device__ __forceinline__ int fancy_chroma(const unsigned char *__restrict__ c, int ch,
                                             int cw, int hf, int vf, int x, int y) {
   if (hf == 1 && vf == 1) return c[(size_t)y * cw + x];
+  if (hf == 4) return c[(size_t)(y / vf) * cw + (x >> 2)];  // int_upsample: replication
+  if (hf == 1) {  // h1v2: 3/4 nearer + 1/4 further row (edge rows replicated)
+    const int inrow = y >> 1;
+    const int far = (y & 1) == 0 ? (inrow > 0 ? inrow - 1 : 0)
+                                  : (inrow < ch - 1 ? inrow + 1 : ch - 1);
+    const int sum = 3 * c[(size_t)inrow * cw + x] + c[(size_t)far * cw + x];
+    return (sum + ((y & 1) == 0 ? 1 : 2)) >> 2;
+  }
   if (vf == 1) {  // h2v1: 3/4 nearer + 1/4 further column, edges as is
     const unsigned char *row = c + (size_t)y * cw;
     const int col = x >> 1;
@@ -160,8 +172,8 @@ int jpeg_state_destroy(void *state) {
   return 0;
 }
 
-// info: [components, chroma subsampling (nvjpegChromaSubsampling_t), height,
-//        width, chroma height, chroma width]
+// info: [components, chroma subsampling (nvjpegChromaSubsampling_t), then
+//        the height and width of components 0, 1, 2 and 3 (0 where absent)]
 int jpeg_image_info(void *handle, const unsigned char *data, int64_t length, int32_t *info) {
   int components = 0;
   nvjpegChromaSubsampling_t subsampling = NVJPEG_CSS_UNKNOWN;
@@ -173,10 +185,10 @@ int jpeg_image_info(void *handle, const unsigned char *data, int64_t length, int
   if (st != NVJPEG_STATUS_SUCCESS) return (int)st;
   info[0] = components;
   info[1] = (int32_t)subsampling;
-  info[2] = heights[0];
-  info[3] = widths[0];
-  info[4] = components > 1 ? heights[1] : 0;
-  info[5] = components > 1 ? widths[1] : 0;
+  for (int i = 0; i < NVJPEG_MAX_COMPONENT; ++i) {
+    info[2 + 2 * i] = i < components ? heights[i] : 0;
+    info[3 + 2 * i] = i < components ? widths[i] : 0;
+  }
   return 0;
 }
 
@@ -185,16 +197,17 @@ void *jpeg_state_stream(void *state) { return static_cast<JpegState *>(state)->s
 
 // Decodes into device planes on the state's stream, without waiting: format
 // 0, nvJPEG's interleaved RGB into c0 (pitch p0); 1, luma into c0; 2, the Y,
-// Cb and Cr planes into c0, c1, c2 (pitches p0, p1, p2).
+// Cb and Cr planes into c0, c1, c2 (pitches p0, p1, p2); 3, every component
+// as stored (NVJPEG_OUTPUT_UNCHANGED) into c0..c3.
 int jpeg_decode(void *handle, void *state, const unsigned char *data, int64_t length,
                 int64_t format, void *c0, int64_t p0, void *c1, int64_t p1, void *c2,
-                int64_t p2) {
+                int64_t p2, void *c3, int64_t p3) {
   JpegState *s = static_cast<JpegState *>(state);
   int code = cuda_code(cudaSetDevice(s->device));
   if (code) return code;
-  const nvjpegOutputFormat_t formats[3] = {NVJPEG_OUTPUT_RGBI, NVJPEG_OUTPUT_Y,
-                                           NVJPEG_OUTPUT_YUV};
-  if (format < 0 || format > 2) return (int)NVJPEG_STATUS_INVALID_PARAMETER;
+  const nvjpegOutputFormat_t formats[4] = {NVJPEG_OUTPUT_RGBI, NVJPEG_OUTPUT_Y,
+                                           NVJPEG_OUTPUT_YUV, NVJPEG_OUTPUT_UNCHANGED};
+  if (format < 0 || format > 3) return (int)NVJPEG_STATUS_INVALID_PARAMETER;
   nvjpegImage_t image;
   std::memset(&image, 0, sizeof(image));
   image.channel[0] = static_cast<unsigned char *>(c0);
@@ -203,6 +216,8 @@ int jpeg_decode(void *handle, void *state, const unsigned char *data, int64_t le
   image.pitch[1] = (size_t)p1;
   image.channel[2] = static_cast<unsigned char *>(c2);
   image.pitch[2] = (size_t)p2;
+  image.channel[3] = static_cast<unsigned char *>(c3);
+  image.pitch[3] = (size_t)p3;
   return (int)nvjpegDecode(static_cast<nvjpegHandle_t>(handle), s->jpeg, data, (size_t)length,
                            formats[format], &image, s->stream);
 }

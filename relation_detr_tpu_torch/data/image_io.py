@@ -6,20 +6,24 @@ followed by BGR->RGB (``relation_detr_tpu/data/coco.py:133-135``): JPEG
 bytes in, an RGB (H, W, 3) uint8 array on the host out, turned upright by
 the file's EXIF Orientation tag as cv2 turns it. nvJPEG from the CUDA
 toolkit decodes (``csrc/jpeg_decode.cu``, built by ``_build`` at the first
-decode). For YCbCr at 4:4:4, 4:2:2 and 4:2:0 it returns the planes, and
-``ycc_to_rgb`` (a kernel of that file; plain version
+decode). For YCbCr at 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 it returns
+the planes, and ``ycc_to_rgb`` (a kernel of that file; plain version
 ``ycc_to_rgb_reference``) upsamples the chroma and converts to RGB with
-libjpeg-turbo's arithmetic, which cv2 decodes with. Other chroma
-subsamplings take nvJPEG's RGB; grayscale files come out as three equal
-channels, as cv2 gives them; a file nvJPEG cannot decode (CMYK, a broken
-stream) raises ``UnreadableImage`` with its name.
+libjpeg-turbo's arithmetic, which cv2 decodes with: its fancy upsampling
+(h2v1, h2v2, h1v2) where libjpeg has one, plain replication for 4:1:1 and
+4:1:0. nvJPEG's "4:1:0V" takes nvJPEG's own RGB; grayscale files come out
+as three equal channels, as cv2 gives them. Four-component files (Adobe
+CMYK and YCCK) come as nvJPEG's four planes, which ``cmyk_to_rgb``
+converts as libjpeg and cv2 do (YCCK's YCbCr -> RGB with ``ycc_to_rgb``
+on the card, the CMYK -> RGB on the host). A file nvJPEG cannot decode
+(a broken stream, four components with subsampled planes) raises
+``UnreadableImage`` with its name.
 
 PNG files decode on the host (``decode_png``: stdlib ``zlib`` and numpy) to
 what cv2's ``IMREAD_COLOR`` followed by BGR->RGB gives: 8-bit grey, RGB,
 RGBA (alpha dropped, not composited) and palette images, 1-, 2- and 4-bit
 grey and palette, 16-bit samples cut to their high byte, all five row
-filters. Adam7-interlaced files and PNG EXIF orientation are not ported:
-an interlaced file raises ``UnreadableImage`` with its name.
+filters, Adam7 interlacing, and the orientation of an ``eXIf`` chunk.
 
 The writers are host code, the counterpart of ``cv2.imwrite`` of a BGR
 uint8 image (``write_image``, by the file's extension): ``encode_jpeg``,
@@ -51,12 +55,14 @@ from relation_detr_tpu_torch import _build
 Decode = Callable[[np.ndarray], np.ndarray]
 
 # nvjpegChromaSubsampling_t -> the chroma upsampling factors (hf, vf) that
-# ycc_to_rgb takes: 4:4:4, 4:2:2, 4:2:0; grayscale; the subsamplings that
-# take nvJPEG's own RGB conversion (4:4:0, 4:1:1, 4:1:0, 4:1:0V)
-_FANCY = {0: (1, 1), 1: (2, 1), 2: (2, 2)}
+# ycc_to_rgb takes: 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, 4:1:0; grayscale; the
+# subsampling that takes nvJPEG's own RGB conversion (4:1:0V)
+_FANCY = {0: (1, 1), 1: (2, 1), 2: (2, 2), 3: (1, 2), 4: (4, 1), 5: (4, 2)}
 _GRAY = 6
-_NVJPEG_RGB = (3, 4, 5, 7)
-_FORMAT_RGB, _FORMAT_Y, _FORMAT_YUV = 0, 1, 2  # jpeg_decode's output formats
+_NVJPEG_RGB = (7,)
+# jpeg_decode's output formats: interleaved RGB, luma, the 3 YCbCr planes,
+# every component's plane as stored (a four-component file's four)
+_FORMAT_RGB, _FORMAT_Y, _FORMAT_YUV, _FORMAT_UNCHANGED = 0, 1, 2, 3
 _ORIENTATION_TAG = 0x0112
 # nvjpegStatus_t values that mean the file, not the card or the library
 _NVJPEG_BAD_FILE = (3, 4)  # NVJPEG_STATUS_BAD_JPEG, NVJPEG_STATUS_JPEG_NOT_SUPPORTED
@@ -68,30 +74,46 @@ class UnreadableImage(ValueError):
     variant they do not decode); the message names the file."""
 
 
-def exif_orientation(data) -> int:
-    """The EXIF Orientation (1-8) of JPEG bytes, 1 when absent or invalid.
-
-    Walks the markers from SOI to the first SOS and reads tag 0x0112 of IFD0
-    in an ``Exif`` APP1 segment (TIFF header, either byte order)."""
+def _header_segments(data):
+    """(marker, body) of each segment of JPEG bytes from SOI to the first
+    SOS (nothing for bytes that are not a JPEG)."""
     buf = bytes(memoryview(data)[:65536 * 4])
     if buf[:2] != b"\xff\xd8":
-        return 1
+        return
     pos = 2
     while pos + 4 <= len(buf):
         if buf[pos] != 0xFF:
-            return 1
+            return
         marker = buf[pos + 1]
         if marker == 0xFF:  # fill byte
             pos += 1
             continue
         if marker == 0xDA or marker == 0xD9:  # SOS / EOI: no more headers
-            return 1
+            return
         (length,) = struct.unpack(">H", buf[pos + 2:pos + 4])
-        seg = buf[pos + 4:pos + 2 + length]
+        yield marker, buf[pos + 4:pos + 2 + length]
+        pos += 2 + length
+
+
+def exif_orientation(data) -> int:
+    """The EXIF Orientation (1-8) of JPEG bytes, 1 when absent or invalid.
+
+    Walks the markers from SOI to the first SOS and reads tag 0x0112 of IFD0
+    in an ``Exif`` APP1 segment (TIFF header, either byte order)."""
+    for marker, seg in _header_segments(data):
         if marker == 0xE1 and seg[:6] == b"Exif\x00\x00":
             return _tiff_orientation(seg[6:])
-        pos += 2 + length
     return 1
+
+
+def adobe_transform(data) -> Optional[int]:
+    """The transform flag of JPEG bytes' Adobe APP14 segment (libjpeg reads
+    a four-component file as CMYK at 0 or without the segment, as YCCK
+    otherwise), None without one."""
+    for marker, seg in _header_segments(data):
+        if marker == 0xEE and len(seg) >= 12 and seg[:5] == b"Adobe":
+            return seg[11]
+    return None
 
 
 def _tiff_orientation(tiff: bytes) -> int:
@@ -130,18 +152,23 @@ def apply_orientation(image: np.ndarray, orientation: int) -> np.ndarray:
 
 
 def _upsample_reference(c: torch.Tensor, h: int, w: int, hf: int, vf: int) -> torch.Tensor:
-    """libjpeg-turbo's fancy upsampling (jdsample.c h2v1/h2v2) of a (ch, cw)
-    uint8 plane to (h, w) int32: each output takes 3/4 of the nearer and 1/4
-    of the further sample per upsampled axis, image edges replicated."""
+    """libjpeg-turbo's upsampling (jdsample.c) of a (ch, cw) uint8 plane to
+    (h, w) int32. Fancy for h2v1, h2v2 and h1v2: each output takes 3/4 of
+    the nearer and 1/4 of the further sample per upsampled axis, image edges
+    replicated; plain replication (int_upsample) for 4:1:1 and 4:1:0."""
     c = c.to(torch.int32)
     ch, cw = c.shape
     if (hf, vf) == (1, 1):
         return c
-    if vf == 2:  # column sums over the nearer and the further row, x4
-        r = torch.arange(h, device=c.device)
+    r = torch.arange(h, device=c.device)
+    if hf == 4:
+        return c[r // vf][:, torch.arange(w, device=c.device) // 4]
+    if vf == 2:  # column sums over the nearer and the further row
         near = r // 2
         far = torch.where(r % 2 == 0, (near - 1).clamp(min=0), (near + 1).clamp(max=ch - 1))
         c = 3 * c[near] + c[far]
+        if hf == 1:  # h1v2: the sums, x4
+            return (c + torch.where(r % 2 == 0, 1, 2)[:, None]) >> 2
         shift, round_even, round_odd = 4, 8, 7
     else:
         shift, round_even, round_odd = 2, 1, 2
@@ -155,9 +182,9 @@ def _upsample_reference(c: torch.Tensor, h: int, w: int, hf: int, vf: int) -> to
 
 def ycc_to_rgb_reference(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, hf: int,
                          vf: int) -> torch.Tensor:
-    """Plain version of ``ycc_to_rgb``: libjpeg-turbo's fancy chroma
-    upsampling, then its fixed-point YCbCr -> RGB (jdcolor.c: 16 fraction
-    bits, FIX(x) = round(x * 65536)), clamped to 0..255."""
+    """Plain version of ``ycc_to_rgb``: libjpeg-turbo's chroma upsampling
+    (``_upsample_reference``), then its fixed-point YCbCr -> RGB (jdcolor.c:
+    16 fraction bits, FIX(x) = round(x * 65536)), clamped to 0..255."""
     h, w = y.shape
     luma = y.to(torch.int32)
     cb = _upsample_reference(cb, h, w, hf, vf) - 128
@@ -207,6 +234,31 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, hf: int,
 
 
 ycc_to_rgb.launches = 0
+
+
+def cmyk_to_rgb(planes: torch.Tensor, transform: Optional[int]) -> np.ndarray:
+    """A four-component JPEG's decoded planes (4, H, W) uint8, on the card
+    or the CPU -> RGB (H, W, 3) uint8 on the host, as cv2's
+    ``IMREAD_COLOR`` gives it. ``transform`` is the file's Adobe APP14 flag
+    (``adobe_transform``): with 0 or no segment libjpeg reads the planes as
+    CMYK as they are, with another flag as YCCK, which it turns into CMYK
+    (jdcolor.c ycck_cmyk_convert: the YCbCr -> RGB of the first three
+    planes, inverted; K as it is). That YCbCr -> RGB is ``ycc_to_rgb`` at
+    (1, 1) where the planes lie: its kernel on the card, its plain version
+    on the CPU. cv2 then takes the CMYK as Adobe's inverted samples
+    (``icvCvt_CMYK2BGR``, host code): R = K - ((255 - C) K >> 8), G and B
+    likewise from M and Y."""
+    if planes.dtype != torch.uint8 or planes.dim() != 3 or planes.shape[0] != 4:
+        raise ValueError(f"cmyk_to_rgb takes (4, H, W) uint8 planes, got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    planes = planes.contiguous()
+    if transform in (None, 0):
+        cmy = planes[:3].permute(1, 2, 0).cpu().numpy().astype(np.int32)
+    else:  # on the card, .cpu() waits for the current stream
+        cmy = 255 - ycc_to_rgb(planes[0], planes[1], planes[2], 1, 1).cpu().numpy().astype(
+            np.int32)
+    k = planes[3].cpu().numpy().astype(np.int32)[..., None]
+    return (k - (((255 - cmy) * k) >> 8)).astype(np.uint8)
 
 
 class _State:
@@ -259,9 +311,10 @@ class NvJpegDecoder:
                 self._free.append(state)
 
     def info(self, data: np.ndarray, name: str):
-        """(components, nvJPEG chroma subsampling, height, width, chroma
-        height, chroma width) of JPEG bytes."""
-        info = np.zeros(6, np.int32)
+        """(components, nvJPEG chroma subsampling, height, width, then the
+        height and width of components 1, 2 and 3 (0 where absent)) of JPEG
+        bytes."""
+        info = np.zeros(10, np.int32)
         self._check(self._lib.jpeg_image_info(self._handle, data.ctypes.data, data.size,
                                               info.ctypes.data), name)
         return tuple(int(v) for v in info)
@@ -269,13 +322,13 @@ class NvJpegDecoder:
     def _decode_into(self, state: _State, data: np.ndarray, name: str, fmt: int,
                      planes) -> None:
         args = []
-        for p in planes + [None] * (3 - len(planes)):
+        for p in planes + [None] * (4 - len(planes)):
             args += [None, 0] if p is None else [p.data_ptr(), p.stride(0)]
         self._check(self._lib.jpeg_decode(self._handle, state.ptr, data.ctypes.data, data.size,
                                           fmt, *args), name)
 
     def _planes(self, state: _State, data: np.ndarray, name: str, info):
-        _, subsampling, h, w, ch, cw = info
+        _, subsampling, h, w, ch, cw = info[:6]
         hf, vf = _FANCY[subsampling]
         if (ch, cw) != (-(-h // vf), -(-w // hf)):
             raise RuntimeError(f"{name}: nvJPEG's chroma planes {(ch, cw)} do not match the "
@@ -287,12 +340,13 @@ class NvJpegDecoder:
 
     def planes(self, data: np.ndarray, name: str):
         """The Y, Cb and Cr device planes nvJPEG decodes a YCbCr JPEG at
-        4:4:4, 4:2:2 or 4:2:0 to (``decode`` hands them to ``ycc_to_rgb``),
-        and the chroma factors (hf, vf); ready on the current stream."""
+        4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 or 4:1:0 to (``decode`` hands them
+        to ``ycc_to_rgb``), and the chroma factors (hf, vf); ready on the
+        current stream."""
         data = np.ascontiguousarray(data, np.uint8)
         info = self.info(data, name)
         if info[0] != 3 or info[1] not in _FANCY:
-            raise ValueError(f"{name}: not YCbCr at 4:4:4, 4:2:2 or 4:2:0")
+            raise ValueError(f"{name}: not YCbCr at a subsampling ycc_to_rgb takes")
         with self._state() as state:
             planes, factors = self._planes(state, data, name, info)
             state.stream.synchronize()
@@ -311,10 +365,12 @@ class NvJpegDecoder:
                 luma = torch.empty((h, w), dtype=torch.uint8, device=self.device)
                 self._decode_into(state, data, name, _FORMAT_Y, [luma])
                 return np.repeat(luma.cpu().numpy()[..., None], 3, axis=2)
+        if components == 4:
+            return self._decode_cmyk(data, name, info)
         if components != 3 or (subsampling not in _FANCY and subsampling not in _NVJPEG_RGB):
             raise UnreadableImage(f"{name}: JPEG with {components} components and chroma "
-                               f"subsampling {subsampling} is not decoded by nvJPEG here "
-                               "(grayscale and YCbCr are)")
+                                  f"subsampling {subsampling} is not decoded by nvJPEG here "
+                                  "(grayscale, YCbCr, CMYK and YCCK are)")
         with self._state() as state:
             if subsampling in _NVJPEG_RGB:
                 rgb = torch.empty((h, w, 3), dtype=torch.uint8, device=self.device)
@@ -323,6 +379,21 @@ class NvJpegDecoder:
                 planes, factors = self._planes(state, data, name, info)
                 rgb = ycc_to_rgb(*planes, *factors)
             return rgb.cpu().numpy()  # waits for the state's stream only
+
+    def _decode_cmyk(self, data: np.ndarray, name: str, info) -> np.ndarray:
+        """A four-component file: nvJPEG's four planes as stored, converted
+        by the file's Adobe transform flag (``cmyk_to_rgb``: a YCCK file's
+        YCbCr -> RGB with ``ycc_to_rgb``'s kernel on the state's stream,
+        the CMYK -> RGB on the host)."""
+        h, w = info[2:4]
+        sizes = [tuple(info[2 + 2 * i:4 + 2 * i]) for i in range(4)]
+        if any(hw != (h, w) for hw in sizes):
+            raise UnreadableImage(f"{name}: four-component JPEG with subsampled planes "
+                                  f"{sizes} is not decoded by the port")
+        with self._state() as state:
+            planes = torch.empty((4, h, w), dtype=torch.uint8, device=self.device)
+            self._decode_into(state, data, name, _FORMAT_UNCHANGED, list(planes))
+            return cmyk_to_rgb(planes, adobe_transform(data))  # waits for the state's stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -393,44 +464,23 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, name: str) -> np.n
     return out
 
 
-def decode_png(data, name: str) -> np.ndarray:
-    """PNG bytes -> RGB (H, W, 3) uint8, as cv2's ``IMREAD_COLOR`` followed
-    by BGR->RGB decodes them: grey as three equal channels (1-, 2-, 4-bit
-    grey scaled to 0-255), palette entries looked up, the alpha channel and
-    ``tRNS`` dropped, 16-bit samples cut to their high byte."""
-    buf = bytes(memoryview(data))
-    if buf[:8] != PNG_SIGNATURE:
-        raise UnreadableImage(f"{name}: not a PNG file")
-    pos, idat, header, palette = 8, [], None, None
-    while pos + 8 <= len(buf):
-        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
-        body = buf[pos + 8:pos + 8 + length]
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body[:13])
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
-    if header is None or not idat:
-        raise UnreadableImage(f"{name}: PNG without IHDR or IDAT")
-    w, h, depth, color, _, _, interlace = header
-    if interlace:
-        raise UnreadableImage(f"{name}: Adam7-interlaced PNG is not decoded by the port")
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
-    if channels is None or depth not in (1, 2, 4, 8, 16) or (color == 3 and palette is None):
-        raise UnreadableImage(f"{name}: PNG colour type {color} at {depth} bits is not valid")
-    try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    except zlib.error as exc:
-        raise UnreadableImage(f"{name}: PNG data does not inflate ({exc})") from None
+# Adam7's seven passes: (x0, y0, dx, dy) of the pixels each one holds
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_samples(raw: np.ndarray, h: int, w: int, depth: int, channels: int, color: int,
+                 name: str):
+    """The (h, w, channels) uint8 samples of an image (or an Adam7 pass) from
+    its filtered scanlines at the start of ``raw``, and the bytes they took:
+    rows unfiltered, 1-, 2- and 4-bit samples unpacked (grey scaled to
+    0-255), 16-bit ones cut to their high byte."""
     bits = channels * depth
     stride = (w * bits + 7) // 8
-    if raw.size < h * (stride + 1):
+    size = h * (stride + 1)
+    if raw.size < size:
         raise UnreadableImage(f"{name}: PNG data is short")
-    rows = _unfilter(raw[:h * (stride + 1)], h, stride, max(bits // 8, 1), name)
+    rows = _unfilter(raw[:size], h, stride, max(bits // 8, 1), name)
     if depth == 16:
         samples = rows.reshape(h, w * channels, 2)[..., 0]  # the high byte
     elif depth == 8:
@@ -440,15 +490,67 @@ def decode_png(data, name: str) -> np.ndarray:
         samples = ((rows[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
         if color == 0:
             samples = (samples * (255 // ((1 << depth) - 1))).astype(np.uint8)
-    samples = samples.reshape(h, w, channels)
+    return samples.reshape(h, w, channels), size
+
+
+def decode_png(data, name: str) -> np.ndarray:
+    """PNG bytes -> RGB (H, W, 3) uint8, as cv2's ``IMREAD_COLOR`` followed
+    by BGR->RGB decodes them: grey as three equal channels (1-, 2-, 4-bit
+    grey scaled to 0-255), palette entries looked up, the alpha channel and
+    ``tRNS`` dropped, 16-bit samples cut to their high byte; Adam7's passes
+    put back in place; turned upright by the Orientation of an ``eXIf``
+    chunk (``apply_orientation``), before or after the image data."""
+    buf = bytes(memoryview(data))
+    if buf[:8] != PNG_SIGNATURE:
+        raise UnreadableImage(f"{name}: not a PNG file")
+    pos, idat, header, palette, orientation = 8, [], None, None, 1
+    while pos + 8 <= len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        body = buf[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"eXIf":
+            orientation = _tiff_orientation(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise UnreadableImage(f"{name}: PNG without IHDR or IDAT")
+    w, h, depth, color, _, _, interlace = header
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
+    if channels is None or depth not in (1, 2, 4, 8, 16) or (color == 3 and palette is None):
+        raise UnreadableImage(f"{name}: PNG colour type {color} at {depth} bits is not valid")
+    if interlace not in (0, 1):
+        raise UnreadableImage(f"{name}: PNG interlace method {interlace} is not valid")
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as exc:
+        raise UnreadableImage(f"{name}: PNG data does not inflate ({exc})") from None
+    if not interlace:
+        samples, _ = _png_samples(raw, h, w, depth, channels, color, name)
+    else:  # each pass its own rows, filters and packing
+        samples = np.zeros((h, w, channels), np.uint8)
+        offset = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:  # an empty pass has no bytes, not even filter bytes
+                samples[y0::dy, x0::dx], size = _png_samples(raw[offset:], ph, pw, depth,
+                                                             channels, color, name)
+                offset += size
     if color == 3:
         index = samples[..., 0]
         if index.max() >= len(palette):
             raise UnreadableImage(f"{name}: PNG palette index past the palette")
-        return np.ascontiguousarray(palette[index])
-    if channels <= 2:  # grey (+ alpha)
-        return np.ascontiguousarray(np.repeat(samples[..., :1], 3, axis=2))
-    return np.ascontiguousarray(samples[..., :3])
+        image = palette[index]
+    elif channels <= 2:  # grey (+ alpha)
+        image = np.repeat(samples[..., :1], 3, axis=2)
+    else:
+        image = samples[..., :3]
+    return apply_orientation(image, orientation)
 
 
 # --------------------------------------------------------------------------

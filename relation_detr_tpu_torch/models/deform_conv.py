@@ -6,9 +6,10 @@ of the DCN ResNet's blocks.
 are k x k convs at the block's stride, zero-initialised (every tap starts
 on its grid point with mask 0.5). Tap t reads channel 2t as its dy and
 2t + 1 as its dx (torchvision's order), at ``out_pos * stride + tap -
-pad``. The k^2 taps are sampled with ``ops.grid_sample.bilinear_sample``,
-scaled by their masks and contracted over tap and channel with ``weight``
-per group.
+pad``. The k^2 taps are sampled with ``ops.grid_sample.bilinear_sample``
+(on the card a hand-written kernel, forward and backward:
+``csrc/grid_sample.cu``), scaled by their masks and contracted over tap and
+channel with ``weight`` per group.
 
 state_dict names are torchvision's / mmcv's, as
 ``tools/convert_torch_weights.py`` reads them: ``weight`` (O, C/g, k, k)

@@ -1,2 +1,2 @@
-"""Ops of the port: box math, MSDA and the relation bias (CUDA kernels
-with their plain PyTorch versions)."""
+"""Ops of the port: box math, MSDA, the relation bias and the DCN's bilinear
+sampler (CUDA kernels with their plain PyTorch versions)."""

@@ -13,7 +13,8 @@ forward (fake tensors have no data pointer for a ``ctypes`` launch) and
 - ``relation_bias_rel_fwd(rel, kernel, bias, embed_dim, temperature,
   scale)``: ``csrc/relation_bias_rel.cu``;
 - ``tiled_core_fwd(m_all, w_all, patch, num_heads, head_dim)`` and
-  ``sep_contract_fwd(oy, ox, patch)``: ``csrc/tiled_msda.cu``.
+  ``sep_contract_fwd(oy, ox, patch)``: ``csrc/tiled_msda.cu``;
+- ``bilinear_sample_fwd(feat, points)``: ``csrc/grid_sample.cu``.
 
 This module defines the schemas and the fake implementations (output shape
 and dtype); the modules that own the kernels register the two device
@@ -21,8 +22,8 @@ implementations with ``impl``: on ``CUDA`` the ``ctypes`` launch, which
 counts the launch on its wrapper's ``.launches``; on ``CPU`` the plain
 version. No other device has an implementation, so the dispatcher raises.
 The wrappers (``multi_scale_deformable_attention``, ``relation_bias_v4``,
-``fused_relation_bias``, ``tiled_matmul_core``, ``sep_contract_fused``)
-call an op directly when no input needs a gradient, and through their
+``fused_relation_bias``, ``tiled_matmul_core``, ``sep_contract_fused``,
+``bilinear_sample``) call an op directly when no input needs a gradient, and through their
 ``autograd.Function``s otherwise, whose forwards call the same op; the
 backward kernels stay behind those functions.
 
@@ -48,10 +49,11 @@ LIB.define("relation_bias_rel_fwd(Tensor rel, Tensor kernel, Tensor bias, int em
 LIB.define("tiled_core_fwd(Tensor m_all, Tensor w_all, Tensor patch, int num_heads, "
            "int head_dim) -> Tensor")
 LIB.define("sep_contract_fwd(Tensor oy, Tensor ox, Tensor patch) -> Tensor")
+LIB.define("bilinear_sample_fwd(Tensor feat, Tensor points) -> Tensor")
 
 OPS = torch.ops.relation_detr
 NAMES = ("msda_fwd", "relation_bias_v4_fwd", "relation_bias_rel_fwd", "tiled_core_fwd",
-         "sep_contract_fwd")
+         "sep_contract_fwd", "bilinear_sample_fwd")
 
 
 def impl(name: str, cpu, cuda) -> None:
@@ -75,7 +77,12 @@ def flat_levels(spatial_shapes) -> list:
 def load_ops() -> None:
     """Import the modules that register the implementations (for a loader of
     a saved program that imports nothing else of the package)."""
-    from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias  # noqa: F401
+    from relation_detr_tpu_torch.ops import (  # noqa: F401
+        grid_sample,
+        msda,
+        msda_tiled,
+        relation_bias,
+    )
 
 
 @torch.library.register_fake("relation_detr::msda_fwd")
@@ -107,6 +114,11 @@ def _tiled_core_fake(m_all, w_all, patch, num_heads, head_dim):
 def _sep_contract_fake(oy, ox, patch):
     bs, nt = oy.shape[:2]
     return patch.new_empty(bs, nt, oy.shape[5], patch.shape[3], dtype=torch.float32)
+
+
+@torch.library.register_fake("relation_detr::bilinear_sample_fwd")
+def _bilinear_sample_fake(feat, points):
+    return feat.new_empty(feat.shape[0], points.shape[1], feat.shape[3])
 
 
 def needs_grad(*tensors) -> bool:

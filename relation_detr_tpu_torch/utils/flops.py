@@ -62,6 +62,10 @@ def sep_contract_flops(oy_shape, ox_shape, patch_shape) -> int:
     return 2 * bs * nt * num_heads * ph * ox_shape[4] * slots * (points + head_dim)
 
 
+def bilinear_sample_flops(feat_shape, points_shape) -> int:
+    return 8 * points_shape[0] * points_shape[1] * feat_shape[3]
+
+
 @register_flop_formula(library.OPS.msda_fwd)
 def _msda_fwd(value, spatial_shapes, sampling_locations, attention_weights, **kwargs):
     return msda_fwd_flops(value, sampling_locations)
@@ -85,6 +89,11 @@ def _tiled_core_fwd(m_all, w_all, patch, num_heads, head_dim, **kwargs):
 @register_flop_formula(library.OPS.sep_contract_fwd)
 def _sep_contract_fwd(oy, ox, patch, **kwargs):
     return sep_contract_flops(oy, ox, patch)
+
+
+@register_flop_formula(library.OPS.bilinear_sample_fwd)
+def _bilinear_sample_fwd(feat, points, **kwargs):
+    return bilinear_sample_flops(feat, points)
 
 
 OP_PACKETS = tuple(getattr(library.OPS, name) for name in library.NAMES)

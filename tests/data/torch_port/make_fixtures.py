@@ -8,6 +8,15 @@ and PIL):
   4:4:4 and 4:2:0;
 - ``decode_gray.jpg``: one channel;
 - ``decode_exif6.jpg``: 4:2:0 with EXIF Orientation 6 (decodes as 128x96);
+- ``decode_422.jpg``, ``decode_440.jpg``, ``decode_411.jpg``: 93x125 scenes
+  written by cv2 at those chroma subsamplings;
+- ``decode_cmyk.jpg``: a 93x125 CMYK file written by PIL (Adobe APP14,
+  transform 0, inverted samples), ``decode_ycck.jpg``: a PIL-written CMYK
+  file whose planes hold a scene's Y, Cb, Cr and a K plane, its APP14
+  transform flag set to 2 (YCCK); ``<name>_planes.npy``: each file's four
+  planes as libjpeg decodes them (PIL's CMYK pixels of the transform-0
+  bytes, inverted), checked here to give cv2's decode through cv2's
+  conversion;
 - ``<name>.npy``: cv2's ``IMREAD_COLOR`` decode of each, as RGB;
 - ``synth_coco/``: the train2017 and val2017 splits of
   ``tests/make_synth_coco.py`` (16 and 8 JPEGs, and
@@ -18,8 +27,12 @@ and PIL):
   more;
 - ``png/<name>.png`` and ``png/<name>.npy``: PNG files (8-bit grey, RGB,
   RGBA, palette, 4-bit palette, 1-bit grey, 16-bit RGB and grey, grey +
-  alpha, and one RGB file written here with every row filter, 0-4 in turn)
-  and cv2's ``IMREAD_COLOR`` decode of each, as RGB;
+  alpha, and one RGB file written here with every row filter, 0-4 in turn;
+  ``adam7_*``: Adam7-interlaced files written here with zlib, one for
+  every colour type and bit depth and a 2x3 one with empty passes, each
+  pass's rows filtered 0-4 in turn; ``exif{3,6,8}``: RGB files with that
+  EXIF Orientation in an ``eXIf`` chunk, written by PIL) and cv2's
+  ``IMREAD_COLOR`` decode of each, as RGB;
 - ``cv_ops_golden.npz``: cv2's outputs for each function of
   ``relation_detr_tpu_torch/data/cv_ops.py`` on seeded 96x128 inputs (kept
   in the file, with the shifts, sizes and qualities), on 400 seeded
@@ -36,6 +49,7 @@ and PIL):
   seeded strings both ways on noise, which must give equal bytes.
   ``python tests/data/torch_port/make_fixtures.py --font`` writes it alone.
 """
+import io
 import json
 import os
 import shutil
@@ -96,6 +110,69 @@ def main():
                         os.path.join(out, "annotations"))
 
 
+def adobe_planes(data):
+    """The four planes (4, H, W) libjpeg decodes four-component JPEG bytes
+    to: PIL's CMYK pixels of the bytes with the APP14 transform set to 0
+    (libjpeg then converts nothing), inverted back (PIL inverts Adobe CMYK
+    as it reads)."""
+    data = bytearray(data)
+    at = data.find(b"Adobe")
+    data[at + 11] = 0
+    pixels = np.asarray(Image.open(io.BytesIO(bytes(data))).convert("CMYK"))
+    return (255 - pixels).transpose(2, 0, 1).copy()
+
+
+def cv2_cmyk(planes, ycck):
+    """cv2's IMREAD_COLOR as RGB of four decoded planes (libjpeg's
+    ycck_cmyk_convert for YCCK, then cv2's icvCvt_CMYK2BGR)."""
+    p = planes.astype(np.int64)
+    if ycck:
+        def fix(x):
+            return int(x * 65536 + 0.5)
+        y, cb, cr = p[0], p[1] - 128, p[2] - 128
+        rgb = [y + ((fix(1.40200) * cr + 32768) >> 16),
+               y + ((-fix(0.34414) * cb + 32768 - fix(0.71414) * cr) >> 16),
+               y + ((fix(1.77200) * cb + 32768) >> 16)]
+        p = np.stack([255 - np.clip(v, 0, 255) for v in rgb] + [p[3]])
+    return np.stack([p[3] - ((255 - p[i]) * p[3] >> 8) for i in range(3)], -1).astype(np.uint8)
+
+
+def write_decode_repairs():
+    """The 4:2:2, 4:4:0 and 4:1:1 files, the CMYK and YCCK files and their
+    planes, and cv2's decode of each."""
+    rng = np.random.RandomState(18)
+    for sub in ("422", "440", "411"):
+        name = f"decode_{sub}"
+        cv2.imwrite(os.path.join(HERE, name + ".jpg"), cv2.cvtColor(scene(rng, 93, 125),
+                                                                    cv2.COLOR_RGB2BGR),
+                    [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                     getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + sub)])
+        save_npy(name)
+    rgb = scene(rng, 93, 125).astype(np.int64)
+    ink = 255 - rgb
+    k = ink.min(2, keepdims=True) * rng.uniform(0.3, 1.0, rgb.shape[:2] + (1,))
+    cmyk = np.concatenate([ink - k, k], 2).round().astype(np.uint8)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    ycc = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                    128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                    128 + 0.5 * r - 0.418688 * g - 0.081312 * b,
+                    rng.randint(60, 256, r.shape)], -1).round().clip(0, 255).astype(np.uint8)
+    for name, pixels, transform in (("decode_cmyk", 255 - cmyk, 0), ("decode_ycck", ycc, 2)):
+        buf = io.BytesIO()  # PIL writes Adobe CMYK inverted: the stored planes are 255 - pixels
+        Image.fromarray(255 - pixels, "CMYK").save(buf, "JPEG", quality=90)
+        data = bytearray(buf.getvalue())
+        at = data.find(b"Adobe")
+        data[at + 11] = transform
+        with open(os.path.join(HERE, name + ".jpg"), "wb") as f:
+            f.write(bytes(data))
+        save_npy(name)
+        planes = adobe_planes(data)
+        if not np.array_equal(cv2_cmyk(planes, transform == 2),
+                              np.load(os.path.join(HERE, name + ".npy"))):
+            raise AssertionError(f"{name}: the planes do not give cv2's decode")
+        np.save(os.path.join(HERE, name + "_planes.npy"), planes)
+
+
 def polygon(rng, x0, y0, x1, y1, n, concave):
     """``n`` vertices around the centre of the box, at radii inside it."""
     cx, cy, rx, ry = (x0 + x1) / 2, (y0 + y1) / 2, (x1 - x0) / 2, (y1 - y0) / 2
@@ -142,16 +219,15 @@ def png_chunk(kind, body):
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def png_every_filter(rgb):
-    """An 8-bit RGB PNG whose rows take the filters 0-4 in turn."""
-    h, w, _ = rgb.shape
-    x = rgb.astype(np.int64).reshape(h, w * 3)
-    rows = []
-    for y in range(h):
+def png_filtered(rows, bpp):
+    """Scanlines (h, stride) uint8 with filters 0-4 in turn, row by row."""
+    x = rows.astype(np.int64)
+    out = []
+    for y in range(len(x)):
         kind, line = y % 5, x[y]
         up = x[y - 1] if y else np.zeros_like(line)
-        left = np.concatenate([np.zeros(3, np.int64), line[:-3]])
-        upleft = np.concatenate([np.zeros(3, np.int64), up[:-3]])
+        left = np.concatenate([np.zeros(bpp, np.int64), line[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
         if kind == 0:
             pred = 0
         elif kind == 1:
@@ -163,9 +239,78 @@ def png_every_filter(rgb):
         else:
             pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
             pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-        rows.append(bytes([kind]) + ((line - pred) & 255).astype(np.uint8).tobytes())
+        out.append(bytes([kind]) + ((line - pred) & 255).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
+def png_every_filter(rgb):
+    """An 8-bit RGB PNG whose rows take the filters 0-4 in turn."""
+    h, w, _ = rgb.shape
     return (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + png_chunk(b"IDAT", zlib.compress(b"".join(rows), 9)) + png_chunk(b"IEND", b""))
+            + png_chunk(b"IDAT", zlib.compress(png_filtered(rgb.reshape(h, w * 3), 3), 9))
+            + png_chunk(b"IEND", b""))
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def png_adam7(samples, depth, color, palette=None):
+    """An Adam7-interlaced PNG of samples (h, w, channels), each below
+    2 ** depth: each pass packed (1-, 2- and 4-bit samples per pass row,
+    16-bit big-endian) and filtered on its own."""
+    h, w, channels = samples.shape
+    raw = []
+    for x0, y0, dx, dy in ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        ph, pw = sub.shape[:2]
+        if depth == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(ph, -1)
+        elif depth == 8:
+            rows = sub.reshape(ph, -1).astype(np.uint8)
+        else:
+            bits = np.unpackbits(sub.reshape(ph, -1, 1).astype(np.uint8), axis=2)[..., 8 - depth:]
+            rows = np.packbits(bits.reshape(ph, -1), axis=1)
+        raw.append(png_filtered(rows, max(1, channels * depth // 8)))
+    body = png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 1))
+    if palette is not None:
+        body += png_chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n" + body + png_chunk(b"IDAT", zlib.compress(b"".join(raw), 9))
+            + png_chunk(b"IEND", b""))
+
+
+# Adam7 fixtures: (name, colour type, bit depth, (h, w))
+ADAM7_FILES = tuple((f"adam7_c{color}_{depth}", color, depth, (13, 21))
+                    for color, depths in ((0, (1, 2, 4, 8, 16)), (2, (8, 16)), (3, (1, 2, 4, 8)),
+                                          (4, (8, 16)), (6, (8, 16)))
+                    for depth in depths) + (("adam7_tiny", 2, 8, (2, 3)),)
+
+
+def write_png_repairs():
+    """The Adam7 and eXIf PNGs of ``png/`` and cv2's decode of each."""
+    rng = np.random.RandomState(18)
+    out = os.path.join(HERE, "png")
+    names = []
+    for name, color, depth, (h, w) in ADAM7_FILES:
+        channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+        top = (1 << depth) if color != 3 else min(1 << depth, 100)
+        samples = rng.randint(0, top, (h, w, channels))
+        palette = rng.randint(0, 256, (top, 3)) if color == 3 else None
+        with open(os.path.join(out, name + ".png"), "wb") as f:
+            f.write(png_adam7(samples, depth, color, palette))
+        names.append(name)
+    for orientation in (3, 6, 8):
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        Image.fromarray(scene(rng, 36, 52)).save(os.path.join(out, f"exif{orientation}.png"),
+                                                 exif=exif)
+        names.append(f"exif{orientation}")
+    for name in names:
+        data = np.fromfile(os.path.join(out, name + ".png"), np.uint8)
+        np.save(os.path.join(out, name + ".npy"),
+                cv2.cvtColor(cv2.imdecode(data, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
 
 
 def write_png_fixtures(rng):
@@ -368,6 +513,8 @@ def main_data_path():
     write_segm_annotations(rng)
     write_png_fixtures(rng)
     write_cv_golden(rng)
+    write_png_repairs()
+    write_decode_repairs()
 
 
 if __name__ == "__main__":

@@ -270,9 +270,10 @@ def test_folder_cli_decodes_through_image_io(tmp_path, capsys):
 
 
 def _libjpeg_ycc_to_rgb(y, cb, cr, hf, vf):
-    """libjpeg-turbo's C loops, transcribed: h2v1_fancy_upsample and
-    h2v2_fancy_upsample (jdsample.c; the rows above the first and below the
-    last duplicate them, jdmainct.c) and ycc_rgb_convert (jdcolor.c)."""
+    """libjpeg-turbo's C loops, transcribed: h2v1_fancy_upsample,
+    h2v2_fancy_upsample and h1v2_fancy_upsample (jdsample.c; the rows above
+    the first and below the last duplicate them, jdmainct.c), int_upsample
+    (4:1:1 and 4:1:0) and ycc_rgb_convert (jdcolor.c)."""
     def fix(x):
         return int(x * 65536 + 0.5)
 
@@ -281,7 +282,21 @@ def _libjpeg_ycc_to_rgb(y, cb, cr, hf, vf):
         c = c.astype(np.int64)
         if (hf, vf) == (1, 1):
             return c
-        out = np.zeros((ch * vf, cw * 2), np.int64)
+        out = np.zeros((ch * vf, cw * hf), np.int64)
+        if hf == 4:  # int_upsample: each sample repeated over its hf x vf pixels
+            for inrow in range(ch):
+                for v in range(vf):
+                    for k in range(cw):
+                        out[inrow * vf + v, 4 * k:4 * k + 4] = c[inrow, k]
+            return out
+        if hf == 1:  # h1v2: per column, 3/4 the nearer row + 1/4 the further
+            for inrow in range(ch):
+                for v in range(2):
+                    far = max(inrow - 1, 0) if v == 0 else min(inrow + 1, ch - 1)
+                    bias = 1 if v == 0 else 2
+                    for k in range(cw):
+                        out[2 * inrow + v, k] = (c[inrow, k] * 3 + c[far, k] + bias) >> 2
+            return out
         for inrow in range(ch):
             for v in range(vf):
                 if vf == 2:
@@ -317,7 +332,7 @@ def _libjpeg_ycc_to_rgb(y, cb, cr, hf, vf):
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("hf,vf", [(1, 1), (2, 1), (2, 2)])
+@pytest.mark.parametrize("hf,vf", [(1, 1), (2, 1), (2, 2), (1, 2), (4, 1), (4, 2)])
 @pytest.mark.parametrize("h,w", [(7, 9), (8, 10), (5, 4)])
 def test_ycc_to_rgb_matches_libjpeg(hf, vf, h, w):
     """ycc_to_rgb's plain version (the CPU route of its wrapper) against
@@ -338,4 +353,4 @@ def test_ycc_to_rgb_matches_libjpeg(hf, vf, h, w):
         image_io.ycc_to_rgb(planes[0], planes[1][:1, :1].clone(), planes[2][:1, :1].clone(),
                             hf, vf)
     with pytest.raises(ValueError, match="chroma factors"):
-        image_io.ycc_to_rgb(*planes, 1, 2)
+        image_io.ycc_to_rgb(*planes, 3, 1)

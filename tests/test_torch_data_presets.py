@@ -140,10 +140,17 @@ def test_png_decode_matches_cv2(name):
 
 
 def test_png_interlaced_and_broken_files_raise_with_their_name():
+    """A broken file raises ``UnreadableImage`` naming it: an interlace
+    method other than 0 and Adam7's 1, an interlaced file whose passes
+    its data does not fill, a truncated file, a file neither PNG nor JPEG. (Adam7 files
+    decode: ``tests/test_torch_decode.py``.)"""
     data = bytearray(np.fromfile(os.path.join(DATA, "png", "rgb.png"), np.uint8).tobytes())
-    data[28] = 1  # IHDR's interlace method: Adam7
-    with pytest.raises(image_io.UnreadableImage, match="a.png: Adam7"):
+    data[28] = 2
+    with pytest.raises(image_io.UnreadableImage, match="a.png: PNG interlace method 2"):
         image_io.decode_image(np.frombuffer(bytes(data), np.uint8), "a.png")
+    data[28] = 1  # Adam7 over a non-interlaced image's data: bad filter bytes or short
+    with pytest.raises(image_io.UnreadableImage, match="d.png: PNG"):
+        image_io.decode_image(np.frombuffer(bytes(data), np.uint8), "d.png")
     with pytest.raises(image_io.UnreadableImage, match="b.png"):
         image_io.decode_image(np.frombuffer(bytes(data[:60]), np.uint8), "b.png")
     with pytest.raises(image_io.UnreadableImage, match="c.gif: not a JPEG or PNG"):

@@ -27,7 +27,7 @@ import torch
 import relation_detr_tpu_torch
 import relation_detr_tpu_torch.inference as inference
 from relation_detr_tpu_torch.configs import train_config
-from relation_detr_tpu_torch.ops import msda, msda_tiled, relation_bias
+from relation_detr_tpu_torch.ops import grid_sample, msda, msda_tiled, relation_bias
 from relation_detr_tpu_torch.ops.patch_scatter import window_accumulate
 from relation_detr_tpu_torch.parallel import mesh
 from relation_detr_tpu_torch.parallel.train_step import make_train_step
@@ -56,7 +56,8 @@ batch = {"images": torch.from_numpy(images), "mask": torch.from_numpy(mask),
 counters = (msda.multi_scale_deformable_attention, msda.msda_backward,
             relation_bias.relation_bias_v4, relation_bias.fused_relation_bias,
             msda_tiled.tiled_matmul_core, msda_tiled.tiled_core_backward,
-            msda_tiled.sep_contract_fused, window_accumulate)
+            msda_tiled.sep_contract_fused, window_accumulate, grid_sample.bilinear_sample,
+            grid_sample.bilinear_sample_backward)
 
 
 def eval_and_train_step():
@@ -642,6 +643,7 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
     from relation_detr_tpu_torch import _build
+    from relation_detr_tpu_torch.ops.grid_sample import bilinear_sample
     from relation_detr_tpu_torch.ops.msda import multi_scale_deformable_attention
     from relation_detr_tpu_torch.ops.msda_tiled import (
         sep_contract_fused,
@@ -658,7 +660,8 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
     _build.load_library.cache_clear()
     wrappers = (multi_scale_deformable_attention, relation_bias_v4, window_accumulate,
-                tiled_matmul_core, tiled_core_backward, sep_contract_fused, fused_relation_bias)
+                tiled_matmul_core, tiled_core_backward, sep_contract_fused, fused_relation_bias,
+                bilinear_sample)
     launched = [fn.launches for fn in wrappers]
     try:
         dev = torch.device("cuda")
@@ -686,6 +689,8 @@ def test_wrappers_raise_on_cuda_without_library(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc"):
             fused_relation_bias(torch.zeros(1, 3, 5, 4, device=dev),
                                 torch.zeros(64, 8, device=dev), torch.zeros(8, device=dev))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            bilinear_sample(torch.zeros(1, 4, 5, 8, device=dev), torch.zeros(1, 3, 2, device=dev))
         assert [fn.launches for fn in wrappers] == launched
     finally:
         _build.load_library.cache_clear()
@@ -970,7 +975,9 @@ def test_relation_bias_rel_kernel_edge_shapes_on_card(batch, n1, n2, heads):
 # chroma upsampling and colour conversion (ycc_to_rgb) only the inverse DCT's
 # rounding differs: 0.02-0.05 measured on the H100 (4.78 at 4:2:0 with
 # nvJPEG's own RGB output).
-DECODE_FIXTURES = ("decode_444", "decode_gray", "decode_420", "decode_exif6")
+DECODE_FIXTURES = ("decode_444", "decode_gray", "decode_420", "decode_exif6", "decode_422",
+                   "decode_440", "decode_411", "decode_cmyk", "decode_ycck")
+YCBCR_FIXTURES = ("decode_444", "decode_420", "decode_422", "decode_440", "decode_411")
 DECODE_TOL_MEAN = 0.25
 
 
@@ -978,10 +985,12 @@ DECODE_TOL_MEAN = 0.25
 def test_nvjpeg_decode_matches_cv2_on_card():
     """nvJPEG on the card against cv2's decode of each fixture: the shape
     exact (EXIF Orientation 6 turned upright, grayscale as 3 channels), the
-    mean |difference| within DECODE_TOL_MEAN; the chroma upsampling and
-    colour conversion kernel equal to its plain version on nvJPEG's planes,
+    mean |difference| within DECODE_TOL_MEAN (CMYK and YCCK through
+    ``cmyk_to_rgb``); the chroma upsampling and colour conversion kernel
+    equal to its plain version on nvJPEG's planes at every subsampling,
     inside the decoder and through its wrapper, one launch counted per
-    YCbCr decode; four threads decoding at once give the single thread's
+    YCbCr or YCCK decode (YCCK's YCbCr -> RGB on the card), none per CMYK
+    decode; four threads decoding at once give the single thread's
     arrays; a file that is not a JPEG raises with its name."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
@@ -999,7 +1008,7 @@ def test_nvjpeg_decode_matches_cv2_on_card():
         assert diff.mean() <= DECODE_TOL_MEAN, (name, diff.mean())
     assert (single[1][..., 0] == single[1][..., 2]).all()  # grayscale
     decoder = image_io.nvjpeg_decoder(0)
-    for path in paths[:1] + paths[2:]:  # YCbCr: the conversion kernel against its plain version
+    for path in (os.path.join(folder, name + ".jpg") for name in YCBCR_FIXTURES):
         data = np.fromfile(path, np.uint8)
         *planes, factors = decoder.planes(data, path)
         want = image_io.ycc_to_rgb_reference(*[p.cpu() for p in planes], *factors).numpy()
@@ -1008,6 +1017,11 @@ def test_nvjpeg_decode_matches_cv2_on_card():
         assert image_io.ycc_to_rgb.launches == launches + 1
         got = image_io.ycc_to_rgb(*planes, *factors)
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for name, launched in (("decode_cmyk", 0), ("decode_ycck", 1)):
+        path = os.path.join(folder, name + ".jpg")
+        launches = image_io.ycc_to_rgb.launches
+        image_io.read_image(path)
+        assert image_io.ycc_to_rgb.launches == launches + launched, name
     with ThreadPoolExecutor(4) as pool:
         threaded = list(pool.map(image_io.read_image, paths * 4))
     for k, got in enumerate(threaded):
@@ -1017,7 +1031,47 @@ def test_nvjpeg_decode_matches_cv2_on_card():
     with pytest.raises(image_io.UnreadableImage, match="broken.jpg"):
         image_io.decode_image(np.frombuffer(b"\xff\xd8\xff\xe0" + bytes(40), np.uint8),
                               "broken.jpg")
-    assert image_io.ycc_to_rgb.launches == launches + 2 + 4 * 3  # none for a failed decode
+    # the YCCK file's launch, then 4 threads x the YCbCr and YCCK files (the
+    # EXIF file is 4:2:0); none for a failed decode
+    launching = len(YCBCR_FIXTURES) + 2
+    assert image_io.ycc_to_rgb.launches == launches + 1 + 4 * launching
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 11, 8, 300), (1, 7, 5, 3, 120), (1, 50, 84, 256, 4000)])
+def test_bilinear_sample_kernels_match_plain_versions_on_card(shape):
+    """``bilinear_sample_fwd`` and ``bilinear_sample_bwd`` against their plain
+    versions on the card (float4 lanes at C = 8 and 256, scalar at C = 3):
+    points on integers, off the map on every side, and a NaN point (NaN out,
+    NaN gradients at the same places); the launches counted, through the
+    op without gradients and through the Function with them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
+    from relation_detr_tpu_torch.ops import grid_sample
+
+    b, h, w, c, n = shape
+    rng = np.random.RandomState(h * w + c)
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).cuda()
+    pts = np.stack([rng.uniform(-2, w + 1, (b, n)), rng.uniform(-2, h + 1, (b, n))], -1)
+    pts[:, :n // 4] = np.floor(pts[:, :n // 4])
+    pts[0, n // 2] = np.nan
+    pts = torch.from_numpy(pts.astype(np.float32)).cuda()
+    grad_out = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).cuda()
+    fwd, bwd = grid_sample.bilinear_sample.launches, grid_sample.bilinear_sample_backward.launches
+    got = grid_sample.bilinear_sample(feat, pts)
+    tf, tp = feat.clone().requires_grad_(True), pts.clone().requires_grad_(True)
+    (grid_sample.bilinear_sample(tf, tp) * grad_out).sum().backward()
+    torch.cuda.synchronize()
+    assert (grid_sample.bilinear_sample.launches, grid_sample.bilinear_sample_backward.launches) \
+        == (fwd + 2, bwd + 1)
+    want = grid_sample.bilinear_sample_reference(feat, pts)
+    want_feat, want_pts = grid_sample.bilinear_sample_backward_reference(feat, pts, grad_out)
+    for name, g, r, tol in (("out", got, want, 1e-6), ("grad_feat", tf.grad, want_feat, 1e-5),
+                            ("grad_points", tp.grad, want_pts, 1e-5)):
+        assert torch.equal(torch.isnan(g), torch.isnan(r)), name
+        scale = r.nan_to_num().abs().max().item()
+        assert (g - r).nan_to_num().abs().max().item() <= tol * scale, name
+    assert bool(torch.isnan(got[0, n // 2]).all())
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 
 - the ops of ``ops/library.py``: each fake implementation's shape and dtype
   against its plain version's output, and ``FlopCounterMode`` counting an
-  MSDA call and the relation biases by ``utils/flops.py``'s formulas;
+  MSDA call, the relation biases and the bilinear sampler by
+  ``utils/flops.py``'s formulas;
 - ``tools/export_model.py``: the tiny config exported, saved, read back from
   disk and run equal to the live model (rtol 1e-3 / atol 1e-5, labels
   equal), the hand kernels in the graph as ops, and a corrupted file
@@ -34,7 +35,13 @@ from relation_detr_tpu.data.coco import CocoDetection as JCocoDetection
 from relation_detr_tpu.utils import visualize as jax_visualize
 from relation_detr_tpu_torch import inference
 from relation_detr_tpu_torch import test as port_test
-from relation_detr_tpu_torch.ops import library, msda, msda_tiled, relation_bias
+from relation_detr_tpu_torch.ops import (  # noqa: F401
+    grid_sample,
+    library,
+    msda,
+    msda_tiled,
+    relation_bias,
+)
 from relation_detr_tpu_torch.tools import (
     benchmark_model,
     convert_torch_weights,
@@ -96,6 +103,8 @@ def _op_cases():
         ("tiled_core_fwd", (m, torch.rand(m.shape, generator=g),
                             torch.randn(1, 3, 20, 16, generator=g), 2, 8)),
         ("sep_contract_fwd", (oy, ox, torch.randn(1, 3, 30, 16, generator=g))),
+        ("bilinear_sample_fwd", (torch.randn(2, 5, 7, 8, generator=g),
+                                 torch.rand(2, 11, 2, generator=g) * 6 - 0.5)),
     ]
 
 
