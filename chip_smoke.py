@@ -171,10 +171,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      fp32, the other convs in bf16) and one EVA-02-L detect (backbone
      outputs the fp32 run's bit for bit); (c) the DCN sampler's kernels
      (csrc/grid_sample.cu: bilinear_sample_fwd and bilinear_sample_bwd)
-     against their plain versions at the R50-DCN's conv2 shapes, output
-     and both gradients, timed in turns with them and beside
-     ``F.grid_sample`` and the bounds, and their share of the DCN detect
-     and step; and ``nms_mask`` (plain PyTorch) at N=300, B=1 and 2, on
+     against their plain versions at the R50-DCN's conv2 shapes and at a
+     wide layer2.0 case (offsets N(0, 8), far-off, saturating and NaN
+     points), output and both gradients, timed in turns with them and
+     beside ``F.grid_sample``, the bounds and the first kernels' times,
+     and their share of the DCN detect and step (each shape's device ms a
+     launch from torch.profiler in phase 10); and ``nms_mask`` (plain
+     PyTorch) at N=300, B=1 and 2, on
      the flagship's detect outputs through
      ``post_process(nms_iou_threshold=0.7)``, its keep mask the CPU's
      exactly;
@@ -4189,6 +4192,21 @@ SAMPLER_PLAIN_ITERS = 5
 # max: the map gradient's float atomics add in another order than
 # scatter_add_, and the point gradient sums C products in another order
 TOL_SAMPLER_GRAD = 1e-5
+# the first sampler kernels' wrapper ms (CUDA events, host time included)
+# at DCN_SAMPLERS, forward and backward, from an earlier run of this script
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): printed beside this
+# run's wrapper ms, labelled so, and set against no device ms
+FIRST_SAMPLER_MS = {
+    "layer2.0": (0.0731, 0.1507), "layer2.1-3": (0.0641, 0.1256), "layer3.0": (0.0331, 0.0760),
+    "layer3.1-5": (0.0466, 0.0659), "layer4.0": (0.0454, 0.0541), "layer4.1-2": (0.0471, 0.0542),
+}
+# the wide case at layer2.0: tap offsets of N(0, SAMPLER_WIDE_SIGMA) pixels,
+# and every SAMPLER_FAR-th sample far off the map, NaN or on an edge
+SAMPLER_WIDE_SIGMA = 8.0
+SAMPLER_FAR = 97
+# torch.profiler sessions a sampler shape gets at most before phase 10 gives
+# up on its device time (a session now and then sees no device activity)
+SAMPLER_PROFILE_TRIES = 4
 NMS_THRESHOLD = 0.7
 NMS_ITERS = 20
 
@@ -4205,22 +4223,72 @@ def sampler_inputs(torch, gen, hwc, out_hw, stride):
     return feat, grid + torch.randn(grid.shape, device="cuda", generator=gen) * 1.5
 
 
+def sampler_wide_inputs(torch, gen):
+    """layer2.0's map and taps with offsets of N(0, SAMPLER_WIDE_SIGMA)
+    pixels; among every SAMPLER_FAR samples one far off the map, one past
+    int32 (its floor saturates), one with x NaN, one all NaN and one half a
+    pixel off the bottom-left corner."""
+    label, hwc, out_hw, stride, _ = DCN_SAMPLERS[0]
+    feat, points = sampler_inputs(torch, gen, hwc, out_hw, stride)
+    extra = SAMPLER_WIDE_SIGMA ** 2 - 1.5 ** 2
+    points = points + torch.randn(points.shape, device="cuda", generator=gen) * extra ** 0.5
+    k = SAMPLER_FAR
+    points[0, ::k] = torch.tensor([-1e4, 5.0], device="cuda")
+    points[0, 1::k] = torch.tensor([3e9, -3e9], device="cuda")
+    points[0, 2::k, 0] = float("nan")
+    points[0, 3::k] = float("nan")
+    points[0, 4::k] = torch.tensor([-0.5, hwc[0] - 0.5], device="cuda")
+    return f"{label} wide", hwc, feat, points
+
+
+def sampler_errors(torch, label, got, want, got_grads, want_grads):
+    """The forward's max abs error (within TOL_KERNEL of its max) and each
+    gradient's (map, points) max abs error and its share of the max (within
+    TOL_SAMPLER_GRAD), NaN exactly where the plain version has NaN."""
+    def errors(name, g, w, tol):
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"bilinear_sample {label}: {name} NaN where the plain version "
+                                 "has none, or none where it has NaN")
+        err = (g - w).nan_to_num().abs().max().item()
+        scale = w.nan_to_num().abs().max().item()
+        if not err <= tol * max(scale, 1.0 if name == "output" else 0.0):
+            raise AssertionError(f"bilinear_sample {label}: {name} off by {err} (max {scale})")
+        return err, err / scale if scale else 0.0
+
+    err = errors("output", got, want, TOL_KERNEL)[0]
+    grad = [errors(f"{name} gradient", g, w, TOL_SAMPLER_GRAD)
+            for name, g, w in zip(("map", "points"), got_grads, want_grads)]
+    return err, [e for e, _ in grad], [r for _, r in grad]
+
+
+def sampler_calls(gs, feat, points, grad_out, n=SAMPLER_ITERS):
+    """n forward and n backward calls through the wrappers (a profiled run)."""
+    for _ in range(n):
+        gs.bilinear_sample(feat, points)
+        gs.bilinear_sample_backward(feat, points, grad_out)
+
+
 def check_bilinear_sample(torch, kernels, dcn):
     """Phase 12 (c): ``csrc/grid_sample.cu``'s ``bilinear_sample_fwd`` and
     ``bilinear_sample_bwd`` against their plain versions
     (``bilinear_sample_reference``, ``bilinear_sample_backward_reference``)
-    on the card at each of the R50-DCN's conv2 shapes (DCN_SAMPLERS): the
-    output within TOL_KERNEL of its max, each gradient (map and points)
-    within TOL_SAMPLER_GRAD of its max; CUDA-event times of the kernel and
-    the plain version in turns with one ``F.grid_sample`` call
-    (align_corners=True on the pixel grid: the same function, NCHW),
-    forward and backward, beside the bounds; then the kernels' sum over a
-    forward's 13 DCNs as a share of the R50-DCN detect p50, and forward +
-    backward of its step p50 (``dcn``: run_large_model's numbers, whose
-    launches fill the kernel rows). Bytes: the map, points and output once
-    (backward: the output gradient, map and points read, their gradients
-    written); operations: 4 corners x C FMAs a sample forward, 3x that
-    backward."""
+    on the card at each of the R50-DCN's conv2 shapes (DCN_SAMPLERS) and at
+    a wide case at layer2.0 (``sampler_wide_inputs``: far-off, saturating
+    and NaN points): the output within TOL_KERNEL of its max, each gradient
+    (map and points) within TOL_SAMPLER_GRAD of its max, NaN exactly where
+    the plain version has it; CUDA-event times of the wrappers and the plain
+    versions in turns with one ``F.grid_sample`` call (align_corners=True
+    on the pixel grid: the same function, NCHW), forward and backward,
+    beside the bounds and the first kernels' wrapper times from an earlier
+    run (FIRST_SAMPLER_MS); each
+    shape's 20 forward and 20 backward calls profiled in phase 10
+    (``report_bilinear_sample`` prints the device ms a launch); then the
+    kernels' sum over a forward's 13 DCNs as a share of the R50-DCN detect
+    p50, and forward + backward of its step p50 (``dcn``: run_large_model's
+    numbers, whose launches fill the kernel rows). Bytes: the map, points
+    and output once (backward: the output gradient, map and points read,
+    their gradients written); operations: 4 corners x C FMAs a sample
+    forward, 3x that backward."""
     import torch.nn.functional as F
 
     from relation_detr_tpu_torch.ops import grid_sample as gs
@@ -4228,64 +4296,76 @@ def check_bilinear_sample(torch, kernels, dcn):
     gen = torch.Generator(device="cuda").manual_seed(21)
     rows = []
     work = dict(fwd_bytes=0, fwd_ops=0, bwd_bytes=0, bwd_ops=0)  # a forward's DCNs, summed
-    for label, hwc, out_hw, stride, count in DCN_SAMPLERS:
-        feat, points = sampler_inputs(torch, gen, hwc, out_hw, stride)
+    def cases():  # drawn lazily: each case's inputs, then its grad_out
+        for label, hwc, out_hw, stride, count in DCN_SAMPLERS:
+            yield (label, hwc, *sampler_inputs(torch, gen, hwc, out_hw, stride), count)
+        yield (*sampler_wide_inputs(torch, gen), 0)
+
+    for label, hwc, feat, points, count in cases():
         grad_out = torch.randn(points.shape[:2] + hwc[2:], device="cuda", generator=gen)
         out = gs.bilinear_sample(feat, points)
         want = gs.bilinear_sample_reference(feat, points)
         grads = gs.bilinear_sample_backward(feat, points, grad_out)
         want_grads = gs.bilinear_sample_backward_reference(feat, points, grad_out)
         torch.cuda.synchronize()
-        err = (out - want).abs().max().item()
-        if not err <= TOL_KERNEL * max(want.abs().max().item(), 1.0):
-            raise AssertionError(f"bilinear_sample_fwd {label}: max abs err {err}")
-        grad_err, grad_rel = [], []
-        for name, got, ref in zip(("map", "points"), grads, want_grads):
-            grad_err.append((got - ref).abs().max().item())
-            grad_rel.append(grad_err[-1] / ref.abs().max().item())
-            if not grad_rel[-1] <= TOL_SAMPLER_GRAD:
-                raise AssertionError(f"bilinear_sample_bwd {label}: {name} gradient off by "
-                                     f"{grad_rel[-1]} of its max")
+        err, grad_err, grad_rel = sampler_errors(torch, label, out, want, grads, want_grads)
         h, w, c = hwc
-        nchw = feat.permute(0, 3, 1, 2).contiguous()
-        grid = (points / torch.tensor([w - 1, h - 1], device="cuda") * 2 - 1)[:, :, None]
-        lib = F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True)
-        lib_err = (lib[..., 0].permute(0, 2, 1) - out).abs().max().item()
-        fwd_ms, plain_ms, lib_ms = in_turns(
-            lambda: gs.bilinear_sample_reference(feat, points),
-            lambda: gs.bilinear_sample(feat, points), SAMPLER_PLAIN_ITERS, SAMPLER_ITERS,
-            lambda: F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True))
-        nchw_g, grid_g = nchw.requires_grad_(True), grid.requires_grad_(True)
-        lib_out = F.grid_sample(nchw_g, grid_g, "bilinear", "zeros", align_corners=True)
-        lib_grad = grad_out.permute(0, 2, 1)[..., None]
-        bwd_ms, plain_bwd_ms, lib_bwd_ms = in_turns(
-            lambda: gs.bilinear_sample_backward_reference(feat, points, grad_out),
-            lambda: gs.bilinear_sample_backward(feat, points, grad_out), SAMPLER_PLAIN_ITERS,
-            SAMPLER_ITERS,
-            lambda: torch.autograd.grad(lib_out, (nchw_g, grid_g), lib_grad, retain_graph=True))
         n = points.shape[1]
         fwd_work = (size(feat, points, out), 8 * n * c)
         bwd_work = (size(grad_out, feat, points) + size(feat, points), 24 * n * c)
         fwd_bound, bwd_bound = bound(*fwd_work), bound(*bwd_work)
-        for key, value in zip(work, fwd_work + bwd_work):
-            work[key] += value * count
-        rows.append(dict(shape=label, map=list(hwc), samples=n, count=count, max_abs_err=err,
-                         grad_max_abs_err=grad_err, grad_rel_err=grad_rel, fwd_ms=fwd_ms,
-                         plain_fwd_ms=plain_ms, bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
-                         fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
-                         bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
-                         library_fwd_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
-                         library_max_abs_diff=lib_err))
+        row = dict(shape=label, map=list(hwc), samples=n, count=count, max_abs_err=err,
+                   grad_max_abs_err=grad_err, grad_rel_err=grad_rel,
+                   fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                   bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+        plain = (lambda: gs.bilinear_sample_reference(feat, points),
+                 lambda: gs.bilinear_sample_backward_reference(feat, points, grad_out))
+        kernel = (lambda: gs.bilinear_sample(feat, points),
+                  lambda: gs.bilinear_sample_backward(feat, points, grad_out))
+        if count:  # an R50-DCN shape: beside F.grid_sample
+            nchw = feat.permute(0, 3, 1, 2).contiguous()
+            grid = (points / torch.tensor([w - 1, h - 1], device="cuda") * 2 - 1)[:, :, None]
+            lib = F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True)
+            row["library_max_abs_diff"] = (lib[..., 0].permute(0, 2, 1) - out).abs().max().item()
+            row["fwd_ms"], row["plain_fwd_ms"], row["library_fwd_ms"] = in_turns(
+                plain[0], kernel[0], SAMPLER_PLAIN_ITERS, SAMPLER_ITERS,
+                lambda: F.grid_sample(nchw, grid, "bilinear", "zeros", align_corners=True))
+            nchw_g, grid_g = nchw.requires_grad_(True), grid.requires_grad_(True)
+            lib_out = F.grid_sample(nchw_g, grid_g, "bilinear", "zeros", align_corners=True)
+            lib_grad = grad_out.permute(0, 2, 1)[..., None]
+            row["bwd_ms"], row["plain_bwd_ms"], row["library_bwd_ms"] = in_turns(
+                plain[1], kernel[1], SAMPLER_PLAIN_ITERS, SAMPLER_ITERS,
+                lambda: torch.autograd.grad(lib_out, (nchw_g, grid_g), lib_grad,
+                                            retain_graph=True))
+            for key, value in zip(work, fwd_work + bwd_work):
+                work[key] += value * count
+            del nchw, grid, lib, lib_out, nchw_g, grid_g
+        else:
+            row["fwd_ms"], row["plain_fwd_ms"] = in_turns(
+                plain[0], kernel[0], SAMPLER_PLAIN_ITERS, SAMPLER_ITERS)
+            row["bwd_ms"], row["plain_bwd_ms"] = in_turns(
+                plain[1], kernel[1], SAMPLER_PLAIN_ITERS, SAMPLER_ITERS)
+        PROFILES.append((f"bilinear_sample {label} x{SAMPLER_ITERS}, forward and backward",
+                         lambda args=(feat, points, grad_out): sampler_calls(gs, *args),
+                         ("bilinear_fwd_kernel", "bilinear_bwd_kernel", "Memset"), row, "device"))
+        rows.append(row)
+        first = FIRST_SAMPLER_MS.get(label)
         phase(12, f"bilinear_sample {label} ({h}x{w}x{c} at {n} points, {count} a forward): "
-                  f"forward max abs err {err:.3e}, kernel {fwd_ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, F.grid_sample {lib_ms:.4f} ms (max abs diff {lib_err:.3e}), bound "
-                  f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); backward max abs err map "
+                  f"forward max abs err {err:.3e}, wrapper {row['fwd_ms']:.4f} ms"
+                  + (f" (first kernels' wrapper, earlier run: {first[0]:.4f})" if first else "")
+                  + f", plain {row['plain_fwd_ms']:.4f} ms"
+                  + (f", F.grid_sample {row['library_fwd_ms']:.4f} ms (max abs diff "
+                     f"{row['library_max_abs_diff']:.3e})" if count else "")
+                  + f", bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); backward max abs err map "
                   f"{grad_err[0]:.3e} points {grad_err[1]:.3e} (of their max: {grad_rel[0]:.2e}, "
-                  f"{grad_rel[1]:.2e}), kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, "
-                  f"F.grid_sample's {lib_bwd_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms "
-                  f"({bwd_bound[1]})")
-        del feat, points, out, want, grads, want_grads, nchw, grid, lib, lib_out, nchw_g, grid_g
-    totals = {key: sum(r[key] * r["count"] for r in rows)
+                  f"{grad_rel[1]:.2e}), wrapper {row['bwd_ms']:.4f} ms"
+                  + (f" (first kernels' wrapper, earlier run: {first[1]:.4f})" if first else "")
+                  + f", plain {row['plain_bwd_ms']:.4f} ms"
+                  + (f", F.grid_sample's {row['library_bwd_ms']:.4f} ms" if count else "")
+                  + f", bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        del out, want, grads, want_grads
+    shapes = [r for r in rows if r["count"]]
+    totals = {key: sum(r[key] * r["count"] for r in shapes)
               for key in ("fwd_ms", "plain_fwd_ms", "library_fwd_ms", "bwd_ms", "plain_bwd_ms",
                           "library_bwd_ms")}
     fwd_bound = bound(work["fwd_bytes"], work["fwd_ops"])
@@ -4295,7 +4375,7 @@ def check_bilinear_sample(torch, kernels, dcn):
                   fwd_bwd_ms_per_step=fwd + bwd, step_share=(fwd + bwd) / dcn["step_ms_p50"])
     common = dict(route="cuda", source="relation_detr_tpu_torch/csrc/grid_sample.cu",
                   replaces="relation_detr_tpu/ops/grid_sample.py:11",
-                  shape=f"the R50-DCN forward's {sum(r['count'] for r in rows)} DCN samplers "
+                  shape=f"the R50-DCN forward's {sum(r['count'] for r in shapes)} DCN samplers "
                         "(DCN_SAMPLERS), each shape's time times its count, summed",
                   library="F.grid_sample(align_corners=True) on the NCHW map")
     # launches: the R50-DCN train steps'; eval_launches: its detects'
@@ -4312,16 +4392,75 @@ def check_bilinear_sample(torch, kernels, dcn):
         max_abs_err=max(max(r["grad_max_abs_err"]) for r in rows), ms=bwd,
         plain_ms=totals["plain_bwd_ms"], bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
         library_ms=totals["library_bwd_ms"])
-    phase(12, f"bilinear_sample over a forward's {sum(r['count'] for r in rows)} DCNs "
+    first = [sum(FIRST_SAMPLER_MS[r["shape"]][i] * r["count"] for r in shapes) for i in (0, 1)]
+    phase(12, f"bilinear_sample over a forward's {sum(r['count'] for r in shapes)} DCNs "
               f"({dcn['dcns']} DCN modules; launches: detects {dcn['eval_launches']}, train "
-              f"steps {dcn['train_launches']}): forward {fwd:.3f} ms (plain "
+              f"steps {dcn['train_launches']}): forward {fwd:.3f} ms by the wrapper (first "
+              f"kernels' wrapper, earlier run: {first[0]:.3f}, plain "
               f"{totals['plain_fwd_ms']:.3f}, F.grid_sample {totals['library_fwd_ms']:.3f}, "
-              f"bound {fwd_bound[0]:.4f}), {100 * shares['detect_share']:.2f}% of the R50-DCN "
-              f"detect p50 {dcn['detect_ms_p50']:.3f} ms; backward {bwd:.3f} ms (plain "
+              f"bound {fwd_bound[0]:.4f}), "
+              f"{100 * shares['detect_share']:.2f}% of the R50-DCN detect p50 "
+              f"{dcn['detect_ms_p50']:.3f} ms; backward {bwd:.3f} ms by the wrapper (first "
+              f"kernels' wrapper, earlier run: {first[1]:.3f}, plain "
               f"{totals['plain_bwd_ms']:.3f}, F.grid_sample's {totals['library_bwd_ms']:.3f}, "
-              f"bound {bwd_bound[0]:.4f}); forward + backward {fwd + bwd:.3f} ms, "
-              f"{100 * shares['step_share']:.2f}% of its step p50 {dcn['step_ms_p50']:.3f} ms")
+              f"bound {bwd_bound[0]:.4f}); forward + backward "
+              f"{fwd + bwd:.3f} ms, {100 * shares['step_share']:.2f}% of its step p50 "
+              f"{dcn['step_ms_p50']:.3f} ms")
     return dict(rows=rows, totals=totals, **shares)
+
+
+def report_bilinear_sample(sampler, kernels, torch):
+    """Phase 10, after the profiles: each phase-12 (c) shape's device ms a
+    launch of ``bilinear_fwd_kernel`` and of ``bilinear_bwd_kernel`` with
+    the map gradient's zeroing (torch.profiler over 20 calls each) beside
+    its wrapper ms, bound, ``F.grid_sample``, plain version and the first
+    kernels' wrapper ms from an earlier run; a forward's 13 DCNs summed into
+    the kernel rows' ``device_ms``. A shape whose session missed one of the
+    three (the kernels, the zeroing) is profiled again, up to
+    SAMPLER_PROFILE_TRIES sessions in all; if one is still missing, this
+    raises, so that no row sums a shape that was not measured."""
+    names = ("bilinear_fwd_kernel", "bilinear_bwd_kernel", "Memset")
+    fns = {id(row): fn for _, fn, _, row, _ in PROFILES}
+
+    def launches(found, name):
+        return sum(n for key, (_, n) in (found or {}).items() if name in key)
+
+    def measured(found):
+        return all(launches(found, name) for name in names)
+
+    device = {"fwd": 0.0, "bwd": 0.0}
+    for row in sampler["rows"]:
+        found, tries = row.get("device"), SAMPLER_PROFILE_TRIES - 2  # run_profiles took two
+        fn = fns[id(row)]
+        while not measured(found) and tries > 0:
+            found, tries = profile_kernels(torch, fn, names), tries - 1
+        if not measured(found):
+            raise AssertionError(f"bilinear_sample {row['shape']}: torch.profiler missed its "
+                                 f"kernels or zeroing in {SAMPLER_PROFILE_TRIES} sessions")
+        row["device"] = found
+        # ms a launch over the launches the profiler saw (it may miss the
+        # first); the backward's with the map gradient's zeroing
+        per_launch = {name: sum(ms for key, (ms, _) in found.items() if name in key)
+                      / max(launches(found, name), 1) for name in names}
+        row["device_zeroing_ms"] = per_launch["Memset"]
+        row["device_fwd_ms"] = per_launch["bilinear_fwd_kernel"]
+        row["device_bwd_ms"] = per_launch["bilinear_bwd_kernel"] + per_launch["Memset"]
+        for kind in ("fwd", "bwd"):
+            device[kind] += row[f"device_{kind}_ms"] * row["count"]
+        first = FIRST_SAMPLER_MS.get(row["shape"], ("-", "-"))
+        lib = [row.get(f"library_{k}_ms") for k in ("fwd", "bwd")]
+        phase(10, f"bilinear_sample {row['shape']}: " + "; ".join(
+            f"{kind} device {row[f'device_{kind}_ms']:.4f} ms a launch"
+            + (f" (zeroing {row['device_zeroing_ms']:.4f})" if kind == "bwd" else "")
+            + f", wrapper {row[f'{kind}_ms']:.4f}, bound {row[f'{kind}_bound_ms']:.4f}, "
+            "F.grid_sample " + (f"{lib[i]:.4f}" if lib[i] is not None else "-")
+            + f", plain {row[f'plain_{kind}_ms']:.4f}, first kernels' wrapper (earlier run) "
+            f"{first[i]}" for i, kind in enumerate(("fwd", "bwd"))))
+    kernels["bilinear_sample"]["device_ms"] = device["fwd"]
+    kernels["bilinear_sample_bwd"]["device_ms"] = device["bwd"]
+    dcns = sum(r["count"] for r in sampler["rows"])
+    phase(10, f"bilinear_sample over a forward's {dcns} DCNs, device: forward "
+              f"{device['fwd']:.4f} ms, backward {device['bwd']:.4f} ms")
 
 
 def check_nms(torch, model):
@@ -5837,6 +5976,7 @@ def main() -> int:
     vit_dcn = timed(12, run_vit_dcn, torch, kernels, model)
     settings = timed(16, run_settings, torch, kernels, model)
     timed(10, run_profiles, torch)
+    timed(10, report_bilinear_sample, vit_dcn["bilinear_sample"], kernels, torch)
     precision = timed(10, check_precision_profiles, torch, model, model16, step16)
     del model16, step16
     evaluation["forward_busy"] = timed(10, check_eval_forward_busy, torch, model)

@@ -6,49 +6,80 @@
 // backward. Semantics are the JAX function's: pixel coordinates, no
 // half-pixel shift; x0 = floor(x) converted to int32 as XLA converts (NaN to
 // 0, saturating), fx = x - x0; the corners (dy, dx) = (0, 0), (0, 1),
-// (1, 0), (1, 1), each read at its index clamped into the map and weighted
-// by its bilinear weight where it is valid and 0 where it is not (the JAX
-// function's weight times validity, which XLA compiles to a select),
-// summed from 0 in that order, in fp32 (no TF32, no fast math). So a corner
-// outside the map adds zero on its own, and a NaN point with a corner on
-// the map gives a NaN output, a NaN point gradient and NaNs added to the
-// map gradient at its valid corners, as the plain version
-// (ops/grid_sample.py) and JAX give them.
+// (1, 0), (1, 1), at int32 sums that wrap, each read at its index clamped
+// into the map and weighted by its bilinear weight where it is valid and 0
+// where it is not (the JAX function's weight times validity, which XLA
+// compiles to a select), summed from 0 in that order with fmaf, in fp32 (no
+// TF32, no fast math). So a corner outside the map adds zero on its own, and
+// a NaN point with a corner on the map gives a NaN output, a NaN point
+// gradient and NaNs added to the map gradient at its valid corners, as the
+// plain version (ops/grid_sample.py) and JAX give them. Offsets into the map
+// are int64 (B * H * W * C may pass 2^31).
 //
 // What bounds it on this card. At the R50-DCN's largest sampler (layer2.0:
 // a 200 x 336 x 128 map, 151,200 samples) the bytes that must move are the
 // map (34.4 MB), the points and the output (77.4 MB): 0.034 ms at HBM rate;
 // the backward reads the output gradient, map and points and writes the
 // two gradients, 0.044 ms. The arithmetic (4 corner FMAs a channel) is far
-// below the card's fp32 rate, so both are bound by bytes, and in practice
-// by the corner gathers: each sample reads 4 rows of C channels, 4x the
-// output, most of it from L2 (neighbouring taps share corners, and every
-// map fits in the 50 MB L2). The backward's map gradient is a scatter of
-// the same rows, bound by L2 atomic throughput.
+// below the card's fp32 rate, so both are bound by bytes. Each sample reads
+// 4 corner rows of C channels, 4x its output (310 MB at layer2.0), and the
+// backward adds as many into the map gradient by atomics; the 9 taps of an
+// output position and those of its neighbours share most of those rows.
+// The first forward (a lane group a sample, 8 samples a block) read each
+// block's rows from L2 with little reuse.
 //
-// Design (a first kernel, right and simple):
-// - Lanes: G lanes per sample (G the power of two >= C / kV, at most 32),
-//   kV = 4 channels a lane (16-byte loads, stores and sm_90's float4
-//   atomicAdd) where C % 4 == 0 and every channel pointer is 16-byte
-//   aligned, else 1. At C = 128, 256 and 512 a sample takes one warp, each
-//   lane 1, 2 or 4 float4s. Consecutive samples (a DCN's taps, then its
-//   output positions in raster order) are in consecutive lane groups.
-// - Every lane of a sample computes the corners and weights itself (a few
-//   dozen instructions, against 4 x C / G channel loads).
-// - Backward: the map gradient with one vector atomic per corner and lane
-//   into a zeroed fp32 map, skipped where all its products are exactly 0
-//   (adding +-0 to a sum that started at +0 changes nothing); the point
-//   gradient through the weights only: per corner the lane's sum of
-//   g * v, reduced over the sample's G lanes by xor shuffles, 0 for a
-//   corner off the map, times its weight's derivative in x and in y. The map
-//   gradient is not bit-reproducible: float atomics add in an order that
-//   changes from run to run.
+// Design:
+// - Forward: G lanes a sample (G the power of two >= C / kV, at most 32;
+//   kV = 4 channels a lane with 16-byte loads and stores where C % 4 == 0
+//   and the tensors are 16-byte aligned, else 1), and a block owns a run of
+//   `iters` passes of kThreads / G consecutive samples (the DCN's taps of
+//   consecutive output positions, in raster order), so that the corner rows
+//   a run's samples share are read by one SM within a few passes and its
+//   L1 serves the repeats. iters is as many passes, up to kMaxIters, as
+//   leave the card at least one wave of resident blocks: 4 at the
+//   R50-DCN's C = 128 and 256 maps, 1 at C = 512 (1,182 single-pass
+//   blocks, the first grid). The arithmetic and its order are the first
+//   kernel's, so the output equals its output bit for bit.
+// - Shared memory: none. A block that stages the box of its corners in
+//   shared memory (16 or 32 channels a slice, by cp.async, double- or
+//   single-buffered, with overflow rows for corners past the box and the
+//   rest read from device memory by the same load) ran slower than this
+//   kernel at every R50-DCN shape, and slower than the first kernel at the
+//   C = 256 and 512 ones: the box holds rows no sample reads, each slice
+//   waits on its copies, the run's planning costs a pass over its points,
+//   and L1 already serves the repeated rows. So there is no window and no
+//   out-of-window path: every corner is read through L1.
+// - Backward: the first kernel (the G lanes of a sample add g * w into each
+//   corner's row with one float4 atomicAdd a lane where a product is
+//   non-zero or NaN, and reduce the point gradient's corner dots by xor
+//   shuffles). Its float4 atomics, not its reads, bound it: the same kernel
+//   without the corner reads takes nearly all of its time. Merging the
+//   atomics of corners that neighbouring samples share first (a
+//   shared-memory window of the block's box, whose fp32 shared atomics
+//   compile to compare-and-swap loops on sm_90; a counting sort of the
+//   box's entries by pixel, summed in registers and flushed with one float4
+//   atomic a pixel and slice; per-pixel buckets gathered by a second
+//   kernel; a merge across a block's samples in shared memory) ran slower
+//   at every shape, the sorted window 1.5-2.4x: each needs the block's
+//   samples to synchronise,
+//   which exposes the L2 latency that the atomics hide. The run loop does
+//   not help it either. The C entry zeroes the map gradient itself
+//   (cudaMemsetAsync on the caller's stream, in place of the caller's fill
+//   kernel).
+// - Bit-reproducible: the forward output and the point gradient; NOT the
+//   map gradient (float atomics add in an order that changes from run to
+//   run).
 // - Offsets are int64 (a map of B * H * W * C elements may pass 2^31).
+#include <algorithm>
+#include <map>
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxIters = 4;  // passes a block at most
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Corners {
@@ -110,35 +141,38 @@ __device__ __forceinline__ void red_vec(float* p, const float (&v)[kV]) {
 }
 
 // feat (B, H, W, C), points (B, N, 2) as (x, y), out (B, N, C); G lanes a
-// sample, kThreads / G samples a block.
+// sample, a block `iters` passes of kThreads / G consecutive samples.
 template <int kV>
 __global__ void __launch_bounds__(kThreads)
 bilinear_fwd_kernel(const float* __restrict__ feat, const float* __restrict__ points,
                     float* __restrict__ out, int64_t samples, int64_t N, int H, int W, int C,
-                    int G) {
-  const int64_t s = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / G;
-  const int lane = threadIdx.x % G;
-  if (s >= samples) return;
-  Corners c;
-  corners(__ldg(points + 2 * s), __ldg(points + 2 * s + 1), H, W, c);
-  const float* img = feat + (s / N) * H * W * static_cast<int64_t>(C);
-  for (int ch = lane * kV; ch < C; ch += G * kV) {
-    float acc[kV];
+                    int G, int iters) {
+  const int per_pass = kThreads / G, lane = threadIdx.x % G;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * per_pass * iters;
+  const int64_t last = min(first + static_cast<int64_t>(per_pass) * iters, samples);
+  for (int64_t s = first + threadIdx.x / G; s < last; s += per_pass) {
+    Corners c;
+    corners(__ldg(points + 2 * s), __ldg(points + 2 * s + 1), H, W, c);
+    const float* img = feat + (s / N) * H * W * static_cast<int64_t>(C);
+    for (int ch = lane * kV; ch < C; ch += G * kV) {
+      float acc[kV];
 #pragma unroll
-    for (int j = 0; j < kV; ++j) acc[j] = 0.f;
+      for (int j = 0; j < kV; ++j) acc[j] = 0.f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float v[kV];
-      load_vec<kV>(img + c.row[k] * C + ch, v);
+      for (int k = 0; k < 4; ++k) {
+        float v[kV];
+        load_vec<kV>(img + c.row[k] * C + ch, v);
 #pragma unroll
-      for (int j = 0; j < kV; ++j) acc[j] = fmaf(v[j], c.w[k], acc[j]);
+        for (int j = 0; j < kV; ++j) acc[j] = fmaf(v[j], c.w[k], acc[j]);
+      }
+      store_vec<kV>(out + s * C + ch, acc);
     }
-    store_vec<kV>(out + s * C + ch, acc);
   }
 }
 
-// grad_out (B, N, C) -> grad_feat (B, H, W, C) added into (zeroed by the
-// caller) and grad_points (B, N, 2) written.
+// grad_out (B, N, C) -> grad_feat (B, H, W, C) added into (zeroed by the C
+// entry) and grad_points (B, N, 2) written; G lanes a sample, kThreads / G
+// samples a block.
 template <int kV>
 __global__ void __launch_bounds__(kThreads)
 bilinear_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ points,
@@ -199,6 +233,52 @@ bool valid_sizes(int64_t B, int64_t H, int64_t W, int64_t C, int64_t N) {
          W <= 2147483647 && C <= 2147483647 && H * W <= (int64_t{1} << 62) / C;
 }
 
+// The blocks of the forward kernel<kV> that the device holds at once (SMs x
+// blocks an SM), worked out once per device: a launch after the first
+// makes no attribute or occupancy query.
+template <int kV>
+int resident_blocks(int64_t* blocks) {
+  static std::mutex mu;
+  static std::map<int, int64_t> known;
+  int device = 0;
+  int code = static_cast<int>(cudaGetDevice(&device));
+  if (code != 0) return code;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(device);
+  if (it != known.end()) {
+    *blocks = it->second;
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  code = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  if (code == 0)
+    code = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bilinear_fwd_kernel<kV>, kThreads, 0));
+  if (code != 0) return code;
+  if (per_sm < 1) return RDETR_INVALID;
+  *blocks = known[device] = static_cast<int64_t>(sms) * per_sm;
+  return 0;
+}
+
+// The forward's launch: as many passes a block, up to kMaxIters, as leave
+// at least one wave of resident blocks.
+template <int kV>
+int launch_fwd(const float* feat, const float* points, float* out, int64_t samples, int64_t N,
+               int H, int W, int C, cudaStream_t st) {
+  int64_t resident = 0;
+  const int code = resident_blocks<kV>(&resident);
+  if (code != 0) return code;
+  const int G = lanes_per_sample(C, kV);
+  const int64_t passes = (samples + kThreads / G - 1) / (kThreads / G);
+  const int iters =
+      static_cast<int>(std::min<int64_t>(kMaxIters, std::max<int64_t>(1, passes / resident)));
+  const int64_t blocks = (passes + iters - 1) / iters;
+  if (blocks > 2147483647) return RDETR_INVALID;
+  bilinear_fwd_kernel<kV><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      feat, points, out, samples, N, H, W, C, G, iters);
+  RDETR_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 // feat (B, H, W, C), points (B, N, 2), out (B, N, C): fp32, contiguous.
@@ -208,29 +288,26 @@ extern "C" int bilinear_sample_fwd(const float* feat, const float* points, float
   if (!valid_sizes(B, H, W, C, N)) return RDETR_INVALID;
   const int64_t samples = B * N;
   if (samples == 0) return 0;
-  const int kV = C % 4 == 0 && aligned16(feat) && aligned16(out) ? 4 : 1;
-  const int G = lanes_per_sample(C, kV);
-  const int64_t blocks = (samples * G + kThreads - 1) / kThreads;
-  if (blocks > 2147483647) return RDETR_INVALID;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kV == 4)
-    bilinear_fwd_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        feat, points, out, samples, N, static_cast<int>(H), static_cast<int>(W),
-        static_cast<int>(C), G);
-  else
-    bilinear_fwd_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        feat, points, out, samples, N, static_cast<int>(H), static_cast<int>(W),
-        static_cast<int>(C), G);
-  RDETR_RETURN_LAUNCH_STATUS();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(H), w = static_cast<int>(W), c = static_cast<int>(C);
+  if (C % 4 == 0 && aligned16(feat) && aligned16(out))
+    return launch_fwd<4>(feat, points, out, samples, N, h, w, c, st);
+  return launch_fwd<1>(feat, points, out, samples, N, h, w, c, st);
 }
 
-// grad_out (B, N, C) -> grad_feat (B, H, W, C), which the caller zeroes,
-// and grad_points (B, N, 2), written whole: fp32, contiguous.
+// grad_out (B, N, C) -> grad_feat (B, H, W, C), zeroed here, and
+// grad_points (B, N, 2), written whole: fp32, contiguous.
 extern "C" int bilinear_sample_bwd(const float* feat, const float* points,
                                    const float* grad_out, float* grad_feat, float* grad_points,
                                    int64_t B, int64_t H, int64_t W, int64_t C, int64_t N,
                                    void* stream) {
   if (!valid_sizes(B, H, W, C, N)) return RDETR_INVALID;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B > 0) {
+    const int code = static_cast<int>(cudaMemsetAsync(
+        grad_feat, 0, static_cast<size_t>(B * H * W * C) * sizeof(float), s));
+    if (code != 0) return code;
+  }
   const int64_t samples = B * N;
   if (samples == 0) return 0;
   const int kV = C % 4 == 0 && aligned16(feat) && aligned16(grad_out) && aligned16(grad_feat)
@@ -238,7 +315,6 @@ extern "C" int bilinear_sample_bwd(const float* feat, const float* points,
   const int G = lanes_per_sample(C, kV);
   const int64_t blocks = (samples * G + kThreads - 1) / kThreads;
   if (blocks > 2147483647) return RDETR_INVALID;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kV == 4)
     bilinear_bwd_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         feat, points, grad_out, grad_feat, grad_points, samples, N, static_cast<int>(H),

@@ -8,10 +8,14 @@ tensors it launches ``csrc/grid_sample.cu::bilinear_sample_fwd`` (whose
 header says what bounds it on the card), on CPU tensors it computes
 ``bilinear_sample_reference``. A call that needs a gradient goes through
 ``BilinearSampleFunction``, whose forward calls the same op and whose
-backward is ``bilinear_sample_backward``: on CUDA tensors the kernel
-``bilinear_sample_bwd`` (the map and point gradients in one launch), on CPU
+backward is ``bilinear_sample_backward``: on CUDA tensors one call of the C
+entry ``csrc/grid_sample.cu::bilinear_sample_bwd`` (it zeroes the map
+gradient and launches the kernel that computes both gradients), on CPU
 tensors ``bilinear_sample_backward_reference``, the backward written out.
-The card's kernels take fp32 only; another dtype there raises.
+The card's kernels take fp32 only; another dtype there raises, and nothing
+on a CUDA tensor moves to the plain version or the CPU. A launch checks its
+arguments once, takes the raw handle of the current stream, and enters a
+device context only where the tensors' card is not the current one.
 """
 from __future__ import annotations
 
@@ -95,16 +99,30 @@ def bilinear_sample_backward_reference(feat, points, grad_out):
 
 
 def _check_cuda_args(feat: torch.Tensor, points: torch.Tensor, grad_out=None) -> None:
-    tensors = (feat, points) if grad_out is None else (feat, points, grad_out)
-    if any(t.dtype != torch.float32 or t.device != feat.device or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("bilinear_sample's kernels take contiguous fp32 tensors on one card")
-    b, _, _, c = feat.shape
-    if points.dim() != 3 or points.shape[0] != b or points.shape[2] != 2:
-        raise ValueError(f"bilinear_sample: points {tuple(points.shape)} for a map "
-                         f"{tuple(feat.shape)}")
-    if grad_out is not None and grad_out.shape != (b, points.shape[1], c):
-        raise ValueError(f"bilinear_sample_bwd: bad grad_out {tuple(grad_out.shape)}")
+    """Raise unless feat (B, H, W, C), points (B, N, 2) and grad_out (B, N,
+    C) are contiguous fp32 tensors on feat's card."""
+    dev, f32 = feat.device, torch.float32
+    if not (feat.dim() == 4 and points.dim() == 3 and feat.dtype == f32 and points.dtype == f32
+            and points.device == dev and feat.is_contiguous() and points.is_contiguous()
+            and points.shape[0] == feat.shape[0] and points.shape[2] == 2
+            and (grad_out is None
+                 or (grad_out.dtype == f32 and grad_out.device == dev and grad_out.is_contiguous()
+                     and grad_out.shape == (feat.shape[0], points.shape[1], feat.shape[3])))):
+        shapes = [tuple(t.shape) for t in (feat, points, grad_out) if t is not None]
+        raise ValueError("bilinear_sample's kernels take contiguous fp32 tensors on one card: "
+                         f"feat (B, H, W, C), points (B, N, 2), grad_out (B, N, C); got {shapes}")
+
+
+def _launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream (its raw handle,
+    as ``torch.cuda.current_stream(index).cuda_stream`` gives it without
+    building a ``Stream``), under a device context only where ``device`` is
+    not the current card."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def _bilinear_sample_fwd(feat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -115,9 +133,8 @@ def _bilinear_sample_fwd(feat: torch.Tensor, points: torch.Tensor) -> torch.Tens
     n = points.shape[1]
     lib = _build.load_library()
     out = torch.empty(b, n, c, dtype=feat.dtype, device=feat.device)
-    with torch.cuda.device(feat.device):
-        code = lib.bilinear_sample_fwd(feat.data_ptr(), points.data_ptr(), out.data_ptr(),
-                                       b, h, w, c, n, torch.cuda.current_stream().cuda_stream)
+    code = _launch(lib.bilinear_sample_fwd, feat.device, feat.data_ptr(), points.data_ptr(),
+                   out.data_ptr(), b, h, w, c, n)
     _build.check(lib, code, "bilinear_sample_fwd")
     bilinear_sample.launches += 1
     return out
@@ -129,8 +146,8 @@ _FWD = library.OPS.bilinear_sample_fwd.default
 
 def bilinear_sample_backward(feat, points, grad_out):
     """grad_out (B, N, C) -> (grad_feat (B, H, W, C), grad_points (B, N, 2)):
-    on CUDA tensors one ``csrc/grid_sample.cu::bilinear_sample_bwd`` launch
-    (into a map gradient zeroed here), on CPU tensors
+    on CUDA tensors one ``csrc/grid_sample.cu::bilinear_sample_bwd`` call
+    (which zeroes the map gradient itself), on CPU tensors
     ``bilinear_sample_backward_reference``."""
     if feat.device.type == "cpu":
         return bilinear_sample_backward_reference(feat, points, grad_out)
@@ -139,12 +156,11 @@ def bilinear_sample_backward(feat, points, grad_out):
     b, h, w, c = feat.shape
     n = points.shape[1]
     lib = _build.load_library()
-    grad_feat = torch.zeros_like(feat)
+    grad_feat = torch.empty_like(feat)
     grad_points = torch.empty_like(points)
-    with torch.cuda.device(feat.device):
-        code = lib.bilinear_sample_bwd(feat.data_ptr(), points.data_ptr(), grad_out.data_ptr(),
-                                       grad_feat.data_ptr(), grad_points.data_ptr(), b, h, w,
-                                       c, n, torch.cuda.current_stream().cuda_stream)
+    code = _launch(lib.bilinear_sample_bwd, feat.device, feat.data_ptr(), points.data_ptr(),
+                   grad_out.data_ptr(), grad_feat.data_ptr(), grad_points.data_ptr(), b, h, w,
+                   c, n)
     _build.check(lib, code, "bilinear_sample_bwd")
     bilinear_sample_backward.launches += 1
     return grad_feat, grad_points
@@ -190,3 +206,4 @@ def bilinear_sample(feat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
 
 
 bilinear_sample.launches = 0
+

@@ -258,7 +258,7 @@ def tools_and_drawing():
     from relation_detr_tpu_torch.ops import library  # noqa: F401
     from relation_detr_tpu_torch.tools import (  # noqa: F401
         benchmark_model, convert_torch_weights, export_model, make_synth_coco_scale,
-        mc_distribution, visualize_datasets)
+        mc_distribution, sampler_ab, visualize_datasets)
     from relation_detr_tpu_torch.utils import flops, visualize  # noqa: F401
 
     img = visualize.plot_bounding_boxes_on_image(
@@ -1037,14 +1037,31 @@ def test_nvjpeg_decode_matches_cv2_on_card():
     assert image_io.ycc_to_rgb.launches == launches + 1 + 4 * launching
 
 
+def _dcn_points(rng, b, h, w, stride, sigma):
+    """The 3x3 taps of every output position at ``stride``, in raster order
+    as a DCN samples them, with offsets of N(0, sigma) pixels: (b, n, 2)."""
+    taps = np.arange(3) - 1
+    ys = (np.arange(-(-h // stride)) * stride)[:, None, None, None] + taps[:, None]
+    xs = (np.arange(-(-w // stride)) * stride)[None, :, None, None] + taps
+    grid = np.stack(np.broadcast_arrays(xs, ys), -1).reshape(1, -1, 2)
+    return np.repeat(grid, b, 0) + rng.randn(b, grid.shape[1], 2) * sigma
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 9, 11, 8, 300), (1, 7, 5, 3, 120), (1, 50, 84, 256, 4000)])
-def test_bilinear_sample_kernels_match_plain_versions_on_card(shape):
+@pytest.mark.parametrize("layout, shape", [
+    ("uniform", (2, 9, 11, 8, 300)), ("uniform", (1, 7, 5, 3, 120)),
+    ("uniform", (1, 50, 84, 256, 4000)),
+    ("dcn", (2, 50, 84, 128, 1)),   # DCN taps at stride 1, offsets N(0, 1.5)
+    ("wide", (1, 100, 168, 128, 2))])  # stride 2, offsets N(0, 8), far-off and NaN points
+def test_bilinear_sample_kernels_match_plain_versions_on_card(layout, shape):
     """``bilinear_sample_fwd`` and ``bilinear_sample_bwd`` against their plain
-    versions on the card (float4 lanes at C = 8 and 256, scalar at C = 3):
-    points on integers, off the map on every side, and a NaN point (NaN out,
-    NaN gradients at the same places); the launches counted, through the
-    op without gradients and through the Function with them."""
+    versions on the card (float4 lanes at C = 8, 128 and 256, scalar at C =
+    3): uniform points on integers, off the map on every side, and a NaN
+    point (NaN out, NaN gradients at the same places); a DCN's taps of
+    consecutive output positions (the forward's runs of neighbouring
+    samples), and the same with wide offsets plus far-off, saturating and
+    NaN points; the launches counted, through the op without gradients and
+    through the Function with them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card, not on a CPU-only host)")
     from relation_detr_tpu_torch.ops import grid_sample
@@ -1052,8 +1069,17 @@ def test_bilinear_sample_kernels_match_plain_versions_on_card(shape):
     b, h, w, c, n = shape
     rng = np.random.RandomState(h * w + c)
     feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).cuda()
-    pts = np.stack([rng.uniform(-2, w + 1, (b, n)), rng.uniform(-2, h + 1, (b, n))], -1)
-    pts[:, :n // 4] = np.floor(pts[:, :n // 4])
+    if layout == "uniform":
+        pts = np.stack([rng.uniform(-2, w + 1, (b, n)), rng.uniform(-2, h + 1, (b, n))], -1)
+        pts[:, :n // 4] = np.floor(pts[:, :n // 4])
+    else:  # n: the taps' stride
+        pts = _dcn_points(rng, b, h, w, n, 1.5 if layout == "dcn" else 8.0)
+        n = pts.shape[1]
+    if layout == "wide":
+        pts[:, ::97] = (-1e4, 5.0)
+        pts[:, 1::97] = (3e9, -3e9)
+        pts[:, 2::97, 0] = np.nan
+        pts[:, 3::97] = np.nan
     pts[0, n // 2] = np.nan
     pts = torch.from_numpy(pts.astype(np.float32)).cuda()
     grad_out = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).cuda()
